@@ -1,0 +1,28 @@
+"""Architecture registry of the port: ``--arch <id>`` resolves here.
+
+Only the archs the port serves so far are copied from ``repro.configs``;
+the rest join with their slice (ROADMAP.md, queue A).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
+
+_ARCH_MODULES: Dict[str, str] = {
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+}
+
+ARCH_IDS: List[str] = list(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; options: "
+                       f"{ARCH_IDS}")
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+__all__ = ["ARCH_IDS", "BlockSpec", "ModelConfig", "MoEConfig", "get_config",
+           "reduced"]

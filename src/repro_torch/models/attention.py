@@ -1,0 +1,217 @@
+"""GQA attention for the paged serving path.
+
+Port of the paged half of ``repro/models/attention.py``: projections,
+the chunked online-softmax causal attention that paged prefill uses, and
+the shared page pool with its prefill-chunk and decode entry points.  The
+dense ``prefill``/``decode`` caches, windows and int8 KV come with the
+dense engines (ROADMAP.md, queue A).
+
+The JAX code returns new page pools and donates the old ones; the port
+writes the pools in place (``index_put_``) and returns the same dict.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_attention(generator: torch.Generator, cfg, dtype: torch.dtype,
+                   device: torch.device) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {
+        "wq": dense_init(generator, d, cfg.num_heads * hd, dtype, device),
+        "wk": dense_init(generator, d, cfg.num_kv_heads * hd, dtype, device),
+        "wv": dense_init(generator, d, cfg.num_kv_heads * hd, dtype, device),
+        "wo": dense_init(generator, cfg.num_heads * hd, d, dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.num_heads), ("bk", cfg.num_kv_heads),
+                            ("bv", cfg.num_kv_heads)):
+            p[name] = torch.zeros((width * hd,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p, cfg, x, positions, use_rope):
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE applied."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, cfg.num_heads, hd)
+    k = k.reshape(B, S, cfg.num_kv_heads, hd)
+    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# chunked causal attention (online softmax, plain PyTorch)
+# ---------------------------------------------------------------------------
+
+
+def _pick_chunk(S: int, target: int = 1024) -> int:
+    c = min(S, target)
+    while S % c:
+        c //= 2
+    return max(c, 1)
+
+
+def chunked_causal_attention(q, k, v, *, window: Optional[int] = None,
+                             q_offset: int = 0, q_chunk: int = 1024,
+                             kv_chunk: int = 1024) -> torch.Tensor:
+    """q (B,Sq,H,hd); k,v (B,Skv,KV,hd) -> (B,Sq,H,hd).
+
+    Causal within absolute positions: query i (at q_offset+i) attends keys
+    j <= q_offset+i and, if windowed, j > q_offset+i - window.  Scores and
+    the running softmax are f32; probabilities are rounded to the value
+    dtype before the PV product, as in the reference.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q_chunk = _pick_chunk(Sq, q_chunk)
+    kv_chunk = _pick_chunk(Skv, kv_chunk)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    qc = q.reshape(B, Sq, KV, G, hd)
+    outs = []
+    for qs in range(0, Sq, q_chunk):
+        qi = qc[:, qs:qs + q_chunk].float()            # (B,Cq,KV,G,hd)
+        qpos = q_offset + qs + torch.arange(q_chunk, device=dev)
+        m = torch.full((B, q_chunk, KV, G), NEG_INF, device=dev)
+        l = torch.zeros((B, q_chunk, KV, G), device=dev)
+        acc = torch.zeros((B, q_chunk, KV, G, hd), device=dev)
+        for ks in range(0, Skv, kv_chunk):
+            ki = k[:, ks:ks + kv_chunk]
+            vi = v[:, ks:ks + kv_chunk]
+            kpos = ks + torch.arange(kv_chunk, device=dev)
+            s = torch.einsum("bqkgd,bckd->bqkgc", qi, ki.float()) * scale
+            mask = kpos[None, :] <= qpos[:, None]              # (Cq,Ckv)
+            if window is not None:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            s = s.masked_fill(~mask[None, :, None, None, :], NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p_ = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p_.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bqkgc,bckd->bqkgd", p_.to(vi.dtype).float(), vi.float())
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=1).reshape(B, Sq, H, hd)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (vLLM-style shared page pool)
+# ---------------------------------------------------------------------------
+#
+# Layout: one pool per layer, {"k_pages": (P, KV, ps, hd), "v_pages": ...};
+# page 0 is the allocator's reserved null page (never handed to a live
+# sequence), so clamped/unmapped block-table entries and masked write lanes
+# land there harmlessly.  The block table is shared across layers.
+
+
+def init_paged_kv_cache(cfg, blk, num_pages: int, page_size: int,
+                        device: torch.device) -> dict:
+    """Empty per-layer page pool."""
+    if blk.window is not None or cfg.kv_cache_dtype == "int8":
+        raise ValueError(
+            "paged KV serving supports full-attention model-dtype caches "
+            f"only (window={blk.window}, kv_cache_dtype="
+            f"{cfg.kv_cache_dtype})")
+    dtype = getattr(torch, cfg.dtype)
+    shape = (num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _page_of(block_table: torch.Tensor, pos: torch.Tensor,
+             page_size: int) -> torch.Tensor:
+    """Physical page ids for logical positions; overshoot clamps onto the
+    table's trailing null-padded entries (see ServeEngine row padding)."""
+    idx = torch.clamp(pos // page_size, 0, block_table.shape[-1] - 1)
+    return torch.gather(block_table.long(), -1, idx.long())
+
+
+def _scatter_pages(pages: torch.Tensor, vals: torch.Tensor,
+                   block_table: torch.Tensor, start: int) -> torch.Tensor:
+    """Write ``vals`` (n, KV, hd) at positions start..start+n-1 of one
+    sequence, in place.  pages (P, KV, ps, hd); block_table (W,)."""
+    ps = pages.shape[2]
+    pos = start + torch.arange(vals.shape[0], device=pages.device)
+    page = _page_of(block_table, pos, ps)
+    pages[page, :, pos % ps] = vals.to(pages.dtype)
+    return pages
+
+
+def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
+                  max_ctx: int) -> torch.Tensor:
+    """Dense (max_ctx, KV, hd) view of one sequence's pages (garbage past
+    the written length — callers mask by position)."""
+    ps = pages.shape[2]
+    pos = torch.arange(max_ctx, device=pages.device)
+    page = _page_of(block_table, pos, ps)
+    return pages[page, :, pos % ps]
+
+
+def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
+                        ) -> Tuple[torch.Tensor, dict]:
+    """One prompt chunk through paged attention.  x (1, C, d) holds tokens
+    at absolute positions start..start+C-1 (the tail may be padding).
+
+    Writes the chunk's KV into the pool, then attends the chunk's queries
+    against the full gathered context with absolute causal masking."""
+    B, C, _ = x.shape
+    positions = start + torch.arange(C, device=x.device)[None]   # (1, C)
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
+    k_pages = _scatter_pages(cache["k_pages"], k[0], block_table, start)
+    v_pages = _scatter_pages(cache["v_pages"], v[0], block_table, start)
+    max_ctx = block_table.shape[-1] * k_pages.shape[2]
+    kd = _gather_pages(k_pages, block_table, max_ctx)[None]   # (1,ctx,KV,hd)
+    vd = _gather_pages(v_pages, block_table, max_ctx)[None]
+    out = chunked_causal_attention(q, kd, vd, q_offset=start,
+                                   q_chunk=cfg.attn_chunk,
+                                   kv_chunk=cfg.attn_chunk)
+    out = out.reshape(B, C, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return out, cache
+
+
+def paged_decode(p, cfg, blk, x, cache, block_tables, lengths
+                 ) -> Tuple[torch.Tensor, dict]:
+    """One-token decode over the shared page pool.
+
+    x (B, 1, d); block_tables (B, W) int32; lengths (B,) int32 tokens
+    already written per lane.  Writes the new token's KV at position
+    lengths[b] in place, then attends lengths[b]+1 tokens through
+    ``ops.paged_flash_decode`` (the CUDA kernel on the card).  Inactive
+    lanes pass a null table and length 0: their writes and reads hit the
+    reserved null page and the engine discards their outputs."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    B = x.shape[0]
+    hd = cfg.head_dim
+    q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)
+    ps = cache["k_pages"].shape[2]
+    page = _page_of(block_tables, lengths[:, None], ps)[:, 0]   # (B,)
+    slot = lengths.long() % ps
+    dtype = cache["k_pages"].dtype
+    cache["k_pages"][page, :, slot] = k[:, 0].to(dtype)
+    cache["v_pages"][page, :, slot] = v[:, 0].to(dtype)
+    out = kernel_ops.paged_flash_decode(q[:, 0].contiguous(),
+                                        cache["k_pages"], cache["v_pages"],
+                                        block_tables, lengths + 1)
+    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
+    return out @ p["wo"], cache

@@ -1,0 +1,78 @@
+"""Engine-cluster construction and warm-up for the launcher.
+
+Port of ``build_engines`` and ``warmup`` from
+``repro/serving/builders.py``.  ``build_fleet`` (mixed paged + dense
+fleets) comes with the dense engines (ROADMAP.md A3) and
+``build_sharded_engine`` with A7.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs import get_config, reduced
+from repro_torch.models.transformer import init_params
+from repro_torch.serving.engine import ServeEngine
+
+
+def default_depths(n_edge: int) -> List[int]:
+    """Heterogeneous layer depths — the cluster's speed diversity."""
+    return [2 + 2 * (i % 2) for i in range(n_edge)]
+
+
+def build_engines(arch: str, n_edge: int, max_len: int, *,
+                  kv_slots: int = 4, sample: bool = False,
+                  depths: Optional[Sequence[int]] = None,
+                  seed0: int = 0, page_size: int = 16,
+                  max_lanes: Optional[int] = None,
+                  prefill_chunk: int = 64,
+                  prefix_cache: Optional[bool] = None,
+                  device: DeviceLike = None,
+                  full_scale: bool = False) -> List[ServeEngine]:
+    """n_edge replicas of ``arch`` on ``device`` (``cuda`` by default).
+
+    ``full_scale=False`` serves ``reduced()`` configs at ``depths``
+    (default: the reference's alternating 2/4 layers), as the reference
+    does.  ``full_scale=True`` keeps the published widths and dtype, with
+    the depth from ``depths`` or, when that is not given, the config's
+    own.  Weights are random, drawn on the device from a generator seeded
+    ``seed0 + i`` for engine i."""
+    device = resolve_device(device)
+    base = get_config(arch)
+    if not full_scale:
+        base = reduced(base)
+        depths = (list(depths) if depths is not None
+                  else default_depths(n_edge))
+    elif depths is None:
+        depths = [base.num_layers] * n_edge
+    engines = []
+    for i in range(n_edge):
+        cfg = dataclasses.replace(base, num_layers=depths[i])
+        gen = torch.Generator(device=device).manual_seed(seed0 + i)
+        params = init_params(cfg, gen, device)
+        engines.append(ServeEngine(cfg, params, max_len=max_len,
+                                   kv_slots=kv_slots, sample=sample,
+                                   page_size=page_size,
+                                   max_lanes=max_lanes,
+                                   prefill_chunk=prefill_chunk,
+                                   prefix_cache=prefix_cache,
+                                   arch_id=arch, device=device,
+                                   seed=seed0 + i))
+    return engines
+
+
+def warmup(engines: Sequence[ServeEngine], prompt_len: int,
+           gen_tokens: int = 2) -> None:
+    """Run one short request through every engine before timed serving
+    (builds the CUDA kernel, wakes the libraries and the allocator), then
+    reset it."""
+    rng = np.random.default_rng(1)
+    for e in engines:
+        warm = rng.integers(0, e.cfg.vocab_size, (1, prompt_len),
+                            dtype=np.int32)
+        e.generate(warm, max(gen_tokens, 2))
+        e.reset()

@@ -1,0 +1,547 @@
+"""Continuous-batching serving engine over the shared KV page pool.
+
+Port of the paged path of ``repro/serving/engine.py``.  One engine wraps
+one model replica on one device.  KV memory is a shared pool of
+fixed-size pages per layer; each request holds only the pages its prompt
+plus generation need, named by a per-request block table.  Admission is
+gated on free pages and a free lane (up to ``max_lanes``); prefill is
+chunked, one ``prefill_chunk``-token chunk per prefilling lane per step,
+followed by one decode round across the lanes that finished prefilling.
+Completed prompt blocks stay in a prefix cache, shared by refcount with
+later prompts whose token-block chain matches; a lane that diverges
+mid-block forks the cached page copy-on-write.
+
+Stepping is split into :meth:`dispatch`, which admits, enqueues this
+step's prefill chunks and decode round on the device and returns without
+waiting for it, and :meth:`collect`, which makes one device-to-host
+transfer and finalizes requests.  ``step() == dispatch(); collect()``.
+Dispatch moves host data to the device through pinned buffers with
+``non_blocking=True``, so it never waits for queued device work; tokens
+that feed the next round stay on the device.
+
+The dense slot pool (recurrent and windowed configs) comes with the dense
+engines (ROADMAP.md A3); fault transitions (``fail``/``degrade``) with
+the fault slice (A4).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.cluster.request import Request
+from repro_torch.faults.policy import Health
+from repro_torch.serving import compiled
+from repro_torch.serving.paged_kv import (BlockTable, PagePool, PrefixCache,
+                                          cdiv, paged_supported)
+from repro_torch.workload.capability import (EngineCapability,
+                                             cold_token_seconds)
+from repro_torch.workload.queueing import EDFQueue
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Batch-level result of the blocking :meth:`ServeEngine.generate`."""
+
+    tokens: list
+    prefill_s: float
+    decode_s: float
+    queue_s: float
+
+    @property
+    def total_s(self) -> float:
+        return self.prefill_s + self.decode_s + self.queue_s
+
+
+@dataclasses.dataclass
+class _Lane:
+    """One in-flight request."""
+
+    req: Request
+    table: BlockTable
+    prompt_len: int
+    chunk_pos: int = 0       # next prompt position to prefill
+    length: int = 0          # KV positions written so far
+    last_tok: Optional[torch.Tensor] = None   # (1,) int32, on the device
+
+    @property
+    def decoding(self) -> bool:
+        return self.chunk_pos >= self.prompt_len
+
+
+@dataclasses.dataclass
+class _Pending:
+    """Device work enqueued by :meth:`ServeEngine.dispatch`, awaiting its
+    :meth:`~ServeEngine.collect`.
+
+    ``prefill`` holds ``(req, tok_device, pos, finished)`` for each prompt
+    that completed prefilling this step; ``decode`` holds the round's
+    device tokens plus ``(lane, req, pos, finished)`` per participant.
+    Finish decisions are structural (token counts), resolved at dispatch
+    time; only values and timestamps wait for the transfer."""
+
+    prefill: List[Tuple[Request, torch.Tensor, int, bool]] = \
+        dataclasses.field(default_factory=list)
+    decode: Optional[Tuple[torch.Tensor,
+                           List[Tuple[int, Request, int, bool]]]] = None
+
+
+class ServeEngine:
+    """Continuous-batching engine for one model replica on one device."""
+
+    def __init__(self, cfg, params, *, max_len: int = 256,
+                 kv_slots: int = 4, sample: bool = False,
+                 temperature: float = 1.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 max_lanes: Optional[int] = None,
+                 prefill_chunk: int = 64,
+                 prefix_cache: Optional[bool] = None,
+                 arch_id: Optional[str] = None,
+                 device: DeviceLike = None, seed: int = 0):
+        self.device = resolve_device(device)
+        wdev = params["embed"]["embed"].device
+        if wdev.type != self.device.type:
+            raise ValueError(f"params live on {wdev}, engine device is "
+                             f"{self.device}")
+        if not paged_supported(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: the dense slot pool is not ported to "
+                f"repro_torch yet (ROADMAP.md A3)")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.kv_slots = kv_slots
+        self.sample = sample
+        self.arch_id = arch_id or cfg.name
+        self._clock = clock
+        self._queue = EDFQueue()
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._zero_tok = torch.zeros((1,), dtype=torch.int32,
+                                     device=self.device)
+        self._ewma_tok_s = 0.0         # measured seconds per decode token
+        self._next_rid = 0
+        self.peak_inflight = 0
+        self.decode_rounds = 0         # decode rounds dispatched since reset
+        self._pending: Optional[_Pending] = None
+        self._round_t0 = 0.0
+        self.health = Health.HEALTHY
+        self.prefill_tokens_saved = 0
+        self.prefix_hits = 0
+        self.prefix_lookups = 0
+        self.cow_forks = 0
+
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        if num_pages is None:
+            # the KV token budget a dense pool would hold, plus the null page
+            num_pages = 1 + kv_slots * cdiv(max_len, page_size)
+        self.num_pages = num_pages
+        self.max_lanes = max_lanes or 2 * kv_slots
+        # fixed table width: a max_len request plus null padding for
+        # chunked-prefill overshoot writes
+        self._row_width = (cdiv(max_len, page_size)
+                           + cdiv(prefill_chunk, page_size) + 1)
+        self._pool = PagePool(num_pages, page_size)
+        self._lanes: List[Optional[_Lane]] = [None] * self.max_lanes
+        self._paged_states = None      # built lazily on first admission
+        self._paged_prefill = compiled.paged_prefill_step(
+            cfg, num_pages, page_size)
+        self._paged_decode = compiled.paged_decode_step(
+            cfg, num_pages, page_size, sample, temperature)
+        if prefix_cache is None or prefix_cache:
+            self._prefix: Optional[PrefixCache] = PrefixCache(self._pool)
+            self._page_copy = compiled.page_copy_step(cfg, num_pages,
+                                                      page_size)
+        else:
+            self._prefix = None
+            self._page_copy = None
+
+    # ------------------------------------------------------------------
+    # continuous-batching core
+    # ------------------------------------------------------------------
+    def admit(self, req: Request) -> None:
+        """Enqueue a request; it joins the decode batch when a lane and
+        enough free pages open up."""
+        if self.health is Health.DOWN:
+            raise RuntimeError(f"engine {getattr(self, 'engine_id', '?')} "
+                               f"({self.arch_id}) is DOWN; cannot admit "
+                               f"request {req.rid}")
+        req.t_enqueue = self._clock()
+        req.engine_id = getattr(self, "engine_id", None)
+        self._queue.append(req)
+
+    def step(self) -> List[Request]:
+        """One scheduling iteration; returns requests finished this step."""
+        if not self.dispatch():
+            return []
+        return self.collect()
+
+    def dispatch(self) -> bool:
+        """Enqueue one step's device work without waiting for the device.
+
+        Returns False when the engine is DOWN or idle."""
+        if self._pending is not None:
+            raise RuntimeError("dispatch() with an uncollected step in "
+                               "flight; call collect() first")
+        if self.health is Health.DOWN:
+            return False
+        if not self._queue and not self._inflight_requests():
+            return False
+        self._pending = self._dispatch_paged()
+        return True
+
+    def collect(self) -> List[Request]:
+        """Wait for the dispatched step and finalize requests.
+
+        One device-to-host transfer per engine per step: the prefill
+        first-tokens and the decode round's tokens travel together.
+        Returns the requests finished this step, prefill completions
+        first."""
+        if self._pending is None:
+            return []
+        pend, self._pending = self._pending, None
+        finished: List[Request] = []
+        parts = [tok for _, tok, _, _ in pend.prefill]
+        if pend.decode is not None:
+            parts.append(pend.decode[0])
+        if not parts:
+            return finished
+        host = torch.cat(parts).cpu().numpy()      # blocks until ready
+        if pend.decode is not None:
+            self._note_round(self._round_t0, len(pend.decode[1]))
+
+        for j, (req, _, pos, fin) in enumerate(pend.prefill):
+            req.tokens[pos] = host[j:j + 1]
+            req.t_prefill_end = self._clock()
+            if fin:
+                req.finish(req.t_prefill_end)
+                finished.append(req)
+
+        if pend.decode is not None:
+            tok_np = host[len(pend.prefill):]
+            now = self._clock()
+            for i, req, pos, fin in pend.decode[1]:
+                req.tokens[pos] = tok_np[i:i + 1]
+                if fin:
+                    req.finish(now)
+                    finished.append(req)
+        return finished
+
+    @property
+    def pending_collect(self) -> bool:
+        """True between a dispatch() and its collect()."""
+        return self._pending is not None
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without waiting for queued device
+        work: a blocking copy from pageable memory would synchronise the
+        stream, so CUDA copies go through a pinned buffer."""
+        t = torch.from_numpy(np.array(a, order="C"))    # own, writable
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch_paged(self) -> _Pending:
+        pend = _Pending()
+        # 1. admission — head-of-line, gated on free pages (worst case
+        # reserved up front) and a free lane, in queue (EDF/FIFO) order
+        free = [i for i, ln in enumerate(self._lanes) if ln is None]
+        while free and self._queue:
+            req = self._queue[0]
+            plen = self._prompt_len(req)
+            total = plen + req.max_new_tokens
+            need = self._pool.pages_needed(total)
+            if need > self._row_width - 1 - cdiv(self.prefill_chunk,
+                                                 self.page_size):
+                raise ValueError(
+                    f"request needs {need} pages > per-request capacity "
+                    f"(max_len={self.max_len})")
+            # prefix match, capped at plen - 1 so the last position is
+            # always prefilled (its logits give the first token)
+            m = None
+            if self._prefix is not None:
+                m = self._prefix.match(req.prompt, max_tokens=plen - 1)
+                self.prefix_lookups += 1
+            shared = m.pages if m is not None else []
+            # retain matched pages first so eviction below cannot free
+            # them, then make room for the private remainder
+            if m is not None:
+                self._prefix.acquire(m)
+            need_new = need - len(shared)
+            ok = (self._pool.num_free >= need_new
+                  or (self._prefix is not None
+                      and self._prefix.ensure_free(need_new)))
+            if not ok:
+                if m is not None:
+                    self._prefix.release_match(m)
+                break
+            self._queue.popleft()
+            i = free.pop(0)
+            table = BlockTable(self._pool, total, shared=shared)
+            matched = len(shared) * self.page_size
+            if m is not None and m.cow_page is not None:
+                # copy-on-write fork of the partially matching cached page
+                self._ensure_paged_states()
+                dst = table.pages[len(shared)]
+                self._paged_states = self._page_copy(
+                    self._paged_states, m.cow_page, dst)
+                self._pool.release([m.cow_page])   # fork done: drop src
+                matched += m.cow_tokens
+                self.cow_forks += 1
+            if matched:
+                self.prefix_hits += 1
+                self.prefill_tokens_saved += matched
+                req.prefix_tokens = matched
+            self._lanes[i] = _Lane(req=req, table=table, prompt_len=plen,
+                                   chunk_pos=matched, length=matched)
+        self._note_inflight(sum(ln is not None for ln in self._lanes))
+
+        # 2. one prefill chunk per still-prefilling lane
+        self._ensure_paged_states()
+        C = self.prefill_chunk
+        for i, lane in enumerate(self._lanes):
+            if lane is None or lane.decoding:
+                continue
+            req = lane.req
+            if req.t_prefill_start is None:
+                req.t_prefill_start = self._clock()
+            c0 = lane.chunk_pos
+            chunk = np.asarray(req.prompt[..., c0:c0 + C], np.int32)
+            pad = C - chunk.shape[-1]
+            if pad:
+                widths = [(0, 0)] * (chunk.ndim - 1) + [(0, pad)]
+                chunk = np.pad(chunk, widths)
+            row = np.asarray(lane.table.row(self._row_width), np.int32)
+            logits, self._paged_states = self._paged_prefill(
+                self.params,
+                {"tokens": self._to_device(chunk), "start": c0,
+                 "block_table": self._to_device(row)},
+                self._paged_states)
+            lane.chunk_pos = c0 + C
+            lane.length = min(lane.chunk_pos, lane.prompt_len)
+            if lane.decoding:                      # last chunk of prompt
+                last = lane.prompt_len - 1 - c0
+                tok = self._pick(logits[0, last][None])
+                pos = len(req.tokens)
+                req.tokens.append(tok)
+                lane.last_tok = tok
+                fin = len(req.tokens) >= req.max_new_tokens
+                pend.prefill.append((req, tok, pos, fin))
+                # index the completed prompt blocks before any release so
+                # cached pages carry their reference when the lane lets go
+                if self._prefix is not None:
+                    self._prefix.insert(req.prompt, lane.table.pages)
+                if fin:
+                    self._free_lane(i)
+
+        # 3. one decode round across the lanes that finished prefilling;
+        # idle/prefilling lanes ride along masked (null table, length 0)
+        active = [i for i, ln in enumerate(self._lanes)
+                  if ln is not None and ln.decoding]
+        if active:
+            L, W = self.max_lanes, self._row_width
+            rows = [self._zero_tok] * L
+            tables = np.zeros((L, W), np.int32)
+            lengths = np.zeros((L,), np.int32)
+            for i in active:
+                lane = self._lanes[i]
+                rows[i] = lane.last_tok
+                tables[i] = lane.table.row(W)
+                lengths[i] = lane.length
+            self._round_t0 = self._clock()
+            _, tok_all, self._paged_states = self._paged_decode(
+                self.params,
+                {"tokens": torch.stack(rows),           # (L, 1)
+                 "block_tables": self._to_device(tables),
+                 "lengths": self._to_device(lengths)},
+                self._paged_states, self._gen)
+            self.decode_rounds += 1
+            entries = []
+            for i in active:
+                lane = self._lanes[i]
+                req = lane.req
+                tk = tok_all[i:i + 1]              # device slice
+                pos = len(req.tokens)
+                req.tokens.append(tk)
+                lane.last_tok = tk
+                lane.length += 1                   # decode wrote one KV
+                fin = len(req.tokens) >= req.max_new_tokens
+                entries.append((i, req, pos, fin))
+                if fin:
+                    self._free_lane(i)
+            pend.decode = (tok_all, entries)
+        return pend
+
+    def run_to_completion(self, max_steps: int = 1_000_000) -> List[Request]:
+        """Step until queue and lanes drain; returns finished requests."""
+        done = []
+        for _ in range(max_steps):
+            if not self.has_work:
+                break
+            done += self.step()
+        return done
+
+    def reset(self) -> None:
+        """Drop queued/in-flight work and measurement state, release every
+        lane and prefix-cache reference, and check that the pool returns
+        to all-free (a leak here is a bug)."""
+        self._queue.clear()
+        self._ewma_tok_s = 0.0
+        self._next_rid = 0
+        self.peak_inflight = 0
+        self.decode_rounds = 0
+        self._pending = None
+        self.health = Health.HEALTHY
+        self.prefill_tokens_saved = 0
+        self.prefix_hits = 0
+        self.prefix_lookups = 0
+        self.cow_forks = 0
+        for lane in self._lanes:
+            if lane is not None:
+                lane.table.release()
+        self._lanes = [None] * self.max_lanes
+        if self._prefix is not None:
+            self._prefix.clear()
+        if self._pool.num_free != self.num_pages - 1:
+            raise RuntimeError(
+                f"page pool leak on reset: {self._pool.num_free} free of "
+                f"{self.num_pages - 1} allocatable after releasing all "
+                f"lanes and the prefix cache")
+        self._pool.reset()
+
+    @property
+    def available(self) -> bool:
+        """Placement-eligible (DEGRADED still serves, DOWN does not)."""
+        return self.health is not Health.DOWN
+
+    @property
+    def kv_leak(self) -> int:
+        """Page references owed to live lanes: total refs net of the
+        prefix cache's one reference per entry.  0 whenever idle."""
+        held = self._prefix.size if self._prefix is not None else 0
+        return self._pool.total_refs - held
+
+    # ------------------------------------------------------------------
+    # backlog signals (the scheduler's q_b / Eqn-3 observation)
+    # ------------------------------------------------------------------
+    def _inflight_requests(self) -> List[Request]:
+        return [ln.req for ln in self._lanes if ln is not None]
+
+    @property
+    def has_work(self) -> bool:
+        return (bool(self._queue) or bool(self._inflight_requests())
+                or self._pending is not None)
+
+    @property
+    def pending_tokens(self) -> int:
+        """Tokens still to generate across queued + in-flight requests."""
+        n = sum(r.max_new_tokens for r in self._queue)
+        n += sum(r.max_new_tokens - len(r.tokens)
+                 for r in self._inflight_requests())
+        return n
+
+    @property
+    def pending_seconds(self) -> float:
+        """Measured backlog estimate: pending tokens x EWMA token time."""
+        return self.pending_tokens * self._ewma_tok_s
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        if not self.prefix_lookups:
+            return 0.0
+        return self.prefix_hits / self.prefix_lookups
+
+    @property
+    def prefix_cached_pages(self) -> int:
+        return self._prefix.size if self._prefix is not None else 0
+
+    @property
+    def est_token_seconds(self) -> float:
+        """Seconds per decode token: measured EWMA once the engine has run
+        a round, else a FLOPs-based cold prior."""
+        if self._ewma_tok_s > 0:
+            return self._ewma_tok_s
+        return cold_token_seconds(self.cfg)
+
+    @property
+    def capability(self) -> EngineCapability:
+        """Snapshot of this engine as an edge-server capability
+        descriptor: its live f_b' (measured tok/s) and per-step cost."""
+        active = self.cfg.active_param_count()
+        return EngineCapability(
+            arch=self.arch_id, model_name=self.cfg.name,
+            num_layers=self.cfg.num_layers, d_model=self.cfg.d_model,
+            active_params=active, rho_gcycles=2.0 * active / 1e9,
+            tok_s=1.0 / self.est_token_seconds,
+            measured=self._ewma_tok_s > 0, paged=True,
+            prefix_hit_rate=self.prefix_hit_rate,
+            prefix_cached_tokens=self.prefix_cached_pages * self.page_size)
+
+    # ------------------------------------------------------------------
+    # blocking compatibility API
+    # ------------------------------------------------------------------
+    def generate(self, prompts: np.ndarray, num_tokens: int
+                 ) -> RequestResult:
+        """prompts (B, S) int -> per-step (B,) tokens plus measured
+        timing (admit all, drain)."""
+        prompts = np.asarray(prompts, np.int32)
+        reqs = []
+        for b in range(prompts.shape[0]):
+            reqs.append(Request(rid=self._next_rid,
+                                prompt=prompts[b:b + 1],
+                                max_new_tokens=max(num_tokens, 1)))
+            self._next_rid += 1
+            self.admit(reqs[-1])
+        self.run_to_completion()
+        toks = [np.concatenate([r.tokens[s] for r in reqs], axis=0)
+                for s in range(max(num_tokens, 1))]
+        t_dec0 = max(r.t_prefill_end for r in reqs)
+        t_end = max(r.t_finish for r in reqs)
+        return RequestResult(
+            tokens=toks,
+            prefill_s=sum(r.prefill_s for r in reqs),
+            decode_s=max(t_end - t_dec0, 0.0),
+            queue_s=max(max(r.queue_s for r in reqs), 0.0))
+
+    # ------------------------------------------------------------------
+    # internals
+    # ------------------------------------------------------------------
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        """(1, V) logits -> (1,) int32 token, on the device."""
+        if self.sample:
+            probs = torch.softmax(logits.float(), dim=-1)
+            tok = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        else:
+            tok = torch.argmax(logits, dim=-1)
+        return tok.to(torch.int32)
+
+    @staticmethod
+    def _prompt_len(req: Request) -> int:
+        return int(req.prompt.shape[-1])
+
+    def _note_round(self, t0: float, active: int) -> None:
+        # a round advances every active lane one token: the per-token
+        # drain rate is round time / active lanes, windowed from this
+        # engine's dispatch to its results being ready
+        dt = (self._clock() - t0) / active
+        self._ewma_tok_s = (0.7 * self._ewma_tok_s + 0.3 * dt
+                            if self._ewma_tok_s else dt)
+
+    def _note_inflight(self, n: int) -> None:
+        self.peak_inflight = max(self.peak_inflight, n)
+
+    def _free_lane(self, i: int) -> None:
+        self._lanes[i].table.release()
+        self._lanes[i] = None
+
+    def _ensure_paged_states(self) -> None:
+        if self._paged_states is None:
+            from repro_torch.models.transformer import init_paged_states
+            self._paged_states = init_paged_states(
+                self.cfg, self.num_pages, self.page_size, self.device)
