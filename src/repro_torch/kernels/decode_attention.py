@@ -3,10 +3,9 @@
 Port of ``repro/kernels/decode_attention.py::paged_flash_decode``.  The
 kernel is CUDA C++ (``csrc/paged_decode.cu``), compiled with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface at first use
-and loaded with ``ctypes``.  The library lands in ``_build/`` next to this
-file, named by a hash of the source and flags, so an edited source is
-rebuilt and an unchanged one is reused.  Nothing here runs when the module
-is imported: the CPU tests import it on machines without ``nvcc``.
+(``kernels/build.py``) and loaded with ``ctypes``.  Nothing here runs when
+the module is imported: the CPU tests import it on machines without
+``nvcc``.
 
 :func:`paged_flash_decode` launches the kernel on CUDA tensors only and
 raises on anything it does not take.  Its plain version is
@@ -16,72 +15,27 @@ lives in ``repro_torch.kernels.ops``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build as _build
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "paged_decode.cu"
-BUILD_DIR = _HERE / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # an H100 block may use at most this much shared memory
 _MAX_SMEM = 232_448
 
 _lib: Optional[ctypes.CDLL] = None
-build_info: dict = {}
-
-
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the paged "
-                           "decode kernel is built from source at first use")
-    return found
-
-
-def build() -> Path:
-    """Compile ``csrc/paged_decode.cu`` unless an up-to-date build exists;
-    returns the library path.  ``build_info`` records the seconds spent
-    and the compiler's ``-Xptxas -v`` report."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libpaged_decode-{digest[:16]}.so"
-    if lib.exists():
-        build_info.update(path=str(lib), seconds=0.0, cached=True)
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, lib)          # atomic: a concurrent build never
-    log = res.stdout + res.stderr  # sees a half-written library
-    lib.with_suffix(".log").write_text(log)
-    build_info.update(path=str(lib), seconds=seconds, cached=False,
-                      ptxas=log)
-    return lib
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(_build.build(SOURCE)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.repro_paged_decode.argtypes = [ci, vp, vp, vp, vp, vp, vp,
                                            ci, ci, ci, ci, ci, ci, ci,

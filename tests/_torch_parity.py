@@ -50,3 +50,16 @@ class FakeClock:
 
 def tokens_of(req) -> np.ndarray:
     return np.stack([np.asarray(t).ravel() for t in req.tokens])
+
+
+def episode_to_torch(ep):
+    """The reference's ``EpisodeData`` as the port's, on the CPU."""
+    from repro_torch.core.env import EpisodeData
+    return EpisodeData(*(torch.from_numpy(np.array(a)) for a in ep))
+
+
+def agents_to_torch(states, method: str):
+    """The reference's stacked agent state as the port's, on the CPU."""
+    from repro_torch.convert import agent_states_from_jax
+    return agent_states_from_jax(jax.tree_util.tree_map(np.asarray, states),
+                                 method)

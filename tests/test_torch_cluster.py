@@ -14,8 +14,8 @@ from repro.cluster import make_scheduler as jax_make_scheduler
 from repro.cluster import poisson_trace as jax_poisson_trace
 from repro.cluster import summarize as jax_summarize
 from repro.serving.builders import build_engines as jax_build_engines
-from repro_torch.cluster import (EdgeCluster, Request, make_scheduler,
-                                 poisson_trace, summarize)
+from repro_torch.cluster import (EdgeCluster, Request, Scheduler,
+                                 make_scheduler, poisson_trace, summarize)
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
@@ -132,13 +132,14 @@ def test_serve_main_on_cpu_completes_every_request(capsys):
     assert st["completed"] == st["count"] == 5 and st["unfinished"] == 0
     assert [e["kv_leak"] for e in st["engines"]] == [0, 0]
     assert sum(e["decode_rounds"] for e in st["engines"]) > 0
-    assert st["launches"] == {"paged_flash_decode": 0}    # plain on CPU
+    assert st["launches"] == {"paged_flash_decode": 0,    # plain on CPU
+                              "ladn_denoise": 0}
     out = capsys.readouterr().out
     assert out.count("[serve] req ") == 5 and "[serve] jsq: n=5" in out
 
 
 @pytest.mark.parametrize("flag", [["--qos"], ["--chaos"],
-                                  ["--scheduler", "lad-ts"]])
+                                  ["--scheduler", "deadline"]])
 def test_serve_main_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--arch", "qwen2-1.5b", "--device", "cpu", *flag])
@@ -155,3 +156,66 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     eng = build_engines("qwen2-1.5b", 1, 32, device="cpu")[0]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(eng.cfg, eng.params)
+
+
+class _Engine:
+    """Engine stand-in for placement tests: always up, never busy."""
+
+    def __init__(self):
+        self.admitted = []
+        self.available = True
+        self.has_work = False
+        self.pending_tokens = 0
+
+    def admit(self, req):
+        self.admitted.append(req.rid)
+
+
+class _RecordingScheduler(Scheduler):
+    """Places everything on engine 0 and records the carry and task slot
+    of every call; each call returns a new carry."""
+
+    name = "recording"
+
+    def __init__(self, num_engines, n_max):
+        super().__init__(num_engines)
+        self.n_max = n_max
+        self.calls = []
+
+    def init_carry(self):
+        return "init"
+
+    def select(self, carry, s, n, generator):
+        self.calls.append((carry, n, tuple(s.shape)))
+        return (torch.zeros((s.shape[0],), dtype=torch.int64),
+                f"after-{len(self.calls)}")
+
+
+def _trace(n):
+    return poisson_trace(n, rate=1000.0, prompt_len=4, max_new_tokens=2,
+                         vocab_size=16, num_origins=2, seed=0)
+
+
+def test_submit_wraps_the_task_slot_at_n_max():
+    """A learned policy's latent store has n_max rows: the cluster hands
+    the scheduler ``count % n_max``, as the reference does."""
+    sched = _RecordingScheduler(2, n_max=3)
+    cluster = EdgeCluster([_Engine(), _Engine()], sched, clock=FakeClock())
+    for r in _trace(7):
+        cluster.submit(r)
+    assert [n for _, n, _ in sched.calls] == [0, 1, 2, 0, 1, 2, 0]
+
+
+def test_run_warms_the_scheduler_and_drops_the_warm_up_carry():
+    """``run`` calls the scheduler once on a zero row before the first
+    arrival, and the first placement still starts from the initial
+    carry."""
+    sched = _RecordingScheduler(2, n_max=4)
+    engines = [_Engine(), _Engine()]
+    cluster = EdgeCluster(engines, sched, clock=FakeClock())
+    cluster.run(_trace(3))
+    assert len(sched.calls) == 4 and engines[0].admitted == [0, 1, 2]
+    assert sched.calls[0] == ("init", 0, (1, cluster.obs_dim))
+    assert [c for c, _, _ in sched.calls[1:]] == ["init", "after-2",
+                                                  "after-3"]
+    assert cluster.carry == "after-4"
