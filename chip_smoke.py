@@ -34,6 +34,23 @@ Phases, in order; the script exits non-zero at the first that fails:
    full width (in-sim training first), every request completed, no KV
    leak, decode launches as in phase 4, and one ``ladn_denoise`` launch
    per placement plus the cluster's warm-up;
+9. ``flash_attention`` against its plain version at the dense prefill's
+   shapes (recurrentgemma-9b heads at 128 and 4096 positions) and the
+   paged prefill chunk's (qwen2-1.5b, with a query offset), bf16 and f32,
+   with its time, its bound, the plain version's and SDPA's;
+10. ``flash_decode`` against its plain version at the dense decode
+   round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
+   per-slot lengths, and a wrapped 2048-slot ring), likewise;
+11. decode against teacher-forced forward on the card: full-width
+   recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
+   greedily for 16 tokens, so decode crosses the 2048 window and the ring
+   wraps, and the ``train``-mode forward over the same tokens must pick
+   the same token everywhere;
+12. serve: ``serve.main`` at full recurrentgemma-9b width and depth in
+   bf16 (38 layers, 2 dense engines, 8 requests, JSQ), every request
+   completed, no slot leaked, ``flash_decode`` launched once per attention
+   layer per decode round and ``flash_attention`` once per attention
+   layer per prefill; 12b: where a dense decode round's time goes;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +61,7 @@ weights are random, drawn from seeds.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -78,6 +96,30 @@ LADN_TOL = 1e-4
 # seconds one simulator episode may take before num_slots is cut
 EPISODE_BUDGET_S = 120.0
 MIN_SLOTS = 20
+
+RG = "recurrentgemma-9b"
+RG_SERVE_ARGS = ["--arch", RG, "--full-scale", "--edges", "2",
+                 "--scheduler", "jsq", "--requests", "8", "--prompt-len",
+                 "128", "--tokens", "32", "--rate", "8", "--kv-slots", "4",
+                 "--device", "cuda"]
+# flash_attention's shapes (B, H, KV, Sq, Skv, hd, window, q_offset, dtype):
+# recurrentgemma's dense prefill of phase 12's 128-token prompts, the same
+# heads where the 2048 window bites, and phase 4's qwen2 paged prefill
+# chunk (64 queries at offset 64 against the 15 x 16-token table)
+ATTN_SHAPES = {
+    "rg_prefill": (1, 16, 1, 128, 128, 256, 2048, 0, "bfloat16"),
+    "rg_4096": (1, 16, 1, 4096, 4096, 256, 2048, 0, "bfloat16"),
+    "qwen2_chunk": (1, 12, 2, 64, 240, 128, None, 64, "bfloat16"),
+    "rg_prefill_f32": (1, 16, 1, 128, 128, 256, 2048, 0, "float32"),
+}
+# flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
+# decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
+# wrapped 2048-slot ring
+DECODE_SHAPES = {
+    "rg_round": (4, 16, 1, 160, 256, (129, 145, 160, 131), "bfloat16"),
+    "rg_ring_2048": (4, 16, 1, 2048, 256, (2048,) * 4, "bfloat16"),
+    "rg_round_f32": (4, 16, 1, 160, 256, (129, 145, 160, 131), "float32"),
+}
 
 
 def log(msg: str) -> None:
@@ -158,8 +200,9 @@ def phase_setup() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from concurrent.futures import ThreadPoolExecutor
-    from repro_torch.kernels import build, ladn_denoise
-    sources = [decode_attention.SOURCE, ladn_denoise.SOURCE]
+    from repro_torch.kernels import build, flash_attention, ladn_denoise
+    sources = [decode_attention.SOURCE, ladn_denoise.SOURCE,
+               flash_attention.SOURCE, decode_attention.FLASH_DECODE_SOURCE]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         for fut in [pool.submit(build.build, s) for s in sources]:
@@ -343,6 +386,12 @@ def _check_serve(st: dict, label: str) -> int:
     if rounds == 0 or got != want:
         fail(f"{label}: paged_flash_decode launched {got} times after "
              f"warm-up, expected 28 x {rounds} decode rounds = {want}")
+    chunks = sum(e["prefills"] for e in st["engines"])
+    want = sum(e["layers"] * e["prefills"] for e in st["engines"])
+    got = st["launches"]["flash_attention"]
+    if chunks == 0 or got != want:
+        fail(f"{label}: flash_attention launched {got} times after warm-up,"
+             f" expected 28 x {chunks} paged prefill chunks = {want}")
     return rounds
 
 
@@ -356,6 +405,7 @@ def phase_serve() -> int:
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     launches = ops.launches["paged_flash_decode"]
+    attn_launches = ops.launches["flash_attention"]
     rounds = _check_serve(st, "phase 4")
     got = st["launches"]["paged_flash_decode"]
     leaks = [e["kv_leak"] for e in st["engines"]]
@@ -363,13 +413,16 @@ def phase_serve() -> int:
         fail("paged_flash_decode never launched on the main path")
     log(f"phase 4 ok: 8/8 completed, kv_leak={leaks}, {rounds} decode "
         f"rounds, {got} kernel launches after warm-up ({launches} with "
-        f"warm-up); service mean={st['mean_s'] * 1e3:.1f} ms "
+        f"warm-up); flash_attention {st['launches']['flash_attention']} = "
+        f"28 x {sum(e['prefills'] for e in st['engines'])} prefill chunks "
+        f"({attn_launches} with warm-up); service mean="
+        f"{st['mean_s'] * 1e3:.1f} ms "
         f"p95={st['p95_s'] * 1e3:.1f} ms; {st['tok_s']:.1f} generated "
         f"tok/s over {st['wall_s']:.2f} s of serving ({total:.1f} s with "
         f"build and warm-up); decode ms/token per engine "
         f"{[round(e['token_ms'], 3) for e in st['engines']]}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+    return launches, attn_launches
 
 
 def phase_round_breakdown(rounds: int = 4) -> None:
@@ -696,21 +749,379 @@ def phase_live_ladts() -> int:
     return got
 
 
+# ---------------------------------------------------------------------------
+# phase 9: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _bound(nbytes: int, flops: int, dtype: str):
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
+
+
+def _attn_mask(Sq, Skv, window, q_offset, dev):
+    import torch
+    qpos = q_offset + torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def phase_flash_attention() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    dev = torch.device("cuda")
+    result = {}
+    for name, (B, Hq, KVh, Sq, Skv, hd, win, off, dt) in ATTN_SHAPES.items():
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(9)
+        # the model's layouts: (B, S, heads, hd) projections as views
+        q = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype).transpose(1, 2)
+        k = torch.randn((B, Skv, KVh, hd), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype).transpose(1, 2)
+        v = torch.randn((B, Skv, KVh, hd), generator=gen, device=dev,
+                        dtype=torch.float32).to(dtype).transpose(1, 2)
+        got = flash_attention.flash_attention(q, k, v, window=win,
+                                              q_offset=off)
+        torch.cuda.synchronize()
+        want = ref.attention_ref(q, k, v, window=win, q_offset=off)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL[dt]:
+            fail(f"flash_attention {name}: max abs err {err:.3e} > "
+                 f"{TOL[dt]:.0e}")
+        big = Sq * Skv > 1 << 20
+        iters = 5 if big else 50
+
+        def kernel():
+            return flash_attention.flash_attention(q, k, v, window=win,
+                                                   q_offset=off)
+
+        ms = time_ms(kernel, iters=iters, reps=3 if big else 5)
+        call_ms = eager_ms(kernel, iters=20 if big else 200)
+        plain_ms = time_ms(lambda: ref.attention_ref(
+            q, k, v, window=win, q_offset=off), iters=iters,
+            reps=3 if big else 5)
+        mask = _attn_mask(Sq, Skv, win, off, dev)
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                 enable_gqa=True)
+        lib_err = (lib_out.float() - want.float()).abs().max().item()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), iters=iters,
+            reps=3 if big else 5)
+        pairs = int(mask.sum().item())
+        size = q.element_size()
+        nbytes = size * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = _bound(nbytes, 4 * B * Hq * hd * pairs, dt)
+        result[name] = {
+            "shape": dict(B=B, H=Hq, KV=KVh, Sq=Sq, Skv=Skv, hd=hd,
+                          window=win, q_offset=off, dtype=dt),
+            "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_err": lib_err, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        log(f"  flash_attention {name} {dt}: err={err:.3e} (tol "
+            f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
+            f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
+            f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
+        del q, k, v, got, want, lib_out, mask
+        torch.cuda.empty_cache()
+    log("phase 9 ok: flash_attention matches attention_ref at the dense "
+        "prefill, long-window and paged-chunk shapes")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 10: flash_decode against its plain version
+# ---------------------------------------------------------------------------
+
+
+def phase_flash_decode() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, ref
+    dev = torch.device("cuda")
+    result = {}
+    for name, (Bs, Hq, KVh, W_, hd, lens, dt) in DECODE_SHAPES.items():
+        dtype = getattr(torch, dt)
+        gen = torch.Generator(device=dev).manual_seed(10)
+        q = torch.randn((Bs, Hq, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((Bs, KVh, W_, hd), generator=gen,
+                        device=dev).to(dtype)
+        v = torch.randn((Bs, KVh, W_, hd), generator=gen,
+                        device=dev).to(dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = decode_attention.flash_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        want = ref.decode_ref(q, k, v, lengths)
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= TOL[dt]:
+            fail(f"flash_decode {name}: max abs err {err:.3e} > "
+                 f"{TOL[dt]:.0e}")
+
+        def kernel():
+            return decode_attention.flash_decode(q, k, v, lengths)
+
+        ms = time_ms(kernel)
+        call_ms = eager_ms(kernel)
+        plain_ms = time_ms(lambda: ref.decode_ref(q, k, v, lengths))
+        mask = (torch.arange(W_, device=dev)[None, :]
+                < lengths[:, None].long())[:, None, None, :]
+        sq = q[:, :, None, :]
+        lib_out = F.scaled_dot_product_attention(sq, k, v, attn_mask=mask,
+                                                 enable_gqa=True)[:, :, 0]
+        lib_err = (lib_out.float() - want.float()).abs().max().item()
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            sq, k, v, attn_mask=mask, enable_gqa=True))
+        ctx = sum(min(n, W_) for n in lens)
+        size = q.element_size()
+        nbytes = (2 * q.numel() * size + 2 * ctx * KVh * hd * size
+                  + 4 * Bs)
+        bound_ms, bound_by = _bound(nbytes, 4 * ctx * Hq * hd, dt)
+        result[name] = {
+            "shape": dict(B=Bs, H=Hq, KV=KVh, W=W_, hd=hd, lengths=list(lens),
+                          dtype=dt),
+            "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_err": lib_err, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        log(f"  flash_decode {name} {dt}: err={err:.3e} (tol "
+            f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
+            f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
+            f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
+    log("phase 10 ok: flash_decode matches decode_ref at the dense decode "
+        "round's and the wrapped ring's shapes")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 11: dense decode across the window wrap against teacher forcing
+# ---------------------------------------------------------------------------
+
+
+def phase_dense_decode_vs_forward() -> None:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (apply_head, forward,
+                                                init_params)
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(RG), num_layers=3, dtype="float32")
+    if [b.mixer for b in cfg.layer_pattern()] != ["rglru", "rglru", "attn"]:
+        fail(f"phase 11: unexpected layers {cfg.layer_pattern()}")
+    window = cfg.layer_pattern()[2].window
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                         dev)
+    plen, n_new = window - 8, 16
+    eng = ServeEngine(cfg, params, max_len=plen + n_new, kv_slots=1,
+                      device=dev)
+    if eng.paged:
+        fail("phase 11: recurrentgemma-9b did not get a dense engine")
+    prompt = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                                (1, plen), dtype=np.int32)
+    ops.reset_launches()
+    toks = np.concatenate(eng.generate(prompt, n_new).tokens)
+    launches = dict(ops.launches)
+    if eng.kv_leak:
+        fail(f"phase 11: the engine holds {eng.kv_leak} slots when idle")
+    seq = np.concatenate([prompt[0], toks[:-1]]).astype(np.int32)
+    hidden = forward(params, cfg, {"tokens": torch.from_numpy(seq[None])
+                                   .to(dev)}, mode="train")["hidden"]
+    logits = apply_head(params, cfg, hidden[:, plen - 1:])[0].float()
+    if not torch.isfinite(logits).all():
+        fail("phase 11: teacher-forced logits are not finite")
+    pred = logits.argmax(-1).cpu().numpy()
+    for i in np.flatnonzero(pred != toks):
+        top2 = torch.topk(logits[i], 2).values
+        fail(f"phase 11: decode token {i} (position {plen + i}) = "
+             f"{toks[i]} but the teacher-forced argmax = {pred[i]} (top-2 "
+             f"logit gap {(top2[0] - top2[1]).item():.3e})")
+    if launches["flash_decode"] != n_new - 1 or \
+            launches["flash_attention"] != 1:
+        fail(f"phase 11: launches {launches}, expected flash_attention 1 "
+             f"(one prefill, one attention layer) and flash_decode "
+             f"{n_new - 1}")
+    log(f"phase 11 ok: {n_new} greedy decode tokens from a {plen}-token "
+        f"prompt (positions {plen}..{plen + n_new - 1} cross the "
+        f"{window}-token window, so the ring wraps) equal the "
+        f"teacher-forced train-mode argmax (full width, 3 layers, f32); "
+        f"launches {launches}")
+    del eng, params, hidden, logits
+
+
+# ---------------------------------------------------------------------------
+# phase 12: serve full-width recurrentgemma-9b from dense slot pools
+# ---------------------------------------------------------------------------
+
+
+def phase_rg_serve():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config(RG)
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_pattern())
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st = serve.main(RG_SERVE_ARGS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    engines = st["engines"]
+    if st["completed"] != N_REQUESTS or st["count"] != N_REQUESTS:
+        fail(f"phase 12: {st['completed']} of {N_REQUESTS} requests "
+             f"completed")
+    if any(e["kv_leak"] for e in engines):
+        fail(f"phase 12: slots held after serving: {engines}")
+    if any(e["layers"] != cfg.num_layers or e["paged"] for e in engines):
+        fail(f"phase 12: engines are not full-depth dense engines: "
+             f"{engines}")
+    rounds = sum(e["decode_rounds"] for e in engines)
+    prefills = sum(e["prefills"] for e in engines)
+    got = st["launches"]
+    if rounds == 0 or got["flash_decode"] != n_attn * rounds:
+        fail(f"phase 12: flash_decode launched {got['flash_decode']} times "
+             f"after warm-up, expected {n_attn} x {rounds} decode rounds")
+    if prefills != N_REQUESTS or \
+            got["flash_attention"] != n_attn * prefills:
+        fail(f"phase 12: flash_attention launched {got['flash_attention']}"
+             f" times over {prefills} prefills after warm-up, expected "
+             f"{n_attn} per prefill")
+    # the warm-up runs one prefill and one decode round per engine
+    warm = len(engines)
+    total_attn = ops.launches["flash_attention"]
+    total_dec = ops.launches["flash_decode"]
+    if total_attn != n_attn * (prefills + warm) or \
+            total_dec != n_attn * (rounds + warm):
+        fail(f"phase 12: with warm-up flash_attention {total_attn} and "
+             f"flash_decode {total_dec}, expected {n_attn} x "
+             f"{prefills + warm} and {n_attn} x {rounds + warm}")
+    log(f"phase 12 ok: {N_REQUESTS}/{N_REQUESTS} completed on 2 dense "
+        f"{cfg.num_layers}-layer bf16 engines, kv_leak "
+        f"{[e['kv_leak'] for e in engines]}; flash_decode {total_dec} = "
+        f"{n_attn} x ({rounds} decode rounds + {warm} warm-up), "
+        f"flash_attention {total_attn} = {n_attn} x ({prefills} prefills + "
+        f"{warm} warm-up); service mean={st['mean_s'] * 1e3:.1f} ms "
+        f"p95={st['p95_s'] * 1e3:.1f} ms; {st['tok_s']:.1f} generated "
+        f"tok/s over {st['wall_s']:.2f} s of serving ({total:.1f} s with "
+        f"weights and warm-up); decode ms/token per engine "
+        f"{[round(e['token_ms'], 3) for e in engines]}; peak memory "
+        f"{peak:.2f} GiB")
+    return total_attn, total_dec, st
+
+
+def phase_dense_round_breakdown(rounds: int = 4) -> None:
+    """Where a full-scale dense decode round's time goes: one 38-layer
+    bf16 recurrentgemma-9b engine with its 4 slots decoding; host enqueue
+    time of ``dispatch``, wall time to results, and device time by kernel
+    from ``torch.profiler`` over ``rounds`` rounds.  Also the host time of
+    one 128-token prefill (its RG-LRU scans are Python loops)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cluster.request import Request
+    from repro_torch.serving import compiled
+    from repro_torch.serving.builders import build_engines
+    eng = build_engines(RG, 1, 160, device="cuda", full_scale=True)[0]
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, (1, 128), dtype=np.int32)
+               for _ in range(eng.kv_slots + 1)]
+    eng.generate(prompts[-1], 2)           # warm the libraries
+    eng.reset()
+    prefill = compiled.prefill_step(eng.cfg, eng.max_len)
+    tokens = torch.from_numpy(prompts[0]).to("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = prefill(eng.params, {"tokens": tokens})
+    t1 = time.perf_counter()
+    float(logits[0, 0])
+    t2 = time.perf_counter()
+    for rid in range(eng.kv_slots):
+        eng.admit(Request(rid=rid, max_new_tokens=32, prompt=prompts[rid]))
+    for _ in range(3):               # admission and prefills, warm rounds
+        eng.step()
+    torch.cuda.synchronize()
+
+    def timed_round():
+        t0 = time.perf_counter()
+        eng.dispatch()
+        t1 = time.perf_counter()
+        eng.collect()
+        return t1 - t0, time.perf_counter() - t0
+
+    host = [timed_round() for _ in range(rounds)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.device_type is not None and "CUDA" in str(evt.device_type):
+            us = getattr(evt, "self_device_time_total", 0.0)
+            if us > 0:
+                by_kernel[evt.key] = us
+    enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
+    wall_ms = 1e3 * sum(h[1] for h in host) / rounds
+    busy_ms = sum(by_kernel.values()) / 1e3 / rounds
+    attn_ms = sum(v for k, v in by_kernel.items()
+                  if "flash_decode" in k) / 1e3 / rounds
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    busy = (f"device busy {busy_ms:.2f} ms (idle share "
+            f"{1 - busy_ms / wall_ms:.2f}), flash_decode {attn_ms:.3f} ms "
+            f"of it" if by_kernel else
+            "device busy not measured (the profiler saw no device time)")
+    log(f"phase 12b: dense decode round ({eng.kv_slots} slots, "
+        f"{eng.cfg.num_layers} layers, bf16): enqueue {enqueue_ms:.2f} ms, "
+        f"wall {wall_ms:.2f} ms, {busy}; one 128-token prefill: "
+        f"{(t1 - t0) * 1e3:.1f} ms to enqueue, {(t2 - t0) * 1e3:.1f} ms "
+        f"to its logits")
+    for name, us in top:
+        log(f"  device {us / 1e3 / rounds:8.3f} ms/round  {name[:90]}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def _free_card() -> None:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
     phase_setup()
     checks = phase_kernel()
     phase_decode_vs_prefill()
-    launches = phase_serve()
+    launches, paged_attn_launches = phase_serve()
     phase_round_breakdown()
     ladn = phase_ladn_kernel()
     p, cfg, f, states, ladn_launches = phase_sim_train()
     phase_task_step_breakdown(p, cfg, f, states)
     eval_launches = phase_sim_eval(p, cfg, f, states)
     live_launches = phase_live_ladts()
+    del states
+    _free_card()
+    attn = phase_flash_attention()
+    dec = phase_flash_decode()
+    phase_dense_decode_vs_forward()
+    _free_card()
+    attn_launches, dec_launches, _ = phase_rg_serve()
+    _free_card()
+    phase_dense_round_breakdown()
     bf = checks["bfloat16"]
     act = ladn["act"]
+    pre = attn["rg_prefill"]
+    rnd = dec["rg_round"]
     kernels = [{
         "name": "paged_flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
@@ -730,7 +1141,30 @@ def main() -> None:
         "ms": act["ms"], "eager_ms": act["eager_ms"],
         "plain_ms": act["plain_ms"], "bound_ms": act["bound_ms"],
         "bound_by": act["bound_by"], "library_ms": None,
-        "shapes": ladn, "check": "ok"}]
+        "shapes": ladn, "check": "ok"}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": attn_launches,
+        "launches_paged_prefill": paged_attn_launches,
+        "max_abs_err": max(v["max_abs_err"] for k, v in attn.items()
+                           if v["shape"]["dtype"] == "bfloat16"),
+        "max_abs_err_f32": attn["rg_prefill_f32"]["max_abs_err"],
+        "ms": pre["ms"], "eager_ms": pre["eager_ms"],
+        "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
+        "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
+        "shapes": attn, "check": "ok"}, {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:48",
+        "launches": dec_launches,
+        "max_abs_err": max(v["max_abs_err"] for k, v in dec.items()
+                           if v["shape"]["dtype"] == "bfloat16"),
+        "max_abs_err_f32": dec["rg_round_f32"]["max_abs_err"],
+        "ms": rnd["ms"], "eager_ms": rnd["eager_ms"],
+        "plain_ms": rnd["plain_ms"], "bound_ms": rnd["bound_ms"],
+        "bound_by": rnd["bound_by"], "library_ms": rnd["library_ms"],
+        "shapes": dec, "check": "ok"}]
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
 
 _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -13,7 +13,7 @@ kernels.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,8 +21,10 @@ from repro_torch.core.diffusion import make_schedule_np
 from repro_torch.core.networks import TIME_EMBED_DIM, timestep_embed
 from repro_torch.core.optim import tree_leaves
 from repro_torch.kernels import decode_attention, ladn_denoise as _ladn, ref
+from repro_torch.kernels import flash_attention as _flash
 
-launches = {"paged_flash_decode": 0, "ladn_denoise": 0}
+launches = {"paged_flash_decode": 0, "ladn_denoise": 0,
+            "flash_attention": 0, "flash_decode": 0}
 
 
 def reset_launches() -> None:
@@ -43,6 +45,37 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = decode_attention.paged_flash_decode(q, k_pages, v_pages,
                                               block_tables, lengths)
     launches["paged_flash_decode"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Causal GQA flash attention (see ``kernels/flash_attention.py``).
+
+    q (B,H,Sq,hd); k, v (B,KV,Skv,hd); query i at position
+    ``q_offset + i``.  Returns (B,H,Sq,hd).  The reference's TPU tile
+    sizes ``bq``/``bk`` are not arguments: the kernel picks its own."""
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    launches["flash_attention"] += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, length) -> torch.Tensor:
+    """One query token per lane against a dense cache (see
+    ``kernels/decode_attention.py``).
+
+    q (B,H,hd); caches (B,KV,S,hd); length () or (B,) valid positions.
+    Returns (B,H,hd)."""
+    if q.device.type == "cpu":
+        return ref.decode_ref(q, k_cache, v_cache, length)
+    out = decode_attention.flash_decode(q, k_cache, v_cache, length)
+    launches["flash_decode"] += 1
     return out
 
 

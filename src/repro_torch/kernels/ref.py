@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
-Port of the decode and LADN-chain oracles in ``repro/kernels/ref.py``.
+Port of the attention, decode and LADN-chain oracles in
+``repro/kernels/ref.py``.
 The tests and ``chip_smoke.py`` hold the CUDA kernels against these; on
 the main path they serve only tensors that lie on the CPU
 (``repro_torch.kernels.ops``).
@@ -8,12 +9,42 @@ the main path they serve only tensors that lie on the CPU
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.core.diffusion import DiffusionSchedule, reverse_step
 
 NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Dense masked attention.  q (B,H,Sq,hd); k,v (B,KV,Skv,hd) ->
+    (B,H,Sq,hd).
+
+    Query i sits at position ``q_offset + i`` and attends key j iff
+    (not causal or j <= q_offset + i) and (no window or
+    j > q_offset + i - window); ``q_offset = 0`` is the reference's
+    oracle.  f32 scores and softmax; a row with no valid key gets the mean
+    of V (the kernel writes zeros; no caller asks for such a row)."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    G = H // KV
+    qh = q.reshape(B, KV, G, Sq, hd).float()
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qh, k.float()) / math.sqrt(hd)
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqc,bkcd->bkgqd", w, v.float())
+    return out.reshape(B, H, Sq, hd).to(q.dtype)
 
 
 def decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

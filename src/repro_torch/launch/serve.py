@@ -1,4 +1,4 @@
-"""Serving launcher of the port: an edge cluster of paged engines.
+"""Serving launcher of the port: an edge cluster of serving engines.
 
 Port of ``repro/launch/serve.py``.  Replays a Poisson arrival trace
 through N continuous-batching engines with a scheduler placing each
@@ -6,6 +6,10 @@ request, and prints the same per-request and summary lines:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --edges 2 --scheduler jsq --requests 8 --tokens 16 --rate 4
+
+All-attention archs (``qwen2-1.5b``) serve from the paged KV pool;
+``recurrentgemma-9b`` (RG-LRU and local-attention layers) from dense
+slot pools, as the reference's engines pick.
 
 ``--scheduler lad-ts`` (or ``d2sac-ts``, ``sac-ts``, ``dqn-ts``) first
 trains the policy in the simulator on the serving device (matching the
@@ -87,7 +91,8 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> dict:
     """Serve one trace; prints per-request lines and a summary line and
     returns ``summarize()``'s dict, plus ``engines`` (per-engine layers,
-    decode rounds, measured ms per decode token and KV leak),
+    memory model, prefill passes, decode rounds, measured ms per decode
+    token and KV leak),
     ``launches`` (kernel launches of the serving run, the cluster's
     scheduler warm-up included), ``train_s`` (seconds spent building the
     scheduler: a learned one's in-sim training), ``wall_s`` and ``tok_s``
@@ -142,7 +147,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
         line += (f" prefix_saved={st['prefill_tokens_saved']}tok"
                  f" hit={st['prefix_hit_rate']:.2f}")
     print(line)
-    st["engines"] = [{"layers": e.cfg.num_layers,
+    st["engines"] = [{"layers": e.cfg.num_layers, "paged": e.paged,
+                      "prefills": e.prefills,
                       "decode_rounds": e.decode_rounds,
                       "token_ms": e.est_token_seconds * 1e3,
                       "kv_leak": e.kv_leak} for e in engines]

@@ -1,13 +1,30 @@
-"""GQA attention for the paged serving path.
+"""GQA attention: full-causal and sliding-window prefill, dense ring-buffer
+decode, and the shared page pool.
 
-Port of the paged half of ``repro/models/attention.py``: projections,
-the chunked online-softmax causal attention that paged prefill uses, and
-the shared page pool with its prefill-chunk and decode entry points.  The
-dense ``prefill``/``decode`` caches, windows and int8 KV come with the
-dense engines (ROADMAP.md, queue A).
+Port of ``repro/models/attention.py``.  Three execution paths share one
+set of weights:
 
-The JAX code returns new page pools and donates the old ones; the port
-writes the pools in place (``index_put_``) and returns the same dict.
+  * ``attend_train`` / ``prefill`` -- full sequence, causal (optionally
+    windowed), through ``ops.flash_attention`` (the CUDA kernel on the
+    card, ``kernels.ref.attention_ref`` for CPU tensors).  The reference
+    computes the same function with ``chunked_causal_attention``, its
+    "reference/lowering twin" of the Pallas kernel; the port keeps that
+    function as the counterpart the tests compare against.
+  * ``decode`` -- one token per slot against a dense cache (full-length
+    or ring-buffer windowed), through ``ops.flash_decode``.
+  * ``paged_prefill_chunk`` / ``paged_decode`` -- the shared page pool,
+    through ``ops.flash_attention`` with a query offset and
+    ``ops.paged_flash_decode``.
+
+Dense cache layout: {"k": (B, KV, W, hd), "v": (B, KV, W, hd),
+"pos": (B,) int32}, one row per slot; ``pos`` is the number of tokens
+already written.  Windowed caches are ring buffers of size W written at
+``pos % W``.  The reference keeps ``pos`` a scalar and vmaps slots; the
+port batches them, so each slot has its own position.
+
+The JAX code returns new caches and donates the old ones; the port
+writes K/V caches and page pools in place and returns them.  int8 KV
+caches are not ported (ROADMAP.md A3).
 """
 from __future__ import annotations
 
@@ -16,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -115,6 +133,102 @@ def chunked_causal_attention(q, k, v, *, window: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
+# block-level entry points: full sequence and dense ring-buffer decode
+# ---------------------------------------------------------------------------
+
+
+def _attend(q, k, v, window, q_offset=0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H*hd) through the
+    kernel wrapper, which takes the heads-first layout as views."""
+    B, Sq, H, hd = q.shape
+    out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=True,
+                                     window=window, q_offset=q_offset)
+    return out.transpose(1, 2).reshape(B, Sq, H * hd)
+
+
+def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
+    """Full-sequence causal attention (train / prefill forward)."""
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
+    return _attend(q, k, v, blk.window) @ p["wo"]
+
+
+def _check_cache_dtype(cfg) -> None:
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError(
+            "int8 KV caches are not ported to repro_torch yet (ROADMAP.md "
+            "A3)")
+
+
+def init_kv_cache(cfg, blk, batch: int, max_len: int,
+                  device: torch.device) -> dict:
+    """Empty dense cache: a ring of min(window, max_len) slots per row."""
+    _check_cache_dtype(cfg)
+    W = min(blk.window or max_len, max_len)
+    shape = (batch, cfg.num_kv_heads, W, cfg.head_dim)
+    dtype = getattr(torch, cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Forward over the prompt; returns (out, cache).
+
+    ``max_len`` sizes the emitted cache (>= S) so decode steps have room;
+    windowed blocks emit a ring buffer of size min(window, max_len) with
+    position p stored at slot p % W (matching :func:`decode`)."""
+    _check_cache_dtype(cfg)
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
+    out = _attend(q, k, v, blk.window) @ p["wo"]
+    kT = k.transpose(1, 2)   # (B,KV,S,hd)
+    vT = v.transpose(1, 2)
+    max_len = max(max_len or S, S if blk.window is None else 0)
+    W = min(blk.window, max_len) if blk.window is not None else max_len
+    shape = (B, cfg.num_kv_heads, W, cfg.head_dim)
+    kr = torch.zeros(shape, dtype=k.dtype, device=x.device)
+    vr = torch.zeros(shape, dtype=v.dtype, device=x.device)
+    if W >= S:
+        # position p < S <= W lands at ring slot p % W == p: right-pad
+        kr[:, :, :S] = kT
+        vr[:, :, :S] = vT
+    else:
+        # keep the last W positions, placed at their ring slots p % W
+        slots = torch.arange(S - W, S, device=x.device) % W
+        kr[:, :, slots] = kT[:, :, S - W:]
+        vr[:, :, slots] = vT[:, :, S - W:]
+    pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return out, {"k": kr, "v": vr, "pos": pos}
+
+
+def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
+    """One-token decode per slot.  x (B,1,d); ``cache["pos"]`` (B,) holds
+    each slot's tokens written so far.
+
+    Writes the new K/V at ring slot pos % W in place, then attends through
+    ``ops.flash_decode`` (the CUDA kernel on the card) over
+    min(pos + 1, W) slots: the reference's validity rule, slot j valid iff
+    j <= pos or pos >= W."""
+    _check_cache_dtype(cfg)
+    B = x.shape[0]
+    hd = cfg.head_dim
+    pos = cache["pos"]
+    q, k, v = _project_qkv(p, cfg, x, pos[:, None], blk.use_rope)
+    W = cache["k"].shape[2]
+    rows = torch.arange(B, device=x.device)
+    slot = (pos % W).long()
+    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+    length = torch.clamp(pos + 1, max=W).to(torch.int32)
+    out = kernel_ops.flash_decode(q[:, 0].contiguous(), cache["k"],
+                                  cache["v"], length)
+    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
+    return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
 # paged KV cache (vLLM-style shared page pool)
 # ---------------------------------------------------------------------------
 #
@@ -173,8 +287,9 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
     at absolute positions start..start+C-1 (the tail may be padding).
 
     Writes the chunk's KV into the pool, then attends the chunk's queries
-    against the full gathered context with absolute causal masking."""
-    B, C, _ = x.shape
+    against the full gathered context with absolute causal masking, through
+    ``ops.flash_attention`` with ``q_offset=start``."""
+    C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)[None]   # (1, C)
     q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
     k_pages = _scatter_pages(cache["k_pages"], k[0], block_table, start)
@@ -182,10 +297,7 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
     max_ctx = block_table.shape[-1] * k_pages.shape[2]
     kd = _gather_pages(k_pages, block_table, max_ctx)[None]   # (1,ctx,KV,hd)
     vd = _gather_pages(v_pages, block_table, max_ctx)[None]
-    out = chunked_causal_attention(q, kd, vd, q_offset=start,
-                                   q_chunk=cfg.attn_chunk,
-                                   kv_chunk=cfg.attn_chunk)
-    out = out.reshape(B, C, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    out = _attend(q, kd, vd, None, q_offset=start) @ p["wo"]
     return out, cache
 
 
@@ -199,8 +311,6 @@ def paged_decode(p, cfg, blk, x, cache, block_tables, lengths
     ``ops.paged_flash_decode`` (the CUDA kernel on the card).  Inactive
     lanes pass a null table and length 0: their writes and reads hit the
     reserved null page and the engine discards their outputs."""
-    from repro_torch.kernels import ops as kernel_ops
-
     B = x.shape[0]
     hd = cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)

@@ -1,9 +1,8 @@
 """Engine-cluster construction and warm-up for the launcher.
 
-Port of ``build_engines`` and ``warmup`` from
-``repro/serving/builders.py``.  ``build_fleet`` (mixed paged + dense
-fleets) comes with the dense engines (ROADMAP.md A3) and
-``build_sharded_engine`` with A7.
+Port of ``build_engines``, ``build_fleet`` and ``warmup`` from
+``repro/serving/builders.py``.  ``build_sharded_engine`` comes with
+ROADMAP.md A7.
 """
 from __future__ import annotations
 
@@ -24,11 +23,21 @@ def default_depths(n_edge: int) -> List[int]:
     return [2 + 2 * (i % 2) for i in range(n_edge)]
 
 
+def _engine(arch: str, cfg, i: int, seed0: int, device: torch.device,
+            max_len: int, **kw) -> ServeEngine:
+    """One engine of ``cfg`` with random weights drawn on ``device`` from
+    a generator seeded ``seed0 + i``."""
+    gen = torch.Generator(device=device).manual_seed(seed0 + i)
+    params = init_params(cfg, gen, device)
+    return ServeEngine(cfg, params, max_len=max_len, arch_id=arch,
+                       device=device, seed=seed0 + i, **kw)
+
+
 def build_engines(arch: str, n_edge: int, max_len: int, *,
                   kv_slots: int = 4, sample: bool = False,
                   depths: Optional[Sequence[int]] = None,
-                  seed0: int = 0, page_size: int = 16,
-                  max_lanes: Optional[int] = None,
+                  seed0: int = 0, paged: Optional[bool] = None,
+                  page_size: int = 16, max_lanes: Optional[int] = None,
                   prefill_chunk: int = 64,
                   prefix_cache: Optional[bool] = None,
                   device: DeviceLike = None,
@@ -39,8 +48,10 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
     (default: the reference's alternating 2/4 layers), as the reference
     does.  ``full_scale=True`` keeps the published widths and dtype, with
     the depth from ``depths`` or, when that is not given, the config's
-    own.  Weights are random, drawn on the device from a generator seeded
-    ``seed0 + i`` for engine i."""
+    own.  ``paged=None`` picks the shared page pool for all-attention
+    configs and the dense slot pool otherwise; dense engines ignore the
+    paged knobs.  Weights are random, drawn on the device from a
+    generator seeded ``seed0 + i`` for engine i."""
     device = resolve_device(device)
     base = get_config(arch)
     if not full_scale:
@@ -49,26 +60,44 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
                   else default_depths(n_edge))
     elif depths is None:
         depths = [base.num_layers] * n_edge
-    engines = []
-    for i in range(n_edge):
-        cfg = dataclasses.replace(base, num_layers=depths[i])
-        gen = torch.Generator(device=device).manual_seed(seed0 + i)
-        params = init_params(cfg, gen, device)
-        engines.append(ServeEngine(cfg, params, max_len=max_len,
-                                   kv_slots=kv_slots, sample=sample,
-                                   page_size=page_size,
-                                   max_lanes=max_lanes,
-                                   prefill_chunk=prefill_chunk,
-                                   prefix_cache=prefix_cache,
-                                   arch_id=arch, device=device,
-                                   seed=seed0 + i))
-    return engines
+    return [_engine(arch, dataclasses.replace(base, num_layers=depths[i]), i,
+                    seed0, device, max_len, kv_slots=kv_slots,
+                    sample=sample, paged=paged, page_size=page_size,
+                    max_lanes=max_lanes, prefill_chunk=prefill_chunk,
+                    prefix_cache=prefix_cache)
+            for i in range(n_edge)]
+
+
+def build_fleet(archs: Sequence[str], max_len: int, *,
+                kv_slots: int = 4, sample: bool = False,
+                depths: Optional[Sequence[int]] = None,
+                seed0: int = 0, paged: Optional[bool] = None,
+                page_size: int = 16, max_lanes: Optional[int] = None,
+                prefill_chunk: int = 64,
+                prefix_cache: Optional[bool] = None,
+                device: DeviceLike = None) -> List[ServeEngine]:
+    """Heterogeneous fleet: one engine per entry of ``archs``, each a
+    ``reduced()`` config at ``depths[i]`` (default: alternating 2/4
+    layers), tagged with its arch id.  Mixed families mean mixed memory
+    models behind one cluster interface: paged attention pools next to
+    dense RG-LRU slot pools."""
+    device = resolve_device(device)
+    archs = list(archs)
+    depths = (list(depths) if depths is not None
+              else default_depths(len(archs)))
+    return [_engine(arch, dataclasses.replace(reduced(get_config(arch)),
+                                              num_layers=depths[i]),
+                    i, seed0, device, max_len, kv_slots=kv_slots,
+                    sample=sample, paged=paged, page_size=page_size,
+                    max_lanes=max_lanes, prefill_chunk=prefill_chunk,
+                    prefix_cache=prefix_cache)
+            for i, arch in enumerate(archs)]
 
 
 def warmup(engines: Sequence[ServeEngine], prompt_len: int,
            gen_tokens: int = 2) -> None:
     """Run one short request through every engine before timed serving
-    (builds the CUDA kernel, wakes the libraries and the allocator), then
+    (builds the CUDA kernels, wakes the libraries and the allocator), then
     reset it."""
     rng = np.random.default_rng(1)
     for e in engines:

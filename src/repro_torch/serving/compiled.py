@@ -1,19 +1,23 @@
 """Shared step cache: one step callable per (config, shape).
 
 Port of ``repro/serving/compiled.py``: the same function names and cache
-keys ``(kind, cfg, num_pages, page_size, sample, temperature, mesh)``.
-PyTorch runs eagerly, so the entries are plain callables rather than
-jitted executables; same-config engines in a fleet still share one.  The
-reference donates the page pools to each step; here every step writes
-them in place.  The dense slot-pool steps come with the dense engines
-(ROADMAP.md A3) and sharded meshes with A7.
+keys ``(kind, cfg, max_len / kv_slots / num_pages + page_size, sample,
+temperature, mesh)``.  PyTorch runs eagerly, so the entries are plain
+callables rather than jitted executables; same-config engines in a fleet
+still share one.  The reference donates the slot pool and the page pools
+to each step; here every step writes them in place.  Sharded meshes come
+with ROADMAP.md A7.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
-from repro_torch.train.steps import (make_paged_decode_step,
-                                     make_paged_prefill_step)
+import torch
+
+from repro_torch.train.steps import (make_decode_step,
+                                     make_paged_decode_step,
+                                     make_paged_prefill_step,
+                                     make_prefill_step)
 
 _CACHE: Dict[Tuple, Callable] = {}
 
@@ -28,6 +32,74 @@ def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("sharded engines are not ported to "
                                   "repro_torch yet (ROADMAP.md A7)")
+
+
+# ---------------------------------------------------------------------------
+# dense slot-pool steps
+# ---------------------------------------------------------------------------
+
+
+def prefill_step(cfg, max_len: int, mesh=None) -> Callable:
+    """Batch-1 prefill: (params, {tokens (1, S)}) -> (last_logits (1, V),
+    fresh per-request states whose caches are ``max_len`` deep)."""
+    _no_mesh(mesh)
+    return _get(("prefill", cfg, max_len, mesh),
+                lambda: make_prefill_step(cfg, max_len=max_len))
+
+
+def pool_insert() -> Callable:
+    """Slot insert ``pool[i] = state`` for every leaf of every layer, in
+    place; a request's batch-1 state must fit its slot."""
+    def build():
+        def insert(pool: List[dict], states: List[dict], i: int
+                   ) -> List[dict]:
+            for layer, st in zip(pool, states):
+                for name, leaf in layer.items():
+                    if st[name].shape[1:] != leaf.shape[1:]:
+                        raise ValueError(
+                            f"a state {name} of shape "
+                            f"{tuple(st[name].shape)} does not fit the "
+                            f"slot pool's {tuple(leaf.shape)} (prompt "
+                            f"longer than max_len?)")
+                    leaf[i].copy_(st[name][0])
+            return pool
+
+        return insert
+
+    return _get(("insert",), build)
+
+
+def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
+                     mesh=None) -> Callable:
+    """One-token decode round over the dense slot pool, written out as
+    one batched decode: (params, toks (slots, 1), pool_states,
+    generator) -> (tokens (slots,) int32, new pool_states).
+
+    The reference vmaps a batch-1 decode over the slots, each slot with
+    its own scalar position; here the slot axis is the batch axis and the
+    states' ``pos`` is (slots,), which computes the same round (a
+    ``ctypes`` kernel cannot sit under ``torch.func.vmap``).  K/V caches
+    are written in place."""
+    _no_mesh(mesh)
+
+    def build():
+        dec = make_decode_step(cfg, sample=sample, temperature=temperature)
+
+        def pool_step(params, toks: torch.Tensor, states: List[dict],
+                      generator: Optional[torch.Generator] = None):
+            _, tok, new_states = dec(params, {"tokens": toks}, states,
+                                     generator)
+            return tok, new_states
+
+        return pool_step
+
+    return _get(("pool_decode", cfg, kv_slots, sample, temperature, mesh),
+                build)
+
+
+# ---------------------------------------------------------------------------
+# paged page-pool steps
+# ---------------------------------------------------------------------------
 
 
 def paged_prefill_step(cfg, num_pages: int, page_size: int,

@@ -1,15 +1,26 @@
-"""Continuous-batching serving engine over the shared KV page pool.
+"""Continuous-batching serving engine: a dense slot pool or a shared KV
+page pool.
 
-Port of the paged path of ``repro/serving/engine.py``.  One engine wraps
-one model replica on one device.  KV memory is a shared pool of
-fixed-size pages per layer; each request holds only the pages its prompt
-plus generation need, named by a per-request block table.  Admission is
-gated on free pages and a free lane (up to ``max_lanes``); prefill is
-chunked, one ``prefill_chunk``-token chunk per prefilling lane per step,
-followed by one decode round across the lanes that finished prefilling.
-Completed prompt blocks stay in a prefix cache, shared by refcount with
-later prompts whose token-block chain matches; a lane that diverges
-mid-block forks the cached page copy-on-write.
+Port of ``repro/serving/engine.py``.  One engine wraps one model replica
+on one device and serves admitted requests with one of two memory models:
+
+**Dense slot pool** (recurrent and windowed configs).  A fixed pool of
+``kv_slots`` per-request states (K/V rings ``max_len`` deep, or at most
+the window, and RG-LRU states).  Each step runs one batch-1 prefill per
+joining request, then one batched decode round over every slot, each
+slot at its own position; free slots ride along and their outputs are
+dropped.
+
+**Paged page pool** (all-attention configs; picked by
+``paged_supported``).  KV memory is a shared pool of fixed-size pages per
+layer; each request holds only the pages its prompt plus generation
+need, named by a per-request block table.  Admission is gated on free
+pages and a free lane (up to ``max_lanes``); prefill is chunked, one
+``prefill_chunk``-token chunk per prefilling lane per step, followed by
+one decode round across the lanes that finished prefilling.  Completed
+prompt blocks stay in a prefix cache, shared by refcount with later
+prompts whose token-block chain matches; a lane that diverges mid-block
+forks the cached page copy-on-write.
 
 Stepping is split into :meth:`dispatch`, which admits, enqueues this
 step's prefill chunks and decode round on the device and returns without
@@ -19,9 +30,8 @@ Dispatch moves host data to the device through pinned buffers with
 ``non_blocking=True``, so it never waits for queued device work; tokens
 that feed the next round stay on the device.
 
-The dense slot pool (recurrent and windowed configs) comes with the dense
-engines (ROADMAP.md A3); fault transitions (``fail``/``degrade``) with
-the fault slice (A4).
+Fault transitions (``fail``/``degrade``) come with the fault slice
+(ROADMAP.md A4).
 """
 from __future__ import annotations
 
@@ -80,7 +90,8 @@ class _Pending:
 
     ``prefill`` holds ``(req, tok_device, pos, finished)`` for each prompt
     that completed prefilling this step; ``decode`` holds the round's
-    device tokens plus ``(lane, req, pos, finished)`` per participant.
+    device tokens plus ``(slot/lane, req, pos, finished)`` per
+    participant.
     Finish decisions are structural (token counts), resolved at dispatch
     time; only values and timestamps wait for the transfer."""
 
@@ -97,7 +108,7 @@ class ServeEngine:
                  kv_slots: int = 4, sample: bool = False,
                  temperature: float = 1.0,
                  clock: Callable[[], float] = time.monotonic,
-                 page_size: int = 16,
+                 paged: Optional[bool] = None, page_size: int = 16,
                  num_pages: Optional[int] = None,
                  max_lanes: Optional[int] = None,
                  prefill_chunk: int = 64,
@@ -109,10 +120,6 @@ class ServeEngine:
         if wdev.type != self.device.type:
             raise ValueError(f"params live on {wdev}, engine device is "
                              f"{self.device}")
-        if not paged_supported(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the dense slot pool is not ported to "
-                f"repro_torch yet (ROADMAP.md A3)")
         self.cfg = cfg
         self.params = params
         self.max_len = max_len
@@ -128,6 +135,9 @@ class ServeEngine:
         self._next_rid = 0
         self.peak_inflight = 0
         self.decode_rounds = 0         # decode rounds dispatched since reset
+        # prefill forward passes dispatched since reset: one per chunk on
+        # the paged path, one per prompt on the dense path
+        self.prefills = 0
         self._pending: Optional[_Pending] = None
         self._round_t0 = 0.0
         self.health = Health.HEALTHY
@@ -136,38 +146,51 @@ class ServeEngine:
         self.prefix_lookups = 0
         self.cow_forks = 0
 
-        self.page_size = page_size
-        self.prefill_chunk = prefill_chunk
-        if num_pages is None:
-            # the KV token budget a dense pool would hold, plus the null page
-            num_pages = 1 + kv_slots * cdiv(max_len, page_size)
-        self.num_pages = num_pages
-        self.max_lanes = max_lanes or 2 * kv_slots
-        # fixed table width: a max_len request plus null padding for
-        # chunked-prefill overshoot writes
-        self._row_width = (cdiv(max_len, page_size)
-                           + cdiv(prefill_chunk, page_size) + 1)
-        self._pool = PagePool(num_pages, page_size)
-        self._lanes: List[Optional[_Lane]] = [None] * self.max_lanes
-        self._paged_states = None      # built lazily on first admission
-        self._paged_prefill = compiled.paged_prefill_step(
-            cfg, num_pages, page_size)
-        self._paged_decode = compiled.paged_decode_step(
-            cfg, num_pages, page_size, sample, temperature)
-        if prefix_cache is None or prefix_cache:
-            self._prefix: Optional[PrefixCache] = PrefixCache(self._pool)
-            self._page_copy = compiled.page_copy_step(cfg, num_pages,
-                                                      page_size)
+        self.paged = paged_supported(cfg) if paged is None else bool(paged)
+        self._prefix: Optional[PrefixCache] = None
+        if self.paged:
+            self.page_size = page_size
+            self.prefill_chunk = prefill_chunk
+            if num_pages is None:
+                # the KV token budget a dense pool would hold, plus the
+                # null page
+                num_pages = 1 + kv_slots * cdiv(max_len, page_size)
+            self.num_pages = num_pages
+            self.max_lanes = max_lanes or 2 * kv_slots
+            # fixed table width: a max_len request plus null padding for
+            # chunked-prefill overshoot writes
+            self._row_width = (cdiv(max_len, page_size)
+                               + cdiv(prefill_chunk, page_size) + 1)
+            self._pool = PagePool(num_pages, page_size)
+            self._lanes: List[Optional[_Lane]] = [None] * self.max_lanes
+            self._paged_states = None  # built lazily on first admission
+            self._paged_prefill = compiled.paged_prefill_step(
+                cfg, num_pages, page_size)
+            self._paged_decode = compiled.paged_decode_step(
+                cfg, num_pages, page_size, sample, temperature)
+            if prefix_cache is None or prefix_cache:
+                self._prefix = PrefixCache(self._pool)
+                self._page_copy = compiled.page_copy_step(cfg, num_pages,
+                                                          page_size)
+            else:
+                self._page_copy = None
         else:
-            self._prefix = None
-            self._page_copy = None
+            self.page_size = 0
+            self._prefill = compiled.prefill_step(cfg, max_len)
+            self._slots: List[Optional[Request]] = [None] * kv_slots
+            # each slot's last token, on the device: (1,) int32
+            self._last_tok: List[Optional[torch.Tensor]] = [None] * kv_slots
+            self._pool_states = None   # per-layer states, slot axis first
+            self._pool_decode = compiled.pool_decode_step(
+                cfg, kv_slots, sample, temperature)
+            self._insert = compiled.pool_insert()
 
     # ------------------------------------------------------------------
     # continuous-batching core
     # ------------------------------------------------------------------
     def admit(self, req: Request) -> None:
-        """Enqueue a request; it joins the decode batch when a lane and
-        enough free pages open up."""
+        """Enqueue a request; it joins the decode batch when capacity (a
+        dense slot, or a lane and enough free pages) opens up."""
         if self.health is Health.DOWN:
             raise RuntimeError(f"engine {getattr(self, 'engine_id', '?')} "
                                f"({self.arch_id}) is DOWN; cannot admit "
@@ -193,7 +216,8 @@ class ServeEngine:
             return False
         if not self._queue and not self._inflight_requests():
             return False
-        self._pending = self._dispatch_paged()
+        self._pending = (self._dispatch_paged() if self.paged
+                         else self._dispatch_dense())
         return True
 
     def collect(self) -> List[Request]:
@@ -246,6 +270,56 @@ class ServeEngine:
         if self.device.type == "cpu":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _dispatch_dense(self) -> _Pending:
+        pend = _Pending()
+        # admission: every joining request's prefill is enqueued here and
+        # its first token read in collect()
+        free = [i for i, r in enumerate(self._slots) if r is None]
+        while free and self._queue:
+            req = self._queue.popleft()
+            i = free.pop(0)
+            req.t_prefill_start = self._clock()
+            logits, st = self._prefill(
+                self.params, {"tokens": self._to_device(req.prompt)})
+            self.prefills += 1
+            tok = self._pick(logits)               # on the device
+            pos = len(req.tokens)
+            req.tokens.append(tok)
+            if len(req.tokens) >= req.max_new_tokens:
+                pend.prefill.append((req, tok, pos, True))
+                free.insert(0, i)
+                continue
+            pend.prefill.append((req, tok, pos, False))
+            self._ensure_pool()
+            self._pool_states = self._insert(self._pool_states, st, i)
+            self._slots[i] = req
+            self._last_tok[i] = tok
+        self._note_inflight(sum(r is not None for r in self._slots))
+
+        # one decode round over every slot; free slots decode their stale
+        # state and their tokens are dropped
+        active = [i for i, r in enumerate(self._slots) if r is not None]
+        if active:
+            toks = torch.stack([t if t is not None else self._zero_tok
+                                for t in self._last_tok])   # (slots, 1)
+            self._round_t0 = self._clock()
+            tok_all, self._pool_states = self._pool_decode(
+                self.params, toks, self._pool_states, self._gen)
+            self.decode_rounds += 1
+            entries = []
+            for i in active:
+                req = self._slots[i]
+                tk = tok_all[i:i + 1]              # device slice
+                pos = len(req.tokens)
+                req.tokens.append(tk)
+                self._last_tok[i] = tk
+                fin = len(req.tokens) >= req.max_new_tokens
+                entries.append((i, req, pos, fin))
+                if fin:
+                    self._slots[i] = None
+            pend.decode = (tok_all, entries)
+        return pend
 
     def _dispatch_paged(self) -> _Pending:
         pend = _Pending()
@@ -323,6 +397,7 @@ class ServeEngine:
                 {"tokens": self._to_device(chunk), "start": c0,
                  "block_table": self._to_device(row)},
                 self._paged_states)
+            self.prefills += 1
             lane.chunk_pos = c0 + C
             lane.length = min(lane.chunk_pos, lane.prompt_len)
             if lane.decoding:                      # last chunk of prompt
@@ -388,20 +463,27 @@ class ServeEngine:
         return done
 
     def reset(self) -> None:
-        """Drop queued/in-flight work and measurement state, release every
-        lane and prefix-cache reference, and check that the pool returns
+        """Drop queued/in-flight work and measurement state.  A dense
+        engine frees its slots (their states need no zeroing: every
+        position is written before it is read); a paged one releases every
+        lane and prefix-cache reference and checks that the pool returns
         to all-free (a leak here is a bug)."""
         self._queue.clear()
         self._ewma_tok_s = 0.0
         self._next_rid = 0
         self.peak_inflight = 0
         self.decode_rounds = 0
+        self.prefills = 0
         self._pending = None
         self.health = Health.HEALTHY
         self.prefill_tokens_saved = 0
         self.prefix_hits = 0
         self.prefix_lookups = 0
         self.cow_forks = 0
+        if not self.paged:
+            self._slots = [None] * self.kv_slots
+            self._last_tok = [None] * self.kv_slots
+            return
         for lane in self._lanes:
             if lane is not None:
                 lane.table.release()
@@ -422,8 +504,11 @@ class ServeEngine:
 
     @property
     def kv_leak(self) -> int:
-        """Page references owed to live lanes: total refs net of the
-        prefix cache's one reference per entry.  0 whenever idle."""
+        """Outstanding KV reservations: busy dense slots, or page
+        references owed to live lanes (total refs net of the prefix
+        cache's one reference per entry).  0 whenever idle."""
+        if not self.paged:
+            return sum(r is not None for r in self._slots)
         held = self._prefix.size if self._prefix is not None else 0
         return self._pool.total_refs - held
 
@@ -431,6 +516,8 @@ class ServeEngine:
     # backlog signals (the scheduler's q_b / Eqn-3 observation)
     # ------------------------------------------------------------------
     def _inflight_requests(self) -> List[Request]:
+        if not self.paged:
+            return [r for r in self._slots if r is not None]
         return [ln.req for ln in self._lanes if ln is not None]
 
     @property
@@ -479,7 +566,7 @@ class ServeEngine:
             num_layers=self.cfg.num_layers, d_model=self.cfg.d_model,
             active_params=active, rho_gcycles=2.0 * active / 1e9,
             tok_s=1.0 / self.est_token_seconds,
-            measured=self._ewma_tok_s > 0, paged=True,
+            measured=self._ewma_tok_s > 0, paged=self.paged,
             prefix_hit_rate=self.prefix_hit_rate,
             prefix_cached_tokens=self.prefix_cached_pages * self.page_size)
 
@@ -539,6 +626,14 @@ class ServeEngine:
     def _free_lane(self, i: int) -> None:
         self._lanes[i].table.release()
         self._lanes[i] = None
+
+    def _ensure_pool(self) -> None:
+        """Build the slot pool at first admission: every layer's state
+        with ``kv_slots`` rows."""
+        if self._pool_states is None:
+            from repro_torch.models.transformer import init_layer_states
+            self._pool_states = init_layer_states(
+                self.cfg, self.kv_slots, self.max_len, self.device)
 
     def _ensure_paged_states(self) -> None:
         if self._paged_states is None:

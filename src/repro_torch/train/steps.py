@@ -1,8 +1,9 @@
-"""Step builders for paged serving.
+"""Step builders for serving: dense prefill / decode and paged.
 
-Port of ``make_paged_prefill_step`` / ``make_paged_decode_step`` from
-``repro/train/steps.py``.  The training step and the dense serving steps
-come with their slices (ROADMAP.md A8, A3).
+Port of ``make_prefill_step``, ``make_decode_step``,
+``make_paged_prefill_step`` and ``make_paged_decode_step`` from
+``repro/train/steps.py``.  The training step comes with LM training
+(ROADMAP.md A8).
 """
 from __future__ import annotations
 
@@ -11,6 +12,46 @@ from typing import Optional
 import torch
 
 from repro_torch.models.transformer import forward
+
+
+def _pick(logits: torch.Tensor, sample: bool, temperature: float,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Greedy argmax, or a draw with ``torch.multinomial`` from
+    ``generator`` (the engine's); (B, V) -> (B,) int32."""
+    if sample:
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    else:
+        tok = torch.argmax(logits, dim=-1)
+    return tok.to(torch.int32)
+
+
+def make_prefill_step(cfg, max_len: Optional[int] = None):
+    """Prompt prefill into fresh dense states.
+
+    batch = {tokens (B, S)}; returns (last_logits (B, V), states whose
+    caches are ``max_len`` deep)."""
+    def prefill_step(params, batch):
+        out = forward(params, cfg, batch, mode="prefill", max_len=max_len)
+        return out["last_logits"], out["states"]
+
+    return prefill_step
+
+
+def make_decode_step(cfg, sample: bool = False, temperature: float = 1.0):
+    """One decode token per row of dense states, each row at its own
+    position; the K/V caches are written in place.
+
+    batch = {tokens (B, 1)}; returns (logits (B, V), tokens (B,) int32,
+    new states)."""
+    def decode_step(params, batch, states,
+                    generator: Optional[torch.Generator] = None):
+        out = forward(params, cfg, batch, mode="decode", states=states)
+        logits = out["logits"]
+        return (logits, _pick(logits, sample, temperature, generator),
+                out["states"])
+
+    return decode_step
 
 
 def make_paged_prefill_step(cfg):
@@ -38,11 +79,7 @@ def make_paged_decode_step(cfg, sample: bool = False,
                           generator: Optional[torch.Generator] = None):
         out = forward(params, cfg, batch, mode="paged_decode", states=states)
         logits = out["logits"]
-        if sample:
-            probs = torch.softmax(logits.float() / temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-        else:
-            tok = torch.argmax(logits, dim=-1)
-        return logits, tok.to(torch.int32), out["states"]
+        return (logits, _pick(logits, sample, temperature, generator),
+                out["states"])
 
     return paged_decode_step

@@ -20,12 +20,11 @@ from repro_torch.convert import params_from_jax
 CPU = torch.device("cpu")
 
 
-def configs(num_layers: int = 2, **overrides):
-    """(JAX cfg, port cfg): reduced qwen2-1.5b, f32, ``num_layers`` deep."""
+def configs(num_layers: int = 2, arch: str = "qwen2-1.5b", **overrides):
+    """(JAX cfg, port cfg): reduced ``arch``, f32, ``num_layers`` deep."""
     kw = dict(num_layers=num_layers, **overrides)
-    jcfg = dataclasses.replace(jax_reduced(jax_get_config("qwen2-1.5b")),
-                               **kw)
-    tcfg = dataclasses.replace(reduced(get_config("qwen2-1.5b")), **kw)
+    jcfg = dataclasses.replace(jax_reduced(jax_get_config(arch)), **kw)
+    tcfg = dataclasses.replace(reduced(get_config(arch)), **kw)
     return jcfg, tcfg
 
 

@@ -193,7 +193,18 @@ def test_apply_head_matches(tied):
 
 
 def test_forward_modes_outside_the_slice_raise():
-    _, tcfg = configs(num_layers=1)
+    """Every forward mode is ported; what stays outside the port (int8 KV
+    caches, xLSTM mixers) raises naming its ROADMAP item, and an unknown
+    mode is refused."""
+    jcfg, tcfg = configs(num_layers=1)
+    _, tparams = params_pair(jcfg, tcfg)
+    toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward({}, tcfg, {"tokens": torch.zeros((1, 1), dtype=torch.int32)},
-                mode="decode")
+        forward(tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
+                toks, mode="prefill")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward(tparams, dataclasses.replace(tcfg, pattern=(("mlstm",
+                                                             "none"),)),
+                toks, mode="train")
+    with pytest.raises(ValueError, match="unknown forward mode"):
+        forward(tparams, tcfg, toks, mode="generate")
