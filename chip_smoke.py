@@ -11,8 +11,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    the sources in the checkout (one ``nvcc`` per source, all at once),
    turn TF32 off;
 2. ``paged_flash_decode`` against its plain PyTorch version at the serve
-   path's shapes, in bf16 and f32, with its time, its bound, the plain
-   version's time and one library call's time;
+   path's shapes and at 8 lanes of 2048 tokens, in bf16 and f32, with its
+   time, its bound, the plain version's time and one library call's time;
+   each call is two kernels, split and merge, and a profiler trace of one
+   call shows both, with the grids its split plan gives;
 3. decode against prefill on the card: full-width qwen2-1.5b in f32 with
    2 layers serves one request greedily, and a teacher-forced paged
    prefill over the same tokens must pick the same token everywhere;
@@ -40,7 +42,8 @@ Phases, in order; the script exits non-zero at the first that fails:
    with its time, its bound, the plain version's and SDPA's;
 10. ``flash_decode`` against its plain version at the dense decode
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
-   per-slot lengths, and a wrapped 2048-slot ring), likewise;
+   per-slot lengths, and a wrapped 2048-slot ring), likewise, its split
+   and merge launches traced as in phase 2;
 11. decode against teacher-forced forward on the card: full-width
    recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
    greedily for 16 tokens, so decode crosses the 2048 window and the ring
@@ -80,6 +83,13 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}    # tests/test_kernels.py:45
 # max_lanes 8, qwen2-1.5b heads, page 16, max_len 128 + 32 = 160 ->
 # 1 + 4 * 10 pages and a 10 + 4 + 1 wide block table
 B, H, KV, HD, PS, P, W = 8, 12, 2, 128, 16, 41, 15
+# paged_flash_decode's shapes (B, H, KV, hd, ps, P, W, lengths): the
+# serve path's (ragged, with a 1-token lane and a full table), and the
+# same heads at 8 lanes of 2048 tokens (W 128, P = 1 + 8 * 128)
+PAGED_SHAPES = {
+    "serve": (B, H, KV, HD, PS, P, W, (1, W * PS, 37, 16, 17, 100, 2, 160)),
+    "long_2048": (8, H, KV, HD, PS, 1 + 8 * 128, 128, (2048,) * 8),
+}
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
               "--scheduler", "jsq", "--requests", "8", "--prompt-len", "128",
               "--tokens", "32", "--rate", "8", "--device", "cuda"]
@@ -119,6 +129,7 @@ DECODE_SHAPES = {
     "rg_round": (4, 16, 1, 160, 256, (129, 145, 160, 131), "bfloat16"),
     "rg_ring_2048": (4, 16, 1, 2048, 256, (2048,) * 4, "bfloat16"),
     "rg_round_f32": (4, 16, 1, 160, 256, (129, 145, 160, 131), "float32"),
+    "rg_ring_2048_f32": (4, 16, 1, 2048, 256, (2048,) * 4, "float32"),
 }
 
 
@@ -160,6 +171,13 @@ def time_ms(fn, iters: int = 50, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def _bound(nbytes: int, flops: int, dtype: str):
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
+                                     else "operations")
 
 
 def eager_ms(fn, iters: int = 200) -> float:
@@ -225,36 +243,110 @@ def phase_setup() -> str:
 # ---------------------------------------------------------------------------
 
 
-def _decode_case(dtype, seed: int = 0):
+def _paged_decode_case(shape, dtype, seed: int = 0):
+    """Inputs of paged_flash_decode at ``PAGED_SHAPES[shape]``: a random
+    pool, scrambled tables whose unmapped tails hold out-of-range ids."""
     import numpy as np
     import torch
+    Bs, Hs, KVs, hd, ps, Ps, Ws, lens = PAGED_SHAPES[shape]
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
-    # ragged, including a 1-token lane and a full table (W * PS tokens)
-    lengths = np.asarray([1, W * PS, 37, 16, 17, 100, 2, 160], np.int32)
-    tables = np.stack([rng.permutation(np.arange(1, P))[:W]
-                       for _ in range(B)]).astype(np.int32)
+    lengths = np.asarray(lens, np.int32)
+    tables = np.stack([rng.permutation(np.arange(1, Ps))[:Ws]
+                       for _ in range(Bs)]).astype(np.int32)
     for b, ln in enumerate(lengths):      # unmapped tail: out of range
-        n = -(-int(ln) // PS)
-        tables[b, n:] = rng.choice([-7, P, P + 1000], size=W - n)
-    q = torch.from_numpy(rng.standard_normal((B, H, HD), np.float32))
-    kp = torch.from_numpy(rng.standard_normal((P, KV, PS, HD), np.float32))
-    vp = torch.from_numpy(rng.standard_normal((P, KV, PS, HD), np.float32))
-    return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
-            torch.from_numpy(tables).to(dev),
-            torch.from_numpy(lengths).to(dev), lengths)
+        n = -(-int(ln) // ps)
+        tables[b, n:] = rng.choice([-7, Ps, Ps + 1000], size=Ws - n)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, kp, vp = (torch.randn(shp, generator=gen, device=dev).to(dtype)
+                 for shp in ((Bs, Hs, hd), (Ps, KVs, ps, hd),
+                             (Ps, KVs, ps, hd)))
+    return (q, kp, vp, torch.from_numpy(tables).to(dev),
+            torch.from_numpy(lengths).to(dev))
 
 
 def _sdpa_inputs(q, kp, vp, tables, lens):
-    """Dense (B, KV, W*PS, hd) K/V gathered through the tables, and the
+    """Dense (B, KV, W*ps, hd) K/V gathered through the tables, and the
     length mask, for the library yardstick."""
     import torch
-    tbl = tables.long().clamp(0, P - 1)
-    k = kp[tbl].permute(0, 2, 1, 3, 4).reshape(B, KV, W * PS, HD)
-    v = vp[tbl].permute(0, 2, 1, 3, 4).reshape(B, KV, W * PS, HD)
-    mask = (torch.arange(W * PS, device=q.device)[None, :]
+    Bs, Ws = tables.shape
+    Ps, KVs, ps, hd = kp.shape
+    tbl = tables.long().clamp(0, Ps - 1)
+    k = kp[tbl].permute(0, 2, 1, 3, 4).reshape(Bs, KVs, Ws * ps, hd)
+    v = vp[tbl].permute(0, 2, 1, 3, 4).reshape(Bs, KVs, Ws * ps, hd)
+    mask = (torch.arange(Ws * ps, device=q.device)[None, :]
             < lens[:, None].long())[:, None, None, :]
     return q[:, :, None, :], k.contiguous(), v.contiguous(), mask
+
+
+def traced_launches(fn, calls: int = 4, pad: int = 64):
+    """The kernels one ``fn()`` call launches, read from a
+    ``torch.profiler`` trace: each one's name and grid (None where the
+    trace holds no grid).  A session's first kernel records can be missing
+    from its trace (on an H100, up to ~10 of them late in this script's
+    run), so the trace holds ``pad`` short spin kernels, then ``calls``
+    calls, then one more spin kernel.  None unless a spin record comes
+    first and last (nothing of the calls was lost) and the calls' kernels
+    split into ``calls`` equal calls."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad):
+            torch.cuda._sleep(100_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e.get("ts", 0))
+    spin = ["spin_kernel" in e["name"] for e in kernels]
+    mine = [{"kernel": e["name"], "grid": e.get("args", {}).get("grid")}
+            for e, is_spin in zip(kernels, spin) if not is_spin]
+    if not (kernels and spin[0] and spin[-1]) or len(mine) % calls:
+        return None
+    per = len(mine) // calls
+    if any(mine[i]["kernel"] != mine[i % per]["kernel"]
+           for i in range(len(mine))):
+        return None
+    return mine[:per]
+
+
+def check_split_launches(label: str, fn, Bs, Hs, KVs, n_positions,
+                         unit) -> list:
+    """Trace one decode wrapper call (``traced_launches``) and hold what it
+    launched to the split plan: one split kernel of grid
+    (B * KV * ceil(G / 16), n_splits) and one merge kernel of grid B * H.
+    Returns the traced launches, each named ``split`` or ``merge`` (None
+    where the trace was incomplete)."""
+    from repro_torch.kernels import decode_attention
+    per, n = decode_attention.split_plan(Bs, KVs, n_positions, unit)
+    want = {"split": [Bs * KVs * -(-(Hs // KVs) // 16), n, 1],
+            "merge": [Bs * Hs, 1, 1]}
+    launched = traced_launches(fn)
+    for row in launched or []:
+        row["kernel"] = ("split" if "split_kernel" in row["kernel"] else
+                         "merge" if "merge_kernel" in row["kernel"] else
+                         row["kernel"])
+    seen = "not measured (incomplete trace)" if launched is None else launched
+    log(f"    {label}: plan {per} positions x {n} splits; traced launches "
+        f"{seen}")
+    if launched is not None:
+        if [r["kernel"] for r in launched] != ["split", "merge"]:
+            fail(f"{label}: one call launched {launched}, expected a split "
+                 f"and a merge kernel")
+        for r in launched:
+            if r["grid"] is not None and list(r["grid"]) != want[r["kernel"]]:
+                fail(f"{label}: {r['kernel']} grid {r['grid']}, the plan "
+                     f"gives {want[r['kernel']]}")
+    return launched
 
 
 def phase_kernel() -> dict:
@@ -262,56 +354,65 @@ def phase_kernel() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention, ref
     result = {}
-    for name in ("float32", "bfloat16"):
-        dtype = getattr(torch, name)
-        q, kp, vp, tables, lens, lens_np = _decode_case(dtype)
-        got = decode_attention.paged_flash_decode(q, kp, vp, tables, lens)
-        torch.cuda.synchronize()
-        want = ref.paged_decode_ref(q, kp, vp, tables, lens)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= TOL[name]:
-            fail(f"paged_flash_decode {name}: max abs err {err:.3e} > "
-                 f"{TOL[name]:.0e}")
-        # a zero-length lane gives zeros
-        z = decode_attention.paged_flash_decode(q, kp, vp, tables,
-                                                torch.zeros_like(lens))
-        if z.abs().max().item() != 0.0:
-            fail(f"paged_flash_decode {name}: length-0 lanes not zero")
-        def kernel():
-            return decode_attention.paged_flash_decode(q, kp, vp, tables,
-                                                       lens)
-        ms = time_ms(kernel)
-        call_ms = eager_ms(kernel)
-        plain_ms = time_ms(lambda: ref.paged_decode_ref(q, kp, vp, tables,
-                                                        lens))
-        sq, sk, sv, mask = _sdpa_inputs(q, kp, vp, tables, lens)
-        lib_out = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
-                                                 enable_gqa=True)[:, :, 0]
-        lib_err = (lib_out.float() - want.float()).abs().max().item()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            sq, sk, sv, attn_mask=mask, enable_gqa=True))
-        size = q.element_size()
-        ctx = int(sum(min(int(n), W * PS) for n in lens_np))
-        nbytes = (2 * q.numel() * size            # q in, out
-                  + 2 * ctx * KV * HD * size      # the K and V it needs
-                  + tables.numel() * 4 + lens.numel() * 4)
-        flops = 4 * ctx * H * HD
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        flops_ms = flops / PEAK_FLOPS[name] * 1e3
-        result[name] = {
-            "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
-            "plain_ms": plain_ms,
-            "library_ms": library_ms, "library_err": lib_err,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
-        log(f"  paged_flash_decode {name}: err={err:.3e} (tol "
-            f"{TOL[name]:.0e}) kernel={ms:.4f} ms (eager call "
-            f"{call_ms:.4f} ms) plain={plain_ms:.4f} ms "
-            f"sdpa={library_ms:.4f} ms (err {lib_err:.2e}) "
-            f"bound={result[name]['bound_ms']:.6f} ms "
-            f"({result[name]['bound_by']})")
+    for shape, (Bs, Hs, KVs, hd, ps, Ps, Ws, lens_t) in PAGED_SHAPES.items():
+        log(f"  paged_flash_decode {shape} (B={Bs} H={Hs} KV={KVs} hd={hd}"
+            f" ps={ps} P={Ps} W={Ws})")
+        for name in ("bfloat16", "float32"):
+            q, kp, vp, tables, lens = _paged_decode_case(
+                shape, getattr(torch, name))
+            got = decode_attention.paged_flash_decode(q, kp, vp, tables,
+                                                      lens)
+            torch.cuda.synchronize()
+            want = ref.paged_decode_ref(q, kp, vp, tables, lens)
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= TOL[name]:
+                fail(f"paged_flash_decode {shape} {name}: max abs err "
+                     f"{err:.3e} > {TOL[name]:.0e}")
+            # a zero-length lane gives zeros
+            z = decode_attention.paged_flash_decode(q, kp, vp, tables,
+                                                    torch.zeros_like(lens))
+            if z.abs().max().item() != 0.0:
+                fail(f"paged_flash_decode {shape} {name}: length-0 lanes "
+                     f"not zero")
+
+            def kernel():
+                return decode_attention.paged_flash_decode(q, kp, vp, tables,
+                                                           lens)
+            launched = check_split_launches(
+                f"paged_flash_decode {shape} {name}", kernel, Bs, Hs, KVs,
+                Ws * ps, ps)
+            ms = time_ms(kernel)
+            call_ms = eager_ms(kernel)
+            plain_ms = time_ms(lambda: ref.paged_decode_ref(q, kp, vp,
+                                                            tables, lens))
+            sq, sk, sv, mask = _sdpa_inputs(q, kp, vp, tables, lens)
+            lib_out = F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True)[:, :, 0]
+            lib_err = (lib_out.float() - want.float()).abs().max().item()
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True))
+            size = q.element_size()
+            ctx = int(sum(min(int(n), Ws * ps) for n in lens_t))
+            nbytes = (2 * q.numel() * size            # q in, out
+                      + 2 * ctx * KVs * hd * size     # the K and V it needs
+                      + tables.numel() * 4 + lens.numel() * 4)
+            bound_ms, bound_by = _bound(nbytes, 4 * ctx * Hs * hd, name)
+            row = {"max_abs_err": err, "ms": ms, "eager_ms": call_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_err": lib_err, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "launched": launched,
+                   "kernel_launches_per_call": (None if launched is None
+                                                else len(launched))}
+            result.setdefault(shape, {})[name] = row
+            log(f"  paged_flash_decode {shape} {name}: err={err:.3e} (tol "
+                f"{TOL[name]:.0e}) kernel={ms:.4f} ms (eager call "
+                f"{call_ms:.4f} ms) plain={plain_ms:.4f} ms "
+                f"sdpa={library_ms:.4f} ms (err {lib_err:.2e}) "
+                f"bound={bound_ms:.6f} ms ({bound_by})")
+            del q, kp, vp, tables, lens, got, want, sk, sv, lib_out
+            torch.cuda.empty_cache()
     log(f"phase 2 ok: paged_flash_decode matches paged_decode_ref at "
-        f"B={B} H={H} KV={KV} hd={HD} ps={PS} P={P} W={W}")
+        f"{', '.join(PAGED_SHAPES)}")
     return result
 
 
@@ -425,6 +526,20 @@ def phase_serve() -> int:
     return launches, attn_launches
 
 
+def _kernel_share(by_kernel: dict, word: str, rounds: int):
+    """Device ms per round of the kernels whose names hold ``word`` (a
+    decode call's split and merge kernels), and the split of it by kernel.
+    The merge is a programmatic dependent launch: its time counts from
+    when its blocks start, which may be before the split kernel ends."""
+    mine = {k: v / 1e3 / rounds for k, v in by_kernel.items() if word in k}
+
+    def part(k):
+        return ("split" if "split_kernel" in k else
+                "merge" if "merge_kernel" in k else k)
+    parts = ", ".join(f"{part(k)} {v:.3f}" for k, v in sorted(mine.items()))
+    return sum(mine.values()), parts
+
+
 def phase_round_breakdown(rounds: int = 4) -> None:
     """Where a full-scale decode round's time goes: one 28-layer bf16
     engine with all 8 lanes decoding; host enqueue time of ``dispatch``,
@@ -468,12 +583,11 @@ def phase_round_breakdown(rounds: int = 4) -> None:
     enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
     wall_ms = 1e3 * sum(h[1] for h in host) / rounds
     busy_ms = sum(by_kernel.values()) / 1e3 / rounds
-    attn_ms = sum(v for k, v in by_kernel.items()
-                  if "paged_decode" in k) / 1e3 / rounds
+    attn_ms, attn_parts = _kernel_share(by_kernel, "paged_decode", rounds)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     busy = (f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / wall_ms:.2f}), paged_flash_decode "
-            f"{attn_ms:.3f} ms of it" if by_kernel else
+            f"{attn_ms:.3f} ms of it ({attn_parts})" if by_kernel else
             "device busy not measured (the profiler saw no device time)")
     log(f"phase 4b: decode round (8 lanes, 28 layers, bf16): enqueue "
         f"{enqueue_ms:.2f} ms, wall {wall_ms:.2f} ms, {busy}")
@@ -754,13 +868,6 @@ def phase_live_ladts() -> int:
 # ---------------------------------------------------------------------------
 
 
-def _bound(nbytes: int, flops: int, dtype: str):
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
-                                     else "operations")
-
-
 def _attn_mask(Sq, Skv, window, q_offset, dev):
     import torch
     qpos = q_offset + torch.arange(Sq, device=dev)[:, None]
@@ -841,6 +948,19 @@ def phase_flash_attention() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _flash_decode_case(name: str):
+    """Inputs of flash_decode at ``DECODE_SHAPES[name]``: q, K and V
+    caches, per-lane lengths."""
+    import torch
+    Bs, Hq, KVh, W_, hd, lens, dt = DECODE_SHAPES[name]
+    dtype, dev = getattr(torch, dt), torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn((Bs, Hq, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((Bs, KVh, W_, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((Bs, KVh, W_, hd), generator=gen, device=dev).to(dtype)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
 def phase_flash_decode() -> dict:
     import torch
     import torch.nn.functional as F
@@ -848,14 +968,7 @@ def phase_flash_decode() -> dict:
     dev = torch.device("cuda")
     result = {}
     for name, (Bs, Hq, KVh, W_, hd, lens, dt) in DECODE_SHAPES.items():
-        dtype = getattr(torch, dt)
-        gen = torch.Generator(device=dev).manual_seed(10)
-        q = torch.randn((Bs, Hq, hd), generator=gen, device=dev).to(dtype)
-        k = torch.randn((Bs, KVh, W_, hd), generator=gen,
-                        device=dev).to(dtype)
-        v = torch.randn((Bs, KVh, W_, hd), generator=gen,
-                        device=dev).to(dtype)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q, k, v, lengths = _flash_decode_case(name)
         got = decode_attention.flash_decode(q, k, v, lengths)
         torch.cuda.synchronize()
         want = ref.decode_ref(q, k, v, lengths)
@@ -863,10 +976,15 @@ def phase_flash_decode() -> dict:
         if not err <= TOL[dt]:
             fail(f"flash_decode {name}: max abs err {err:.3e} > "
                  f"{TOL[dt]:.0e}")
+        z = decode_attention.flash_decode(q, k, v, torch.zeros_like(lengths))
+        if z.abs().max().item() != 0.0:
+            fail(f"flash_decode {name}: length-0 lanes not zero")
 
         def kernel():
             return decode_attention.flash_decode(q, k, v, lengths)
 
+        launched = check_split_launches(f"flash_decode {name}", kernel, Bs,
+                                        Hq, KVh, W_, decode_attention.TILE)
         ms = time_ms(kernel)
         call_ms = eager_ms(kernel)
         plain_ms = time_ms(lambda: ref.decode_ref(q, k, v, lengths))
@@ -889,7 +1007,9 @@ def phase_flash_decode() -> dict:
             "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "launched": launched,
+            "kernel_launches_per_call": (None if launched is None
+                                         else len(launched))}
         log(f"  flash_decode {name} {dt}: err={err:.3e} (tol "
             f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
             f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
@@ -1072,12 +1192,11 @@ def phase_dense_round_breakdown(rounds: int = 4) -> None:
     enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
     wall_ms = 1e3 * sum(h[1] for h in host) / rounds
     busy_ms = sum(by_kernel.values()) / 1e3 / rounds
-    attn_ms = sum(v for k, v in by_kernel.items()
-                  if "flash_decode" in k) / 1e3 / rounds
+    attn_ms, attn_parts = _kernel_share(by_kernel, "flash_decode", rounds)
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     busy = (f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / wall_ms:.2f}), flash_decode {attn_ms:.3f} ms "
-            f"of it" if by_kernel else
+            f"of it ({attn_parts})" if by_kernel else
             "device busy not measured (the profiler saw no device time)")
     log(f"phase 12b: dense decode round ({eng.kv_slots} slots, "
         f"{eng.cfg.num_layers} layers, bf16): enqueue {enqueue_ms:.2f} ms, "
@@ -1118,7 +1237,7 @@ def main() -> None:
     attn_launches, dec_launches, _ = phase_rg_serve()
     _free_card()
     phase_dense_round_breakdown()
-    bf = checks["bfloat16"]
+    bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
     pre = attn["rg_prefill"]
     rnd = dec["rg_round"]
@@ -1126,12 +1245,16 @@ def main() -> None:
         "name": "paged_flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:132",
-        "launches": launches, "max_abs_err": bf["max_abs_err"],
-        "max_abs_err_f32": checks["float32"]["max_abs_err"],
+        "launches": launches,
+        "kernel_launches_per_call": bf["kernel_launches_per_call"],
+        "max_abs_err": max(c["bfloat16"]["max_abs_err"]
+                           for c in checks.values()),
+        "max_abs_err_f32": max(c["float32"]["max_abs_err"]
+                               for c in checks.values()),
         "ms": bf["ms"], "eager_ms": bf["eager_ms"],
         "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-        "library_ms": bf["library_ms"], "check": "ok"}, {
+        "library_ms": bf["library_ms"], "shapes": checks, "check": "ok"}, {
         "name": "ladn_denoise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ladn_denoise.cu",
         "replaces": "src/repro/kernels/ladn_denoise.py:34",
@@ -1158,9 +1281,11 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:48",
         "launches": dec_launches,
+        "kernel_launches_per_call": rnd["kernel_launches_per_call"],
         "max_abs_err": max(v["max_abs_err"] for k, v in dec.items()
                            if v["shape"]["dtype"] == "bfloat16"),
-        "max_abs_err_f32": dec["rg_round_f32"]["max_abs_err"],
+        "max_abs_err_f32": max(v["max_abs_err"] for k, v in dec.items()
+                               if v["shape"]["dtype"] == "float32"),
         "ms": rnd["ms"], "eager_ms": rnd["eager_ms"],
         "plain_ms": rnd["plain_ms"], "bound_ms": rnd["bound_ms"],
         "bound_by": rnd["bound_by"], "library_ms": rnd["library_ms"],

@@ -4,10 +4,11 @@ Each kernel is one CUDA C++ source under ``csrc/`` with a plain C
 interface.  :func:`build` compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library at first use; the caller loads it with ``ctypes``.  The
 library lands in ``_build/`` next to this file, named by the source's stem
-and a hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing here runs when the module is imported:
-the CPU tests import it on machines without ``nvcc``.  Builds of
-different sources may run at the same time (one thread each).
+and a hash of the source, the headers (``*.cuh``) beside it and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs when the module is imported: the CPU tests import it on
+machines without ``nvcc``.  Builds of different sources may run at the
+same time (one thread each).
 """
 from __future__ import annotations
 
@@ -41,8 +42,11 @@ def build(source: Path) -> Path:
     """Compile ``source`` unless an up-to-date build exists; returns the
     library path.  ``build_info[source.stem]`` records the seconds spent
     and the compiler's ``-Xptxas -v`` report."""
-    src = source.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = digest.hexdigest()
     lib = BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
     if lib.exists():
         build_info[source.stem] = dict(path=str(lib), seconds=0.0,

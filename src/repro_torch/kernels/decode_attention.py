@@ -3,12 +3,21 @@
 Port of ``repro/kernels/decode_attention.py``: ``paged_flash_decode``
 (one query token per lane against the shared page pool) and
 ``flash_decode`` (one query token per lane against a dense per-lane
-cache).  Each kernel is CUDA C++ (``csrc/paged_decode.cu``,
-``csrc/flash_decode.cu``), compiled with ``nvcc`` for ``sm_90a`` into a
+cache).  Each is CUDA C++ (``csrc/paged_decode.cu``,
+``csrc/flash_decode.cu``, both on the split-K design of
+``csrc/decode_split.cuh``), compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use
 (``kernels/build.py``) and loaded with ``ctypes``.  Nothing here runs when
 the module is imported: the CPU tests import it on machines without
 ``nvcc``.
+
+Split-K: each lane's cache is cut into splits by :func:`split_plan`, from
+shapes only, so that a call never waits for the device and can be
+captured in a CUDA graph.  A call launches a split kernel (one block per
+lane, KV head, 16 query heads and split, writing partial softmax states
+into a workspace the wrapper allocates) and a merge kernel (one block per
+query row, combining the partials of the splits that start below the
+lane's length).
 
 :func:`paged_flash_decode` and :func:`flash_decode` launch their kernels
 on CUDA tensors only and raise on anything they do not take.  Their plain
@@ -21,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,9 +42,40 @@ FLASH_DECODE_SOURCE = _HERE / "csrc" / "flash_decode.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # an H100 block may use at most this much shared memory
 _MAX_SMEM = 232_448
+# the split kernel's geometry (csrc/decode_split.cuh): 32-position tiles,
+# head_dim a multiple of 16 and at most 256
+TILE = 32
+MAX_HEAD_DIM = 256
+# The split plan's rule, from a sweep on an H100 (PERF.md section 6):
+# split blocks a call aims for (two per SM of 132), and the most positions
+# a split holds (two tiles), so that a lane of a long cache gets more
+# splits rather than longer ones.
+SPLIT_BLOCKS = 264
+MAX_SPLIT = 2 * TILE
 
 _lib: Optional[ctypes.CDLL] = None
 _flash_lib: Optional[ctypes.CDLL] = None
+
+
+def split_plan(B: int, KV: int, n_positions: int,
+               unit: int) -> Tuple[int, int]:
+    """(positions per split, number of splits) for ``B`` lanes x ``KV``
+    heads over a cache of ``n_positions`` (the ring depth S, or the block
+    table's W x page_size), from shapes only: never from the lengths,
+    which live on the device.
+
+    A split is a whole number of ``unit`` positions (a tile of the dense
+    cache, a page of the pool): as few as keep ``B * KV * n_splits``
+    within :data:`SPLIT_BLOCKS`, but no more than :data:`MAX_SPLIT`
+    positions (at least one unit) and no more than 65535 splits (the
+    grid's limit).  Split s covers positions [s * per_split,
+    (s + 1) * per_split); the kernel skips any split that starts at or
+    past its lane's length."""
+    units = -(-n_positions // unit)
+    most = min(65535, max(1, SPLIT_BLOCKS // max(1, B * KV)))
+    per = min(-(-units // most), max(1, MAX_SPLIT // unit))
+    per = max(1, per, -(-units // 65535))
+    return per * unit, -(-units // per)
 
 
 def _library() -> ctypes.CDLL:
@@ -43,14 +83,12 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.repro_paged_decode.argtypes = [ci, vp, vp, vp, vp, vp, vp,
-                                           ci, ci, ci, ci, ci, ci, ci,
-                                           ctypes.c_float, vp]
+        lib.repro_paged_decode.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp,
+                                           ci, ci, ci, ci, ci, ci, ci, ci,
+                                           ci, ctypes.c_float, vp]
         lib.repro_paged_decode.restype = ci
         lib.repro_paged_decode_smem_bytes.argtypes = [ci, ci, ci]
         lib.repro_paged_decode_smem_bytes.restype = ctypes.c_longlong
-        lib.repro_paged_decode_max_chunks.argtypes = []
-        lib.repro_paged_decode_max_chunks.restype = ci
         lib.repro_cuda_error_string.argtypes = [ci]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -62,13 +100,12 @@ def _flash_library() -> ctypes.CDLL:
     if _flash_lib is None:
         lib = ctypes.CDLL(str(_build.build(FLASH_DECODE_SOURCE)))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.repro_flash_decode.argtypes = [ci, vp, vp, vp, vp, vp, ci, ci,
-                                           ci, ci, ci, ctypes.c_float, vp]
+        lib.repro_flash_decode.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci,
+                                           ci, ci, ci, ci, ci, ci,
+                                           ctypes.c_float, vp]
         lib.repro_flash_decode.restype = ci
-        lib.repro_flash_decode_smem_bytes.argtypes = [ci, ci]
+        lib.repro_flash_decode_smem_bytes.argtypes = [ci, ci, ci]
         lib.repro_flash_decode_smem_bytes.restype = ctypes.c_longlong
-        lib.repro_flash_decode_max_head_dim.argtypes = [ci]
-        lib.repro_flash_decode_max_head_dim.restype = ci
         lib.repro_flash_decode_error_string.argtypes = [ci]
         lib.repro_flash_decode_error_string.restype = ctypes.c_char_p
         _flash_lib = lib
@@ -84,13 +121,51 @@ def _check(t: torch.Tensor, name: str, dtype=None) -> None:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
 
 
+def _lengths(lengths, B: int, device, name: str) -> torch.Tensor:
+    """An int, a 0-d tensor or a (B,) int32 CUDA tensor, as (B,) int32."""
+    if not torch.is_tensor(lengths) or lengths.dim() == 0:
+        lengths = torch.full((B,), int(lengths), dtype=torch.int32,
+                             device=device)
+    _check(lengths, name, torch.int32)
+    if lengths.shape != (B,):
+        raise ValueError(f"{name} must be ({B},), got "
+                         f"{tuple(lengths.shape)}")
+    return lengths
+
+
+def _split_setup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 KV: int, n_positions: int, unit: int, smem_bytes):
+    """The checks both kernels share, the split plan, and the partials'
+    workspace: (per_split, n_splits, workspace).  The workspace is one f32
+    ``torch.empty`` holding acc (B, KV, n_splits, G, hd), then m and l
+    (B, KV, n_splits, G); the kernels write every entry the merge reads."""
+    B, H, hd = q.shape
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} must be a multiple of 16 and at "
+                         f"most {MAX_HEAD_DIM}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    per_split, n_splits = split_plan(B, KV, n_positions, unit)
+    smem = smem_bytes(hd, q.element_size(), per_split)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"head_dim {hd} needs {smem} bytes of shared "
+                         f"memory per block")
+    ws = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
+                     device=q.device)
+    return per_split, n_splits, ws
+
+
 def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, block_tables: torch.Tensor,
                        lengths) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B,H,hd); pools (P,KV,ps,hd); tables
+    """Launch the CUDA kernels: q (B,H,hd); pools (P,KV,ps,hd); tables
     (B,W) int32; lengths (B,) int32 (or a scalar, broadcast).  Returns
-    (B,H,hd) in q's dtype; a lane of length 0 gives zeros.  Launches on
-    the current stream without synchronising."""
+    (B,H,hd) in q's dtype; a lane of length 0 gives zeros.
+
+    One call is two kernel launches on the current stream (the split
+    blocks of :func:`split_plan` over the table's W x ps positions, then
+    the merge), made by one ``ctypes`` call, without synchronising."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_flash_decode takes float32 or bfloat16, "
                         f"got {q.dtype}")
@@ -108,41 +183,22 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"block_tables must be ({B}, W), got "
                          f"{tuple(block_tables.shape)}")
-    if not torch.is_tensor(lengths) or lengths.dim() == 0:
-        lengths = torch.full((B,), int(lengths), dtype=torch.int32,
-                             device=q.device)
-    _check(lengths, "lengths", torch.int32)
-    if lengths.shape != (B,):
-        raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    lengths = _lengths(lengths, B, q.device, "lengths")
     out = torch.empty_like(q)
-    if B == 0:
-        return out
-    # the kernel reads K/V in 16-byte chunks, hd / vec of them per token,
-    # reduced across that many threads of one warp
-    vec = 16 // q.element_size()
-    parts = hd // vec
-    if hd % vec or parts & (parts - 1) or parts > 32:
-        raise ValueError(f"head_dim {hd} must be {vec} x a power of two "
-                         f"<= 32 for {q.dtype}")
-    for t, name in ((k_pages, "k_pages"), (v_pages, "v_pages")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    W = block_tables.shape[1]
+    if B == 0 or W == 0:
+        return out.zero_()
     lib = _library()
-    if ps * parts > lib.repro_paged_decode_max_chunks():
-        raise ValueError(f"a page of {ps} x {hd} {q.dtype} is too large "
-                         f"for one block's registers")
-    G = H // KV
-    smem = lib.repro_paged_decode_smem_bytes(G, ps, hd)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"G={G}, page_size={ps}, head_dim={hd} needs "
-                         f"{smem} bytes of shared memory per block")
+    per_split, n_splits, ws = _split_setup(
+        q, k_pages, v_pages, KV, W * ps, ps,
+        lib.repro_paged_decode_smem_bytes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_paged_decode(
-            _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
-            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), B, H, KV, P, ps, hd, block_tables.shape[1],
-            1.0 / math.sqrt(hd), stream)
+            _DTYPES[q.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, KV, P,
+            ps, hd, W, per_split, n_splits, 1.0 / math.sqrt(hd), stream)
     if err != 0:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"paged_flash_decode launch failed: CUDA error "
@@ -152,11 +208,14 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, length) -> torch.Tensor:
-    """Launch the CUDA kernel: q (B,H,hd); caches (B,KV,S,hd); length an
+    """Launch the CUDA kernels: q (B,H,hd); caches (B,KV,S,hd); length an
     int, a 0-d tensor or a (B,) int32 CUDA tensor of valid positions per
     lane (clamped to [0, S]).  Returns (B,H,hd) in q's dtype; a lane of
-    length 0 gives zeros.  Launches on the current stream without
-    synchronising."""
+    length 0 gives zeros.
+
+    One call is two kernel launches on the current stream (the split
+    blocks of :func:`split_plan` over the S positions, then the merge),
+    made by one ``ctypes`` call, without synchronising."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -171,37 +230,24 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     KV, S = k_cache.shape[1], k_cache.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads are not a multiple of {KV}")
-    if not torch.is_tensor(length) or length.dim() == 0:
-        length = torch.full((B,), int(length), dtype=torch.int32,
-                            device=q.device)
-    _check(length, "length", torch.int32)
-    if length.shape != (B,):
-        raise ValueError(f"length must be ({B},), got {tuple(length.shape)}")
+    length = _lengths(length, B, q.device, "length")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out.zero_()
-    vec = 16 // q.element_size()
     lib = _flash_library()
-    max_hd = lib.repro_flash_decode_max_head_dim(q.element_size())
-    if hd % vec or hd > max_hd:
-        raise ValueError(f"head_dim {hd} must be a multiple of {vec} and "
-                         f"at most {max_hd} for {q.dtype}")
-    for t, name in ((k_cache, "k_cache"), (v_cache, "v_cache")):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    G = H // KV
-    smem = lib.repro_flash_decode_smem_bytes(G, hd)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"G={G}, head_dim={hd} needs {smem} bytes of "
-                         f"shared memory per block")
+    per_split, n_splits, ws = _split_setup(
+        q, k_cache, v_cache, KV, S, TILE,
+        lib.repro_flash_decode_smem_bytes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_decode(
-            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), length.data_ptr(), out.data_ptr(), B, H, KV,
-            S, hd, 1.0 / math.sqrt(hd), stream)
+            _DTYPES[q.dtype], q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), B, H, KV, S, hd, per_split,
+            n_splits, 1.0 / math.sqrt(hd), stream)
     if err != 0:
         msg = lib.repro_flash_decode_error_string(err).decode()
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err} "
                            f"({msg})")
     return out
+

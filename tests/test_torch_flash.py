@@ -1,7 +1,8 @@
 """Port attention kernels: the plain ``attention_ref`` and ``decode_ref``
 against the JAX oracles and the Pallas kernels (in interpret mode), the
-query-offset variant against both packages' chunked attention, the ops
-dispatch, and the CUDA kernels against their plain versions on a card.
+query-offset variant against both packages' chunked attention, the split
+plan and a plain mirror of split-K ``flash_decode``, the ops dispatch, and
+the CUDA kernels against their plain versions on a card.
 
 Inputs are numpy arrays from a seed, fed to both packages.  The JAX
 package is imported inside the parity tests only, so that the ``cuda``
@@ -12,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_split import (PLANS, boundary_lengths, check_plan, graph_replay,
+                          plan_for, poison_cache, split_merge_decode)
 from repro_torch.kernels import decode_attention, flash_attention, ops, ref
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}     # tests/test_kernels.py:45
@@ -142,6 +145,41 @@ def test_decode_ref_per_lane_lengths_match_pallas_interpret():
 
 
 # ---------------------------------------------------------------------------
+# split-K flash decode: the plan and a plain mirror of split-then-merge
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,KV", [(1, 1), (4, 1), (8, 2), (64, 8)],
+                         ids=["1x1", "4x1", "8x2", "64x8"])
+def test_split_plan_covers_every_position_once(B, KV):
+    """Every ring depth S from 1 to 2048: splits are whole tiles and
+    cover the S positions exactly once."""
+    for S in range(1, 2049):
+        check_plan(decode_attention, B, KV, decode_attention.TILE, S)
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("KV,H,S,hd", [(1, 16, 160, 32), (2, 12, 256, 16),
+                                       (4, 4, 96, 64)],
+                         ids=["g16", "g6", "g1"])
+def test_split_merge_mirror_matches_decode_ref(KV, H, S, hd, plan):
+    """Split-then-merge over the plan's tiles, with the partials of splits
+    past a lane's length left NaN, equals the plain version: lengths 0, 1,
+    at a split boundary, one past it, and full."""
+    per, n = plan_for(decode_attention.split_plan, plan, KV, S,
+                      decode_attention.TILE)
+    lengths = torch.tensor(boundary_lengths(per, S), dtype=torch.int32)
+    q, k, v = (torch.from_numpy(a) for a in _decode_inputs(
+        len(lengths), H, KV, S, hd, seed=8))
+    got = split_merge_decode(q, k, v, lengths, per, n)
+    want = ref.decode_ref(q, k, v, lengths)
+    live = lengths > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[live], want[live], atol=1e-5, rtol=1e-5)
+    assert got[~live].abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------------------
 # ops dispatch and the kernel wrappers' refusals
 # ---------------------------------------------------------------------------
 
@@ -212,17 +250,43 @@ def test_cuda_flash_attention_matches_plain_version(B, H, KV, Sq, Skv, hd,
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+# (H, KV, S, hd): recurrentgemma's dense round and its full 2048 ring,
+# qwen2's G = 6 at hd 128, G = 1 at hd 64
+DECODE_CUDA_CASES = {"rg_round": (16, 1, 160, 256),
+                     "rg_ring_2048": (16, 1, 2048, 256),
+                     "g6_hd128": (12, 2, 256, 128),
+                     "g1_hd64": (4, 4, 96, 64)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_CUDA_CASES))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_flash_decode_matches_plain_version(dtype):
+def test_cuda_flash_decode_matches_plain_version(dtype, case):
+    """Lanes at and around the plan's split boundaries match the plain
+    version, with the output's and the partials' memory NaN beforehand;
+    length-0 lanes, and a call with every lane empty, give zeros; a
+    CUDA-graph replay equals the eager call bit for bit."""
     _needs_card()
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
-    q, k, v = (torch.from_numpy(a).to(dev, dt)
-               for a in _decode_inputs(4, 16, 1, 160, 256, seed=6))
-    lengths = torch.tensor([1, 33, 160, 100], dtype=torch.int32, device=dev)
-    got = decode_attention.flash_decode(q, k, v, lengths)
+    H, KV, S, hd = DECODE_CUDA_CASES[case]
+    per, n_splits = decode_attention.split_plan(6, KV, S,
+                                                decode_attention.TILE)
+    lengths = torch.tensor(boundary_lengths(per, S), dtype=torch.int32,
+                           device=dev)
+    q, k, v = (torch.from_numpy(a).to(dev, dt) for a in _decode_inputs(
+        len(lengths), H, KV, S, hd, seed=6))
+
+    def call(n=lengths):
+        return decode_attention.flash_decode(q, k, v, n)
+
+    poison_cache(q, n_splits)
+    got = call()
     torch.cuda.synchronize()
     want = ref.decode_ref(q, k, v, lengths)
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
-    zeros = decode_attention.flash_decode(q, k, v, torch.zeros_like(lengths))
-    assert zeros.abs().max().item() == 0.0
+    live = lengths > 0
+    assert torch.isfinite(got).all()
+    err = (got[live].float() - want[live].float()).abs().max().item()
+    assert err <= TOL[dtype]
+    assert got[~live].abs().max().item() == 0.0
+    assert call(torch.zeros_like(lengths)).abs().max().item() == 0.0
+    assert torch.equal(graph_replay(call), got)

@@ -1,5 +1,6 @@
 """Port kernels: the plain paged decode against the JAX Pallas kernel (in
-interpret mode) and the JAX oracles, the ops dispatch, and the CUDA
+interpret mode) and the JAX oracles, the split plan and a plain mirror of
+the split-K kernel's split-then-merge, the ops dispatch, and the CUDA
 kernel against its plain version on a card.
 
 Inputs are numpy arrays from a seed, fed to both packages.  Lanes have
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_split import (PLANS, boundary_lengths, check_plan, graph_replay,
+                          plan_for, poison_cache, split_merge_decode)
 from repro_torch.kernels import decode_attention, ops, ref
 
 TOL_F32 = 1e-5
@@ -111,22 +114,87 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
                                             tbl, lens)
 
 
+def _dense(kp, vp, tables):
+    """The pool's pages gathered into (B, KV, W * ps, hd) caches, as
+    ``paged_decode_ref`` reads them."""
+    B, W = tables.shape
+    P, KV, ps, hd = kp.shape
+    tbl = tables.long().clamp(0, P - 1)
+    return [x[tbl].permute(0, 2, 1, 3, 4).reshape(B, KV, W * ps, hd)
+            for x in (kp, vp)]
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("B,KV", [(1, 1), (8, 2), (64, 8)],
+                         ids=["1x1", "8x2", "64x8"])
+def test_split_plan_covers_every_page_once(ps, B, KV):
+    """Every table width W from 1 to 2048 / ps: splits are whole pages
+    and cover the W x ps positions exactly once."""
+    for W in range(1, 2048 // ps + 1):
+        check_plan(decode_attention, B, KV, ps, W * ps)
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+@pytest.mark.parametrize("case", [(2, 12, 32, 16, 6), (4, 4, 16, 8, 9),
+                                  (1, 16, 64, 32, 3)],
+                         ids=["g6", "g1", "g16"])
+def test_split_merge_mirror_matches_paged_decode_ref(case, plan):
+    """Split-then-merge over the plan's page runs, with the partials of
+    splits past a lane's length left NaN, equals the plain version:
+    lengths 0, 1, at a split boundary, one past it, and full."""
+    KV, H, hd, ps, npages = case
+    per, n = plan_for(decode_attention.split_plan, plan, KV, npages * ps,
+                      ps)
+    lengths = boundary_lengths(per, npages * ps)
+    q, kp, vp, tbl, lens = _torch(*_case(len(lengths), KV, H, hd, ps,
+                                         npages, lengths, seed=4))
+    got = split_merge_decode(q, *_dense(kp, vp, tbl), lens, per, n)
+    want = ref.paged_decode_ref(q, kp, vp, tbl, lens)
+    live = lens > 0
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[live], want[live], atol=TOL_F32,
+                               rtol=TOL_F32)
+    assert got[~live].abs().max().item() == 0.0
+
+
+# (KV, H, hd, ps, npages): qwen2-1.5b's heads at the serve path's table
+# width and at 2048 tokens, G = 1 at hd 64, recurrentgemma's G = 16 at
+# hd 256
+CUDA_CASES = {"qwen2": (2, 12, 128, 16, 15), "g1_hd64": (4, 4, 64, 8, 6),
+              "g16_hd256": (1, 16, 256, 16, 10),
+              "qwen2_2048": (2, 12, 128, 16, 128)}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_CASES))
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)],
                          ids=["f32", "bf16"])
-def test_cuda_kernel_matches_plain_version(dtype, tol):
+def test_cuda_kernel_matches_plain_version(dtype, tol, case):
+    """Lanes at and around the plan's split boundaries match the plain
+    version, with the output's and the partials' memory NaN beforehand;
+    length-0 lanes, and a call with every lane empty, give zeros; a
+    CUDA-graph replay equals the eager call bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100 with -m cuda)")
     dev = torch.device("cuda")
-    lengths = [1, 7, 23, 48]
+    KV, H, hd, ps, npages = CUDA_CASES[case]
+    per, n_splits = decode_attention.split_plan(6, KV, npages * ps, ps)
+    lengths = boundary_lengths(per, npages * ps)
     q, kp, vp, tbl, lens = [t.to(dev) for t in _torch(
-        *_case(4, 2, 12, 128, 16, 3, lengths))]
+        *_case(len(lengths), KV, H, hd, ps, npages, lengths))]
     q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-    got = decode_attention.paged_flash_decode(q, kp, vp, tbl, lens)
+
+    def call(n=lens):
+        return decode_attention.paged_flash_decode(q, kp, vp, tbl, n)
+
+    poison_cache(q, n_splits)
+    got = call()
     torch.cuda.synchronize()
     want = ref.paged_decode_ref(q, kp, vp, tbl, lens)
-    assert (got.float() - want.float()).abs().max().item() <= tol
-    zeros = decode_attention.paged_flash_decode(q, kp, vp, tbl,
-                                                torch.zeros_like(lens))
-    assert zeros.abs().max().item() == 0.0
+    live = lens > 0
+    assert torch.isfinite(got).all()
+    assert (got[live].float() - want[live].float()).abs().max().item() <= tol
+    assert got[~live].abs().max().item() == 0.0
+    assert call(torch.zeros_like(lens)).abs().max().item() == 0.0
+    assert torch.equal(graph_replay(call), got)
