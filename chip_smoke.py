@@ -38,8 +38,11 @@ Phases, in order; the script exits non-zero at the first that fails:
    per placement plus the cluster's warm-up;
 9. ``flash_attention`` against its plain version at the dense prefill's
    shapes (recurrentgemma-9b heads at 128 and 4096 positions) and the
-   paged prefill chunk's (qwen2-1.5b, with a query offset), bf16 and f32,
-   with its time, its bound, the plain version's and SDPA's;
+   paged prefill chunks' (qwen2-1.5b, with a query offset: the serve
+   path's and the last chunk of a 2048-token prompt), bf16 and f32, with
+   its time, its bound, the plain version's and SDPA's; a profiler trace
+   of one call per shape must show one kernel with the grid its tile
+   plan gives; the compiler's registers and spills per instantiation;
 10. ``flash_decode`` against its plain version at the dense decode
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
    per-slot lengths, and a wrapped 2048-slot ring), likewise, its split
@@ -114,12 +117,14 @@ RG_SERVE_ARGS = ["--arch", RG, "--full-scale", "--edges", "2",
                  "--device", "cuda"]
 # flash_attention's shapes (B, H, KV, Sq, Skv, hd, window, q_offset, dtype):
 # recurrentgemma's dense prefill of phase 12's 128-token prompts, the same
-# heads where the 2048 window bites, and phase 4's qwen2 paged prefill
-# chunk (64 queries at offset 64 against the 15 x 16-token table)
+# heads where the 2048 window bites, phase 4's qwen2 paged prefill chunk
+# (64 queries at offset 64 against the 15 x 16-token table) and the last
+# chunk of a 2048-token qwen2 prompt (offset 1984, a 128-page table)
 ATTN_SHAPES = {
     "rg_prefill": (1, 16, 1, 128, 128, 256, 2048, 0, "bfloat16"),
     "rg_4096": (1, 16, 1, 4096, 4096, 256, 2048, 0, "bfloat16"),
     "qwen2_chunk": (1, 12, 2, 64, 240, 128, None, 64, "bfloat16"),
+    "qwen2_chunk_2048": (1, 12, 2, 64, 2048, 128, None, 1984, "bfloat16"),
     "rg_prefill_f32": (1, 16, 1, 128, 128, 256, 2048, 0, "float32"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
@@ -281,10 +286,10 @@ def _sdpa_inputs(q, kp, vp, tables, lens):
 
 def traced_launches(fn, calls: int = 4, pad: int = 64):
     """The kernels one ``fn()`` call launches, read from a
-    ``torch.profiler`` trace: each one's name and grid (None where the
-    trace holds no grid).  A session's first kernel records can be missing
-    from its trace (on an H100, up to ~10 of them late in this script's
-    run), so the trace holds ``pad`` short spin kernels, then ``calls``
+    ``torch.profiler`` trace: each one's name, grid and shared-memory bytes
+    (None where the trace holds none).  A session's first kernel records
+    can be missing from its trace (on an H100, up to ~10 of them late in
+    this script's run), so the trace holds ``pad`` short spin kernels, then ``calls``
     calls, then one more spin kernel.  None unless a spin record comes
     first and last (nothing of the calls was lost) and the calls' kernels
     split into ``calls`` equal calls."""
@@ -308,7 +313,8 @@ def traced_launches(fn, calls: int = 4, pad: int = 64):
     kernels = sorted((e for e in events if e.get("cat") == "kernel"),
                      key=lambda e: e.get("ts", 0))
     spin = ["spin_kernel" in e["name"] for e in kernels]
-    mine = [{"kernel": e["name"], "grid": e.get("args", {}).get("grid")}
+    mine = [{"kernel": e["name"], "grid": e.get("args", {}).get("grid"),
+             "smem": e.get("args", {}).get("shared memory")}
             for e, is_spin in zip(kernels, spin) if not is_spin]
     if not (kernels and spin[0] and spin[-1]) or len(mine) % calls:
         return None
@@ -526,6 +532,49 @@ def phase_serve() -> int:
     return launches, attn_launches
 
 
+def _by_kernel(prof) -> dict:
+    """Device microseconds by kernel name in a ``torch.profiler`` session,
+    without the spin kernels that pad a trace."""
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.device_type is not None and "CUDA" in str(evt.device_type):
+            us = getattr(evt, "self_device_time_total", 0.0)
+            if us > 0 and "spin_kernel" not in evt.key:
+                by_kernel[evt.key] = us
+    return by_kernel
+
+
+def _profile_prefill(step, n_attn: int, label: str) -> None:
+    """Device time of ``step()`` (prefill work), by ``torch.profiler``,
+    per prefill and the ``flash_attention`` share of it; ``n_attn`` is the
+    kernel's launches per prefill.  The trace starts with spin kernels, so
+    that its first records, which a session can lose, are not the
+    prefill's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    before = ops.launches["flash_attention"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(100_000)
+        step()
+        torch.cuda.synchronize()
+    by_kernel = _by_kernel(prof)
+    n = (ops.launches["flash_attention"] - before) // n_attn
+    if not by_kernel or n <= 0:
+        log(f"  {label}: device time not measured (the profiler saw no "
+            f"device time, or no prefill ran)")
+        return
+    busy = sum(by_kernel.values()) / 1e3 / n
+    attn = sum(v for k, v in by_kernel.items()
+               if "flash_attention" in k) / 1e3 / n
+    log(f"  {label}: {n} prefill(s), device busy {busy:.3f} ms per "
+        f"prefill, flash_attention {attn:.4f} ms of it ({n_attn} launches, "
+        f"{attn / n_attn * 1e3:.2f} us each)")
+
+
 def _kernel_share(by_kernel: dict, word: str, rounds: int):
     """Device ms per round of the kernels whose names hold ``word`` (a
     decode call's split and merge kernels), and the split of it by kernel.
@@ -557,8 +606,11 @@ def phase_round_breakdown(rounds: int = 4) -> None:
         eng.admit(Request(rid=rid, max_new_tokens=32,
                           prompt=rng.integers(0, eng.cfg.vocab_size,
                                               (1, 128), dtype=np.int32)))
-    for _ in range(3):               # two prefill chunks, then warm rounds
-        eng.step()
+    # the lanes' two 64-token prefill chunks, then a warm round
+    _profile_prefill(lambda: [eng.step() for _ in range(2)],
+                     eng.cfg.num_layers,
+                     "phase 4b: paged prefill chunks (64 tokens, 28 layers)")
+    eng.step()
     torch.cuda.synchronize()
 
     def timed_round():
@@ -574,12 +626,7 @@ def phase_round_breakdown(rounds: int = 4) -> None:
         for _ in range(rounds):
             eng.step()
         torch.cuda.synchronize()
-    by_kernel = {}
-    for evt in prof.key_averages():
-        if evt.device_type is not None and "CUDA" in str(evt.device_type):
-            us = getattr(evt, "self_device_time_total", 0.0)
-            if us > 0:
-                by_kernel[evt.key] = us
+    by_kernel = _by_kernel(prof)
     enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
     wall_ms = 1e3 * sum(h[1] for h in host) / rounds
     busy_ms = sum(by_kernel.values()) / 1e3 / rounds
@@ -769,12 +816,7 @@ def phase_task_step_breakdown(p, cfg, f, states, slots: int = 1) -> None:
                              ProfilerActivity.CUDA]) as prof:
         _, avg = episode(states, ep, gen)
         float(avg)
-    by_kernel = {}
-    for evt in prof.key_averages():
-        if evt.device_type is not None and "CUDA" in str(evt.device_type):
-            us = getattr(evt, "self_device_time_total", 0.0)
-            if us > 0:
-                by_kernel[evt.key] = us
+    by_kernel = _by_kernel(prof)
     enqueue_ms = (t1 - t0) * 1e3 / steps
     wall_ms = (t2 - t0) * 1e3 / steps
     busy_ms = sum(by_kernel.values()) / 1e3 / steps
@@ -878,12 +920,81 @@ def _attn_mask(Sq, Skv, window, q_offset, dev):
     return mask
 
 
+def ptxas_report(log: str) -> list:
+    """Each kernel's registers, stack and spill bytes from an
+    ``nvcc -Xptxas -v`` log, the template arguments read from the mangled
+    name (``flash_attention_mma<hd, split>``, ``..._fma<hd>``)."""
+    import re
+    rows, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            rows.append({"mangled": name, "stack": int(m.group(1)),
+                         "spill_stores": int(m.group(2)),
+                         "spill_loads": int(m.group(3))})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and "registers" not in rows[-1]:
+            rows[-1]["registers"] = int(m.group(1))
+    for row in rows:
+        mangled = row.pop("mangled")
+        base = re.search(r"([a-z_]+(?:mma|fma|kernel))I", mangled)
+        args = re.findall(r"Li(\d+)E", mangled)
+        row["kernel"] = (f"{base.group(1) if base else mangled}"
+                         f"<{', '.join(args)}>")
+    return rows
+
+
+def check_attention_launch(label: str, fn, plan):
+    """Trace one ``flash_attention`` call (``traced_launches``): one
+    kernel, of the grid and shared memory ``plan`` gives (the C entry point
+    derives both from the plan's split on its own).  Returns the traced
+    launches (None where the trace was incomplete)."""
+    import re
+    launched = traced_launches(fn)
+    seen = "not measured (incomplete trace)" if launched is None else [
+        {"kernel": (re.findall(r"flash_attention_\w+<[^>]*>", r["kernel"])
+                    or [r["kernel"][:60]])[0], "grid": r["grid"],
+         "smem": r["smem"]}
+        for r in launched]
+    log(f"    {label}: plan {plan.rows} rows x {plan.bk}-key tiles, "
+        f"{plan.stages} stage(s), {plan.blocks} blocks of {plan.threads} "
+        f"threads, {plan.smem} B shared; traced launches {seen}")
+    if launched is not None:
+        if len(launched) != 1 or "flash_attention" not in \
+                launched[0]["kernel"]:
+            fail(f"{label}: one call launched {launched}, expected one "
+                 f"flash_attention kernel")
+        grid = launched[0]["grid"]
+        if grid is not None and list(grid) != [plan.blocks, 1, 1]:
+            fail(f"{label}: grid {grid}, the tile plan gives "
+                 f"[{plan.blocks}, 1, 1]")
+        smem = launched[0]["smem"]
+        if smem is not None and smem != plan.smem:
+            fail(f"{label}: {smem} B of shared memory, the tile plan gives "
+                 f"{plan.smem}")
+    return None if launched is None else seen
+
+
 def phase_flash_attention() -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.kernels import build, flash_attention, ref
     dev = torch.device("cuda")
-    result = {}
+    info = build.build_info["flash_attention"]
+    ptxas = ptxas_report(info.get("ptxas", ""))
+    for row in ptxas:
+        log(f"  ptxas {row['kernel']}: {row.get('registers')} registers, "
+            f"{row['stack']} B stack, spills {row['spill_stores']} B stored"
+            f" / {row['spill_loads']} B loaded"
+            f"{' (a cached build)' if info['cached'] else ''}")
+    # only this run's compiler report goes into the kernels line
+    result = {} if info["cached"] else {"ptxas": ptxas}
     for name, (B, Hq, KVh, Sq, Skv, hd, win, off, dt) in ATTN_SHAPES.items():
         dtype = getattr(torch, dt)
         gen = torch.Generator(device=dev).manual_seed(9)
@@ -909,6 +1020,10 @@ def phase_flash_attention() -> dict:
             return flash_attention.flash_attention(q, k, v, window=win,
                                                    q_offset=off)
 
+        plan = flash_attention.tile_plan(B, Hq, KVh, Sq, Skv, hd, dtype, win,
+                                         off)
+        launched = check_attention_launch(f"flash_attention {name}", kernel,
+                                          plan)
         ms = time_ms(kernel, iters=iters, reps=3 if big else 5)
         call_ms = eager_ms(kernel, iters=20 if big else 200)
         plain_ms = time_ms(lambda: ref.attention_ref(
@@ -931,7 +1046,7 @@ def phase_flash_attention() -> dict:
             "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "launched": launched}
         log(f"  flash_attention {name} {dt}: err={err:.3e} (tol "
             f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
             f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
@@ -1164,6 +1279,10 @@ def phase_dense_round_breakdown(rounds: int = 4) -> None:
     t1 = time.perf_counter()
     float(logits[0, 0])
     t2 = time.perf_counter()
+    n_attn = sum(b.mixer == "attn" for b in eng.cfg.layer_pattern())
+    _profile_prefill(lambda: prefill(eng.params, {"tokens": tokens}),
+                     n_attn, "phase 12b: dense prefill (128 tokens, "
+                     f"{eng.cfg.num_layers} layers)")
     for rid in range(eng.kv_slots):
         eng.admit(Request(rid=rid, max_new_tokens=32, prompt=prompts[rid]))
     for _ in range(3):               # admission and prefills, warm rounds
@@ -1183,12 +1302,7 @@ def phase_dense_round_breakdown(rounds: int = 4) -> None:
         for _ in range(rounds):
             eng.step()
         torch.cuda.synchronize()
-    by_kernel = {}
-    for evt in prof.key_averages():
-        if evt.device_type is not None and "CUDA" in str(evt.device_type):
-            us = getattr(evt, "self_device_time_total", 0.0)
-            if us > 0:
-                by_kernel[evt.key] = us
+    by_kernel = _by_kernel(prof)
     enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
     wall_ms = 1e3 * sum(h[1] for h in host) / rounds
     busy_ms = sum(by_kernel.values()) / 1e3 / rounds
@@ -1240,6 +1354,7 @@ def main() -> None:
     bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
     pre = attn["rg_prefill"]
+    shapes = {k: v for k, v in attn.items() if k != "ptxas"}
     rnd = dec["rg_round"]
     kernels = [{
         "name": "paged_flash_decode", "route": "cuda",
@@ -1270,13 +1385,14 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": attn_launches,
         "launches_paged_prefill": paged_attn_launches,
-        "max_abs_err": max(v["max_abs_err"] for k, v in attn.items()
+        "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
         "max_abs_err_f32": attn["rg_prefill_f32"]["max_abs_err"],
+        **({"ptxas": attn["ptxas"]} if "ptxas" in attn else {}),
         "ms": pre["ms"], "eager_ms": pre["eager_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
-        "shapes": attn, "check": "ok"}, {
+        "shapes": shapes, "check": "ok"}, {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:48",

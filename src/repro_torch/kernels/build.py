@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# source stem -> {"path", "seconds", "cached"[, "ptxas"]} of its last build
+# source stem -> {"path", "seconds", "cached", "ptxas"} of its last build
 build_info: dict = {}
 
 
@@ -49,8 +49,12 @@ def build(source: Path) -> Path:
     digest = digest.hexdigest()
     lib = BUILD_DIR / f"lib{source.stem}-{digest[:16]}.so"
     if lib.exists():
-        build_info[source.stem] = dict(path=str(lib), seconds=0.0,
-                                       cached=True)
+        # a later lookup keeps the record of the build this process made
+        if build_info.get(source.stem, {}).get("path") != str(lib):
+            log = lib.with_suffix(".log")
+            build_info[source.stem] = dict(
+                path=str(lib), seconds=0.0, cached=True,
+                ptxas=log.read_text() if log.exists() else "")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")

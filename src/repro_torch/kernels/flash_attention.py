@@ -11,17 +11,20 @@ raises on anything it does not take.  It keeps the reference's layouts,
 q (B, H, Sq, hd) and k, v (B, KV, Skv, hd), but takes any strides with a
 unit last stride, so the model's (B, S, H, hd) projections pass as
 transposed views without a copy.  It adds a query offset (query i sits
-at position ``q_offset + i``), which paged prefill chunks need; the TPU
-kernel's tile sizes ``bq``/``bk`` are gone: the kernel picks its own.
-Its plain version is ``repro_torch.kernels.ref.attention_ref``; the
-dispatch between the two lives in ``repro_torch.kernels.ops``.
+at position ``q_offset + i``), which paged prefill chunks need.  The TPU
+kernel's tile sizes ``bq``/``bk`` are gone: :func:`tile_plan` picks them
+from shapes alone, so a call never waits for the device and can be
+captured in a CUDA graph.  Its plain version is
+``repro_torch.kernels.ref.attention_ref``; the dispatch between the two
+lives in ``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,11 +33,112 @@ from repro_torch.kernels import build as _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 64       # query heads per KV head: one block's 64 query rows
+MAX_GROUP = 64       # query heads per KV head: the f32 block's 64 rows
 # an H100 block may use at most this much shared memory
-_MAX_SMEM = 232_448
+MAX_SMEM = 232_448
+# The bf16 plan's rule, from a sweep on an H100 (PERF.md section 6): a
+# block is 4 warps over 64 / split packed query rows, the keys of each
+# 16-row group split over `split` warps; split 1 where it gives a wave of
+# blocks (one per SM), else 4.
+WAVE = 132
+SPLITS = (1, 4)
 
 _lib: Optional[ctypes.CDLL] = None
+
+
+class TilePlan(NamedTuple):
+    """How one call is cut into blocks.  A packed query row is (position,
+    one of the G query heads of a KV head); a block holds ``rows`` of them
+    and walks its keys in tiles of ``bk``, ``stages`` tiles in flight.
+    ``mma``: the tensor-core (bf16) kernel, 4 warps, each 16-row group's
+    keys split over ``split`` warps (each takes ``bk // split`` keys of a
+    tile); else the CUDA-core (f32) kernel, whose 64 rows are
+    ``64 // G`` whole positions."""
+    rows: int
+    bk: int
+    stages: int
+    blocks: int
+    smem: int        # dynamic shared-memory bytes per block
+    mma: bool
+
+    @property
+    def split(self) -> int:
+        return 64 // self.rows if self.mma else 1
+
+    @property
+    def threads(self) -> int:
+        return 128 if self.mma else 256
+
+
+def warp_keys(hd: int, split: int) -> int:
+    """Keys one warp of the bf16 kernel takes from each tile
+    (``csrc/flash_attention.cu`` warp_keys): 64 at hd <= 128 and 32 at 256
+    (a warp's 16 x 256 output already holds 128 registers a thread) at
+    split 1, 16 at split 4."""
+    return (64 if hd <= 128 else 32) if split == 1 else 16
+
+
+def mma_plan(B: int, KV: int, Sq: int, G: int, Skv: int, hd: int,
+             split: int) -> TilePlan:
+    """The bf16 plan with each 16-row group's keys over ``split`` warps:
+    64 // split rows a block, tiles of split x :func:`warp_keys` keys, two
+    stages unless every key fits one tile; shared memory for the walk (Q
+    tile, K and V stages) or the split's f32 merge, whichever is more."""
+    rows = 64 // split
+    bk = split * warp_keys(hd, split)
+    stages = 1 if Skv <= bk else 2
+    walk = 2 * (rows + 2 * stages * bk) * (hd + 8)
+    merge = 4 * (64 * (hd + 4) + 128) if split > 1 else 0
+    return TilePlan(rows, bk, stages, B * KV * -(-(Sq * G) // rows),
+                    max(walk, merge), True)
+
+
+def tile_plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
+              dtype: torch.dtype, window: Optional[int] = None,
+              q_offset: int = 0, causal: bool = True) -> TilePlan:
+    """The grid of one call, from shapes only: never from tensor values.
+
+    bf16 (tensor cores): :func:`mma_plan` with the smallest split of
+    :data:`SPLITS` that keeps a wave of :data:`WAVE` blocks (else the
+    largest).  f32 (CUDA cores): 64 rows of ``64 // G`` whole positions a
+    block, 32-key tiles, one stage.
+
+    The mask's arguments (``window``, ``q_offset``, ``causal``) are
+    checked but do not change the plan: each block computes its own key
+    range from them."""
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    return _shape_plan(B, H, KV, Sq, Skv, hd, dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _shape_plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
+                dtype: torch.dtype) -> TilePlan:
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if KV <= 0 or H < KV or H % KV or H // KV > MAX_GROUP:
+        raise ValueError(f"{H} query heads over {KV} KV heads: need a "
+                         f"multiple of at most {MAX_GROUP}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if min(B, Sq, Skv) < 0:
+        raise ValueError(f"bad sizes: B {B}, Sq {Sq}, Skv {Skv}")
+    G = H // KV
+    if dtype == torch.float32:
+        rows, bk = 64, 32
+        plan = TilePlan(rows, bk, 1, B * KV * -(-Sq // (rows // G)),
+                        4 * ((rows + 2 * bk) * (hd + 1) + rows * (bk + 1)
+                             + 3 * rows), False)
+    else:
+        plans = [mma_plan(B, KV, Sq, G, Skv, hd, s) for s in SPLITS]
+        plan = next((p for p in plans if p.blocks >= WAVE), plans[-1])
+    if plan.smem > MAX_SMEM or plan.blocks >= 2 ** 31:
+        raise ValueError(f"no plan fits the card: {plan.blocks} blocks of "
+                         f"{plan.smem} bytes of shared memory")
+    return plan
 
 
 def _library() -> ctypes.CDLL:
@@ -43,11 +147,9 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build.build(SOURCE)))
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_flash_attention.argtypes = ([ci] + [vp] * 4 + [cl] * 12
-                                              + [ci] * 9
-                                              + [ctypes.c_float, vp])
+                                              + [ci] * 9 + [ctypes.c_float]
+                                              + [ci, vp])
         lib.repro_flash_attention.restype = ci
-        lib.repro_flash_attention_smem_bytes.argtypes = [ci]
-        lib.repro_flash_attention_smem_bytes.restype = ctypes.c_longlong
         lib.repro_flash_attention_error_string.argtypes = [ci]
         lib.repro_flash_attention_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -74,7 +176,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the CUDA kernel: q (B,H,Sq,hd); k, v (B,KV,Skv,hd), float32
     or bfloat16.  Returns (B,H,Sq,hd) in q's dtype, a transposed view of
     a contiguous (B,Sq,H,hd) tensor.  A query row with no valid key gives
-    zeros.  Launches on the current stream without synchronising."""
+    zeros.  One kernel launch on the current stream, cut by
+    :func:`tile_plan`, without synchronising."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -85,27 +188,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, KV, Skv, hd) or v.shape != k.shape:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if KV == 0 or H % KV or H // KV > MAX_GROUP:
-        raise ValueError(f"{H} query heads over {KV} KV heads: need a "
-                         f"multiple of at most {MAX_GROUP}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be >= 1, got {window}")
-    if q_offset < 0:
-        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    plan = tile_plan(B, H, KV, Sq, Skv, hd, q.dtype, window, q_offset,
+                     causal)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
-    if B * H * Sq == 0:
+    if plan.blocks == 0:
         return out
     lib = _library()
-    if lib.repro_flash_attention_smem_bytes(hd) > _MAX_SMEM:
-        raise ValueError(f"head_dim {hd} needs more shared memory than a "
-                         f"block has")
-    G = H // KV
-    blocks = B * KV * -(-Sq // (64 // G))
-    if blocks >= 2 ** 31:
-        raise ValueError(f"{blocks} blocks exceed the grid")
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -113,7 +202,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), *strides, B, H, KV, Sq, Skv, hd, int(causal),
             -1 if window is None else int(window), int(q_offset),
-            1.0 / math.sqrt(hd), stream)
+            1.0 / math.sqrt(hd), plan.split, stream)
     if err != 0:
         msg = lib.repro_flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error "

@@ -229,25 +229,63 @@ def _needs_card():
         pytest.skip("needs a CUDA card (run on the H100 with -m cuda)")
 
 
+# (B, H, KV, Sq, Skv, hd, window, q_offset): the main path's shapes, then
+# hd 64 / 128 / 256 at G 1 / 6 / 16 with a window that bites inside a key
+# tile, a deep query offset, and rows with no valid key (Sq past
+# Skv + window - 1)
+ATTN_CUDA_CASES = {
+    "rg": (1, 16, 1, 128, 128, 256, 2048, 0),
+    "qwen2-chunk": (1, 12, 2, 64, 240, 128, None, 64),
+    "ragged": (2, 4, 4, 37, 37, 64, 5, 0),
+}
+for _hd in (64, 128, 256):
+    for _G in (1, 6, 16):
+        ATTN_CUDA_CASES[f"hd{_hd}_g{_G}_window"] = (2, 2 * _G, 2, 150, 150,
+                                                   _hd, 13, 0)
+        ATTN_CUDA_CASES[f"hd{_hd}_g{_G}_offset"] = (1, 2 * _G, 2, 40, 700,
+                                                   _hd, None, 650)
+        ATTN_CUDA_CASES[f"hd{_hd}_g{_G}_empty_rows"] = (1, _G, 1, 60, 20,
+                                                       _hd, 8, 0)
+    # split 1 with every key in one tile (one stage)
+    ATTN_CUDA_CASES[f"hd{_hd}_one_tile"] = (17, 16, 1, 32, 32, _hd, None, 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,H,KV,Sq,Skv,hd,win,off", [
-    (1, 16, 1, 128, 128, 256, 2048, 0),    # recurrentgemma dense prefill
-    (1, 12, 2, 64, 240, 128, None, 64),    # qwen2 paged prefill chunk
-    (2, 4, 4, 37, 37, 64, 5, 0),           # ragged, G = 1, tight window
-], ids=["rg", "qwen2-chunk", "ragged"])
-def test_cuda_flash_attention_matches_plain_version(B, H, KV, Sq, Skv, hd,
-                                                    win, off, dtype):
+@pytest.mark.parametrize("case", list(ATTN_CUDA_CASES))
+def test_cuda_flash_attention_matches_plain_version(case, dtype):
+    """The kernel against ``attention_ref`` on rows with a valid key; rows
+    with none give zeros though the output memory was NaN beforehand; a
+    CUDA-graph replay equals the eager call bit for bit."""
     _needs_card()
+    B, H, KV, Sq, Skv, hd, win, off = ATTN_CUDA_CASES[case]
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     q, k, v = (torch.from_numpy(a).to(dev, dt)
                for a in _attn_inputs(B, H, KV, Sq, Skv, hd, seed=9))
     # the model passes (B, S, H, hd) projections as transposed views
     q = q.transpose(1, 2).contiguous().transpose(1, 2)
-    got = flash_attention.flash_attention(q, k, v, window=win, q_offset=off)
+
+    def call():
+        return flash_attention.flash_attention(q, k, v, window=win,
+                                               q_offset=off)
+
+    # NaN where the wrapper's output will be allocated
+    torch.full((B, Sq, H, hd), float("nan"), dtype=dt, device=dev)
+    got = call()
     torch.cuda.synchronize()
     want = ref.attention_ref(q, k, v, window=win, q_offset=off)
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    pos = off + torch.arange(Sq, device=dev)[:, None]
+    keys = torch.arange(Skv, device=dev)[None]
+    seen = keys <= pos
+    if win is not None:
+        seen &= keys > pos - win
+    live = seen.any(1)
+    assert torch.isfinite(got).all()
+    err = (got[:, :, live].float() - want[:, :, live].float()).abs().max()
+    assert err.item() <= TOL[dtype]
+    if not live.all():
+        assert got[:, :, ~live].abs().max().item() == 0.0
+    assert torch.equal(graph_replay(call), got)
 
 
 # (H, KV, S, hd): recurrentgemma's dense round and its full 2048 ring,
