@@ -23,8 +23,12 @@ Phases, in order; the script exits non-zero at the first that fails:
    no KV leak, and the kernel launched once per layer per decode round;
    4b: where a decode round's time goes (``torch.profiler``);
 5. ``ladn_denoise`` against its plain version at the LAD-TS path's three
-   shapes (acting, update terms, live placement), f32, with its time, its
-   bound and the plain version's time;
+   shapes (acting, update terms, live placement) and one shape above 32
+   wide, f32, with its time, its bound, the launch floor (the library's
+   empty kernel in a CUDA graph) and the plain version's time; a
+   profiler trace of one call per shape must show the instantiation,
+   grid and shared memory ``ladn_denoise.plan`` gives; the compiler's
+   registers and spills per instantiation (none may spill);
 6. LAD-TS training in the simulator at the paper's Table III/IV size
    (B 20, N_max 50, I 5, K 64, |R| 1000, updates after 300): one episode,
    finite average delay, the kernel launched three times per task step;
@@ -105,6 +109,9 @@ N_REQUESTS = 8
 LADN_SHAPES = {"act": (20, 1, 5, 20, 22, 20),
                "update": (20, 64, 5, 20, 22, 20),
                "live": (1, 1, 3, 2, 4, 20)}
+# and one shape above 32 wide, for the shared-memory instantiation (no
+# main path reaches it; T 33 leaves the last block ragged)
+LADN_WIDE = {"wide": (4, 33, 7, 40, 70, 64)}
 LADN_TOL = 1e-4
 # seconds one simulator episode may take before num_slots is cut
 EPISODE_BUDGET_S = 120.0
@@ -683,12 +690,66 @@ def _ladn_bound_ms(G, T, I, A, S, H):  # noqa: E741
                                      else "operations")
 
 
+def check_ladn_launch(label: str, fn, plan):
+    """Trace one ``ladn_denoise_fused`` call (``traced_launches``): one
+    kernel, of the plan's instantiation, grid and shared memory.
+    Returns the traced launch, its kernel named by the trace (None where
+    the trace was incomplete)."""
+    import re
+    launched = traced_launches(fn)
+    want = {"grid": [plan.blocks, plan.agents, 1], "smem": plan.smem}
+    seen = "not measured (incomplete trace)" if launched is None else launched
+    log(f"    {label}: plan {plan.kernel}, {plan.rows} row(s) a block, "
+        f"grid {want['grid']}, {plan.smem} B shared; traced {seen}")
+    if launched is None:
+        return None
+    if len(launched) != 1 or plan.kernel not in launched[0]["kernel"]:
+        fail(f"{label}: one call launched {launched}, expected one "
+             f"{plan.kernel}")
+    row = launched[0]
+    for key, value in want.items():
+        if row[key] is not None and (list(row[key]) if key == "grid"
+                                     else row[key]) != value:
+            fail(f"{label}: {key} {row[key]}, the plan gives {value}")
+    name = re.findall(r"ladn_\w+_kernel<\d+>", row["kernel"])
+    return {"kernel": name[0] if name else row["kernel"][:60],
+            "grid": row["grid"], "smem": row["smem"]}
+
+
 def phase_ladn_kernel() -> dict:
     import torch
     from repro_torch.core.diffusion import DiffusionSchedule
-    from repro_torch.kernels import ladn_denoise, ref
-    result = {}
-    for name, shape in LADN_SHAPES.items():
+    from repro_torch.kernels import build, ladn_denoise, ref
+    info = build.build_info["ladn_denoise"]
+    ptxas = [r for r in ptxas_report(info.get("ptxas", ""))
+             if "ladn" in r["kernel"]]
+    for row in ptxas:
+        log(f"  ptxas {row['kernel']}: {row.get('registers')} registers, "
+            f"{row['stack']} B stack, spills {row['spill_stores']} B stored"
+            f" / {row['spill_loads']} B loaded"
+            f"{' (a cached build)' if info['cached'] else ''}")
+    # one row per width class, none spilling
+    kernels = sorted(r["kernel"] for r in ptxas
+                     if r["kernel"].startswith(("ladn_regs_kernel",
+                                                "ladn_smem_kernel")))
+    want = sorted(ladn_denoise.Plan(w, 1, 1, 1, 0).kernel
+                  for w in ladn_denoise.WIDTHS)
+    if kernels != want:
+        fail(f"ladn_denoise: ptxas reports {kernels}, expected one kernel "
+             f"per width class: {want}")
+    spills = [r for r in ptxas if r["spill_stores"] or r["spill_loads"]]
+    if spills:
+        fail(f"ladn_denoise: a kernel spills: {spills}")
+    floor_ms = time_ms(ladn_denoise.noop)
+    log(f"  ladn_noop (the library's empty kernel, one warp): "
+        f"{floor_ms:.4f} ms a launch in a CUDA graph (the floor)")
+    # only this run's compiler report goes into the kernels line
+    result = {"floor_ms": floor_ms}
+    if not info["cached"]:
+        result["ptxas"] = ptxas
+    for name, shape in {**LADN_SHAPES, **LADN_WIDE}.items():
+        G, T, I, A, S, H = shape  # noqa: E741
+        plan = ladn_denoise.plan(G, T, A, S, H, I)
         args = _ladn_case(*shape)
         # the plain version's schedule on the card (nothing is copied from
         # the host inside the timed graph); the kernel folds the numpy one
@@ -705,20 +766,22 @@ def phase_ladn_kernel() -> dict:
         def kernel():
             return ladn_denoise.ladn_denoise_fused(*args)
 
+        launched = check_ladn_launch(f"ladn_denoise {name}", kernel, plan)
         ms = time_ms(kernel)
         call_ms = eager_ms(kernel)
         plain_ms = time_ms(lambda: ref.ladn_denoise_ref(*plain_args))
         bound_ms, bound_by = _ladn_bound_ms(*shape)
         result[name] = {"shape": dict(zip("GTIASH", shape)),
+                        "launched": launched,
                         "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by}
-        log(f"  ladn_denoise {name} G,T,I,A,S,H={shape}: err={err:.3e} "
-            f"(tol {LADN_TOL:.0e}) kernel={ms:.4f} ms (eager call "
-            f"{call_ms:.4f} ms) plain={plain_ms:.4f} ms "
-            f"bound={bound_ms:.6f} ms ({bound_by})")
+                        "bound_by": bound_by, "floor_ms": floor_ms}
+        log(f"  ladn_denoise {name} G,T,I,A,S,H={shape} ({plan.kernel}): "
+            f"err={err:.3e} (tol {LADN_TOL:.0e}) kernel={ms:.4f} ms (eager "
+            f"call {call_ms:.4f} ms) floor={floor_ms:.4f} ms "
+            f"plain={plain_ms:.4f} ms bound={bound_ms:.6f} ms ({bound_by})")
     log("phase 5 ok: ladn_denoise matches ladn_denoise_ref at the act, "
-        "update and live shapes (no single PyTorch call computes the "
+        "update, live and wide shapes (no single PyTorch call computes the "
         "chain: no library time)")
     return result
 
@@ -821,7 +884,8 @@ def phase_task_step_breakdown(p, cfg, f, states, slots: int = 1) -> None:
     wall_ms = (t2 - t0) * 1e3 / steps
     busy_ms = sum(by_kernel.values()) / 1e3 / steps
     ladn_ms = sum(v for k, v in by_kernel.items()
-                  if "ladn_denoise" in k) / 1e3 / steps
+                  if "ladn_regs_kernel" in k or "ladn_smem_kernel" in k
+                  ) / 1e3 / steps
     busy = (f"device busy {busy_ms:.3f} ms (idle share "
             f"{1 - busy_ms / wall_ms:.3f}), ladn_denoise {ladn_ms:.4f} ms "
             f"of it" if by_kernel else
@@ -923,7 +987,8 @@ def _attn_mask(Sq, Skv, window, q_offset, dev):
 def ptxas_report(log: str) -> list:
     """Each kernel's registers, stack and spill bytes from an
     ``nvcc -Xptxas -v`` log, the template arguments read from the mangled
-    name (``flash_attention_mma<hd, split>``, ``..._fma<hd>``)."""
+    name (``flash_attention_mma<hd, split>``, ``..._fma<hd>``,
+    ``ladn_regs_kernel<width>``)."""
     import re
     rows, name = [], None
     for line in log.splitlines():
@@ -943,10 +1008,10 @@ def ptxas_report(log: str) -> list:
             rows[-1]["registers"] = int(m.group(1))
     for row in rows:
         mangled = row.pop("mangled")
-        base = re.search(r"([a-z_]+(?:mma|fma|kernel))I", mangled)
+        base = re.search(r"([a-z_]+(?:mma|fma|kernel))[IE]", mangled)
         args = re.findall(r"Li(\d+)E", mangled)
         row["kernel"] = (f"{base.group(1) if base else mangled}"
-                         f"<{', '.join(args)}>")
+                         + (f"<{', '.join(args)}>" if args else ""))
     return rows
 
 
@@ -1353,6 +1418,8 @@ def main() -> None:
     phase_dense_round_breakdown()
     bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
+    ladn_shapes = {k: v for k, v in ladn.items()
+                   if k not in ("ptxas", "floor_ms")}
     pre = attn["rg_prefill"]
     shapes = {k: v for k, v in attn.items() if k != "ptxas"}
     rnd = dec["rg_round"]
@@ -1375,11 +1442,17 @@ def main() -> None:
         "replaces": "src/repro/kernels/ladn_denoise.py:34",
         "launches": ladn_launches,
         "launches_eval": eval_launches, "launches_live": live_launches,
-        "max_abs_err": max(v["max_abs_err"] for v in ladn.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in ladn_shapes.values()),
         "ms": act["ms"], "eager_ms": act["eager_ms"],
         "plain_ms": act["plain_ms"], "bound_ms": act["bound_ms"],
         "bound_by": act["bound_by"], "library_ms": None,
-        "shapes": ladn, "check": "ok"}, {
+        "floor_ms": ladn["floor_ms"],
+        **({"ptxas": ladn["ptxas"]} if "ptxas" in ladn else {}),
+        # the traced kernel of each shape (null where the trace was
+        # incomplete)
+        "instantiation": {k: v["launched"] and v["launched"]["kernel"]
+                          for k, v in ladn_shapes.items()},
+        "shapes": ladn_shapes, "check": "ok"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",

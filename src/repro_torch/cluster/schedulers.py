@@ -130,10 +130,11 @@ class PolicyScheduler(Scheduler):
     the origin's agent.  The latent action store (LAD-TS) keeps evolving
     in the carry, so serving decisions keep self-conditioning the chain.
     Draws come from the caller's generator and move to the agents'
-    device."""
+    device.  ``greedy`` decides by Eqn (8)'s argmax in place of a sample
+    (the draws are taken either way)."""
 
     def __init__(self, method: str, cfg: ag.AgentConfig, states,
-                 num_engines: int, n_max: int):
+                 num_engines: int, n_max: int, greedy: bool = False):
         if method not in LEARNED:
             raise ValueError(f"{method!r} is not a learned method")
         super().__init__(num_engines)
@@ -142,6 +143,7 @@ class PolicyScheduler(Scheduler):
         self.cfg = cfg
         self.states = states
         self.n_max = int(n_max)
+        self.greedy = greedy
         self.state_dim = _infer_state_dim(states)
         self._fns = make_agent_fns(method, cfg)
         self.device = states.replay.size.device
@@ -153,7 +155,8 @@ class PolicyScheduler(Scheduler):
         noise = tree_map(lambda t: t.to(self.device),
                          self._fns.draw_act(carry, generator))
         a, _, carry = self._fns.act(carry, s.to(self.device),
-                                    n % self.n_max, noise=noise)
+                                    n % self.n_max, noise=noise,
+                                    greedy=self.greedy)
         return a % self.num_engines, carry
 
     def select_one(self, carry, s_row, origin, n, generator):

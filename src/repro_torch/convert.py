@@ -24,6 +24,7 @@ from typing import Any, List
 import numpy as np
 import torch
 
+from repro_torch import DeviceLike, resolve_device
 from repro_torch.core import agents as ag
 from repro_torch.core.optim import AdamState
 from repro_torch.core.replay import ReplayState
@@ -94,11 +95,12 @@ def _state(tree, device: torch.device):
     return t.to(torch.int64) if not t.is_floating_point() else t
 
 
-def agent_states_from_jax(states, method: str, device="cpu"):
+def agent_states_from_jax(states, method: str, device: DeviceLike = None):
     """Reference stacked agent state (numpy leaves) of ``method`` -> the
-    port's state on ``device``."""
+    port's state on ``device`` (``cuda`` unless the caller asks for the
+    CPU: :func:`repro_torch.resolve_device`)."""
     want = _METHOD_STATE[method]
     if type(states).__name__ != want:
         raise ValueError(f"{method} keeps a {want}, got "
                          f"{type(states).__name__}")
-    return _state(states, torch.device(device))
+    return _state(states, resolve_device(device))

@@ -223,18 +223,22 @@ def _policy_probs(theta, cfg: AgentConfig, s: torch.Tensor,
 
 
 def ladts_act(state: LadtsState, cfg: AgentConfig, s: torch.Tensor, n: int,
-              noise: ChainNoise, gumbel_noise: torch.Tensor
-              ) -> Tuple[torch.Tensor, LadtsState]:
+              noise: ChainNoise, gumbel_noise: torch.Tensor,
+              greedy: bool = False) -> Tuple[torch.Tensor, LadtsState]:
     """One decision per agent for task slot ``n``: s (G, S) -> (G,) int64.
 
     ``noise`` holds one row per agent ((G, 1, ...)); ``gumbel_noise``
-    (G, A).  Actions are sampled from pi, in training and in evaluation
-    alike.  The latent store keeps the standardized x_0 (population std,
-    as ``jnp.std``)."""
+    (G, A).  Actions are sampled from pi; ``greedy`` takes Eqn (8)'s
+    argmax of pi instead (the draws are still taken, so a generator's
+    stream does not depend on it).  The latent store keeps the
+    standardized x_0 (population std, as ``jnp.std``) either way."""
     x0, probs = _policy_probs(state.theta_act, cfg, s[:, None],
                               state.X[:, n][:, None], noise, fused=True)
     x0, probs = x0[:, 0], probs[:, 0]
-    a = torch.argmax(_log_clip(probs) + gumbel_noise, dim=-1)
+    if greedy:
+        a = torch.argmax(probs, dim=-1)
+    else:
+        a = torch.argmax(_log_clip(probs) + gumbel_noise, dim=-1)
     x0n = (x0 - x0.mean(-1, keepdim=True)) / (
         x0.std(-1, keepdim=True, correction=0) + 1e-6)
     X = state.X.clone()
@@ -347,9 +351,14 @@ def sac_init(generator: torch.Generator, cfg: AgentConfig, state_dim: int,
 
 
 def sac_act(state: SacState, cfg: AgentConfig, s: torch.Tensor,
-            gumbel_noise: torch.Tensor) -> torch.Tensor:
-    return torch.argmax(nets.apply_mlp(state.actor, s) + gumbel_noise,
-                        dim=-1)
+            gumbel_noise: torch.Tensor, greedy: bool = False
+            ) -> torch.Tensor:
+    """A sample of the categorical actor (``gumbel_noise`` (G, A)), or
+    its argmax when ``greedy``."""
+    logits = nets.apply_mlp(state.actor, s)
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    return torch.argmax(logits + gumbel_noise, dim=-1)
 
 
 def sac_update(state: SacState, cfg: AgentConfig, idx: torch.Tensor
@@ -428,10 +437,13 @@ def dqn_init(generator: torch.Generator, cfg: AgentConfig, state_dim: int,
 
 
 def dqn_act(state: DqnState, cfg: AgentConfig, s: torch.Tensor,
-            rand_a: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+            rand_a: torch.Tensor, u: torch.Tensor, greedy: bool = False
+            ) -> torch.Tensor:
     """Epsilon-greedy: ``rand_a`` (G,) uniform actions and ``u`` (G,)
-    uniforms on [0, 1) decide exploration."""
+    uniforms on [0, 1) decide exploration; ``greedy`` sets epsilon to 0."""
     best = torch.argmax(nets.apply_critic(state.q, s), dim=-1)
+    if greedy:
+        return best
     eps = cfg.eps_end + (cfg.eps_start - cfg.eps_end) * torch.exp(
         -state.steps.to(torch.float32) / cfg.eps_decay_steps)
     return torch.where(u < eps, rand_a, best)

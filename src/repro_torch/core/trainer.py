@@ -37,11 +37,12 @@ LEARNED = ("lad-ts", "d2sac-ts", "sac-ts", "dqn-ts")
 class AgentFns(NamedTuple):
     """One learned method's functions over a stacked agent state.
 
-    ``act(state, s, n, generator, noise=None) -> (actions,
-    x_used, state)`` for s (G, S) and task slot n; ``update(state,
-    generator, noise=None) -> (state, metrics)``.  ``noise`` (a dict of
-    the draws, as ``draw_act(state, generator)`` makes them for ``act``)
-    replaces the generator's draws."""
+    ``act(state, s, n, generator, noise=None, greedy=False) -> (actions,
+    x_used, state)`` for s (G, S) and task slot n (``greedy``: Eqn (8)'s
+    argmax in place of a sample; the draws are taken either way);
+    ``update(state, generator, noise=None) -> (state, metrics)``.
+    ``noise`` (a dict of the draws, as ``draw_act(state, generator)``
+    makes them for ``act``) replaces the generator's draws."""
 
     init: Callable
     act: Callable
@@ -75,12 +76,12 @@ def make_agent_fns(method: str, cfg: ag.AgentConfig) -> AgentFns:
                                               device=generator.device)
             return noise
 
-        def act(state, s, n, generator=None, noise=None):
+        def act(state, s, n, generator=None, noise=None, greedy=False):
             noise = noise if noise is not None else draw_act(state,
                                                              generator)
             x_used = state.X[:, n] if dcfg.latent_init else noise["x_used"]
             a, state = ag.ladts_act(state, cfg, s, n, noise["chain"],
-                                    noise["gumbel"])
+                                    noise["gumbel"], greedy=greedy)
             return a, x_used, state
 
         def draw_update(state, generator):
@@ -119,13 +120,15 @@ def make_agent_fns(method: str, cfg: ag.AgentConfig) -> AgentFns:
                                             device=dev),
                     "u": torch.rand((G,), generator=generator, device=dev)}
 
-        def act(state, s, n, generator=None, noise=None):
+        def act(state, s, n, generator=None, noise=None, greedy=False):
             noise = noise if noise is not None else draw_act(state,
                                                              generator)
             if sac:
-                a = ag.sac_act(state, cfg, s, noise["gumbel"])
+                a = ag.sac_act(state, cfg, s, noise["gumbel"],
+                               greedy=greedy)
             else:
-                a = ag.dqn_act(state, cfg, s, noise["rand_a"], noise["u"])
+                a = ag.dqn_act(state, cfg, s, noise["rand_a"], noise["u"],
+                               greedy=greedy)
             return a, latent(state, n), state
 
         def update(state, generator=None, noise=None):

@@ -84,27 +84,42 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def pack_ladn_weights(theta: list, state_dim: int, action_dim: int
-                      ) -> Tuple[torch.Tensor, ...]:
-    """Split the stacked (A+TE+S -> H -> H -> A) LADN into the kernel's
-    layout: (w1x, w1t, w1s, b1, w2, b2, w3, b3), each with the agent axis
-    in front and contiguous.  LADN input order (``networks.apply_ladn``):
-    [x | time-embed | state].  No padding: the TPU's 128-lane tiles have
-    no counterpart here."""
+def _first_layer(theta: list, state_dim: int, action_dim: int
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The stacked first layer (G, A+TE+S, H) cut into its x, time-embed
+    and state rows, as views.  LADN input order (``networks.apply_ladn``):
+    [x | time-embed | state]."""
     A, TE = action_dim, TIME_EMBED_DIM
-    w1 = theta[0]["w"]                           # (G, A+TE+S, H)
+    w1 = theta[0]["w"]
     if w1.shape[1] != A + TE + state_dim:
         raise ValueError(f"LADN input width {w1.shape[1]} != A {A} + "
                          f"{TE} + S {state_dim}")
-    return (w1[:, :A].contiguous(), w1[:, A:A + TE].contiguous(),
-            w1[:, A + TE:].contiguous(), theta[0]["b"].contiguous(),
-            theta[1]["w"].contiguous(), theta[1]["b"].contiguous(),
-            theta[2]["w"].contiguous(), theta[2]["b"].contiguous())
+    w1 = w1.contiguous()
+    return w1[:, :A], w1[:, A:A + TE], w1[:, A + TE:]
+
+
+def pack_ladn_weights(theta: list, state_dim: int, action_dim: int
+                      ) -> Tuple[torch.Tensor, ...]:
+    """Split the stacked (A+TE+S -> H -> H -> A) LADN into the plain
+    version's layout: (w1x, w1t, w1s, b1, w2, b2, w3, b3), each with the
+    agent axis in front and contiguous.  No padding: the TPU's 128-lane
+    tiles have no counterpart here."""
+    return tuple(t.contiguous() for t in (
+        *_first_layer(theta, state_dim, action_dim), theta[0]["b"],
+        theta[1]["w"], theta[1]["b"], theta[2]["w"], theta[2]["b"]))
 
 
 @functools.lru_cache(maxsize=None)
 def _schedule(num_steps: int, beta_min: float, beta_max: float):
     return make_schedule_np(num_steps, beta_min, beta_max)
+
+
+@functools.lru_cache(maxsize=None)
+def _time_embed(num_steps: int, device: torch.device) -> torch.Tensor:
+    """The chain's time embeddings (I, TE) for i = I..1, made once per
+    step count and device."""
+    return timestep_embed(torch.arange(num_steps, 0, -1, device=device),
+                          device=device)
 
 
 def ladn_denoise(theta: list, x_I: torch.Tensor, s: torch.Tensor,
@@ -118,6 +133,10 @@ def ladn_denoise(theta: list, x_I: torch.Tensor, s: torch.Tensor,
     x_I (G,T,A); s (G,T,S); noise (G,T,I,A) (``noise[:, :, step]`` at
     i = I - step).  Returns (x_0, softmax(x_0)), both (G,T,A).
 
+    The kernel takes the first layer's x and state rows as views of the
+    stacked weight (no copies); the plain version, on the CPU, takes
+    :func:`pack_ladn_weights`.
+
     The kernel has no backward, so this refuses weights or inputs that
     need a gradient while grad mode is on: a gradient through it would
     silently be zero.  Differentiate through the plain chain
@@ -129,16 +148,20 @@ def ladn_denoise(theta: list, x_I: torch.Tensor, s: torch.Tensor,
                            "differentiate through the plain chain")
     A, S = x_I.shape[-1], s.shape[-1]
     sched = _schedule(num_steps, beta_min, beta_max)
-    w1x, w1t, w1s, b1, w2, b2, w3, b3 = pack_ladn_weights(theta, S, A)
-    # per-step time contribution (G, I, H): computed once, tiny
-    temb = timestep_embed(torch.arange(num_steps, 0, -1, device=x_I.device),
-                          device=x_I.device)
-    temb_w1 = torch.matmul(temb, w1t)
+    temb = _time_embed(num_steps, x_I.device)
     if x_I.device.type == "cpu":
-        x0 = ref.ladn_denoise_ref(x_I, s, noise, temb_w1, w1x, w1s, b1, w2,
-                                  b2, w3, b3, sched, paper_variance)
+        w1x, w1t, w1s, b1, w2, b2, w3, b3 = pack_ladn_weights(theta, S, A)
+        # per-step time contribution (G, I, H): computed once, tiny
+        x0 = ref.ladn_denoise_ref(x_I, s, noise, torch.matmul(temb, w1t),
+                                  w1x, w1s, b1, w2, b2, w3, b3, sched,
+                                  paper_variance)
     else:
-        x0 = _ladn.ladn_denoise_fused(x_I, s, noise, temb_w1, w1x, w1s, b1,
-                                      w2, b2, w3, b3, sched, paper_variance)
+        w1x, w1t, w1s = _first_layer(theta, S, A)
+        b1, w2, b2, w3, b3 = (t.contiguous() for t in (
+            theta[0]["b"], theta[1]["w"], theta[1]["b"], theta[2]["w"],
+            theta[2]["b"]))
+        x0 = _ladn.ladn_denoise_fused(x_I, s, noise, torch.matmul(temb, w1t),
+                                      w1x, w1s, b1, w2, b2, w3, b3, sched,
+                                      paper_variance)
         launches["ladn_denoise"] += 1
     return x0, torch.softmax(x0, dim=-1)

@@ -14,8 +14,9 @@ from repro.cluster import make_scheduler as jax_make_scheduler
 from repro.cluster import poisson_trace as jax_poisson_trace
 from repro.cluster import summarize as jax_summarize
 from repro.serving.builders import build_engines as jax_build_engines
-from repro_torch.cluster import (EdgeCluster, Request, Scheduler,
-                                 make_scheduler, poisson_trace, summarize)
+from repro_torch.cluster import (EdgeCluster, PolicyScheduler, Request,
+                                 Scheduler, make_scheduler, poisson_trace,
+                                 summarize)
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
@@ -157,6 +158,70 @@ def test_entry_points_without_a_card_raise(monkeypatch):
     eng = build_engines("qwen2-1.5b", 1, 32, device="cpu")[0]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(eng.cfg, eng.params)
+
+
+def test_agent_states_from_jax_without_a_device_needs_a_card(monkeypatch):
+    """The converter, like every entry point, goes to ``cuda`` unless the
+    caller asks for the CPU."""
+    from repro.core import agents as jag
+    from repro.core import env as jenv
+    from repro.core.trainer import init_agents as jax_init_agents
+    from repro_torch.convert import agent_states_from_jax
+    p = jenv.EnvParams(num_bs=2, num_slots=1, max_tasks=3)
+    states = jax.tree_util.tree_map(np.asarray, jax_init_agents(
+        "sac-ts", p, jag.AgentConfig(replay_capacity=8), jax.random.key(0)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        agent_states_from_jax(states, "sac-ts")
+    got = agent_states_from_jax(states, "sac-ts", "cpu")
+    assert got.log_alpha.device == CPU
+
+
+def test_greedy_policy_scheduler_picks_the_reference_engine():
+    """``PolicyScheduler(greedy=True)`` for LAD-TS places by Eqn (8) as
+    the reference's does, on the reference's own chain draws, through
+    ``select`` (every origin) and ``select_one`` (one origin), and keeps
+    the same latent store."""
+    from _torch_parity import act_draws, agents_to_torch
+    from repro.cluster import PolicyScheduler as JPolicyScheduler
+    from repro.core import agents as jag
+    from repro.core import env as jenv
+    from repro.core.trainer import init_agents as jax_init_agents
+    from repro_torch.core import agents as ag
+    p = jenv.EnvParams(num_bs=3, num_slots=1, max_tasks=4)
+    jcfg = jag.AgentConfig(replay_capacity=8)
+    tcfg = ag.AgentConfig(replay_capacity=8)
+    I = tcfg.diffusion.num_steps  # noqa: E741
+    jstates = jax_init_agents("lad-ts", p, jcfg, jax.random.key(3))
+    jsched = JPolicyScheduler("lad-ts", jcfg, jstates, num_engines=3,
+                              n_max=4, greedy=True)
+    tsched = PolicyScheduler("lad-ts", tcfg,
+                             agents_to_torch(jstates, "lad-ts"),
+                             num_engines=3, n_max=4, greedy=True)
+    s = np.random.default_rng(4).standard_normal(
+        (3, p.state_dim)).astype(np.float32)
+
+    def inject(noise):
+        tsched._fns = tsched._fns._replace(
+            draw_act=lambda carry, generator: noise)
+
+    key = jax.random.key(5)
+    want, jcarry = jsched.select(jsched.init_carry(), s, 6, key)
+    inject(act_draws("lad-ts", jax.random.split(key, 3), p.action_dim, I))
+    got, tcarry = tsched.select(tsched.init_carry(), torch.from_numpy(s), 6,
+                                torch.Generator())
+    assert got.tolist() == np.asarray(want).tolist()
+    np.testing.assert_allclose(tcarry.X.numpy(), np.asarray(jcarry.X),
+                               atol=1e-5, rtol=0)
+    for origin, n, seed in ((1, 7, 6), (2, 2, 7)):
+        key = jax.random.key(seed)
+        want, jcarry = jsched.select_one(jcarry, s[origin], origin, n, key)
+        inject(act_draws("lad-ts", [key], p.action_dim, I))
+        got, tcarry = tsched.select_one(tcarry, torch.from_numpy(s[origin]),
+                                        origin, n, torch.Generator())
+        assert got == want
+        np.testing.assert_allclose(tcarry.X.numpy(), np.asarray(jcarry.X),
+                                   atol=1e-5, rtol=0)
 
 
 class _Engine:

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import agents_to_torch, episode_to_torch
+from _torch_parity import (act_draws, agents_to_torch, chain_draws,
+                           episode_to_torch)
 from repro.core import agents as jag
 from repro.core import diffusion as jdiff
 from repro.core import env as jenv
@@ -314,45 +315,6 @@ def _filled_state(method, seed=0):
     return states, agents_to_torch(states, method)
 
 
-def _chain_draws(key, rows, A, I):  # noqa: E741
-    """What ``agents._policy_probs`` draws from ``key`` for ``rows``
-    chains (None = one unbatched chain): eps0 and the chain noise."""
-    def one(k):
-        k_noise, k_chain = jax.random.split(k)
-        return (_np(jax.random.normal(k_noise, (A,))),
-                _np(jax.random.normal(k_chain, (I, A))))
-    if rows is None:
-        return [x[None] for x in one(key)]
-    pairs = [one(k) for k in jax.random.split(key, rows)]
-    return [np.stack(x) for x in zip(*pairs)]
-
-
-def _act_draws(method, keys, A, I):  # noqa: E741
-    """The reference's act draws for each agent's key, as the port's
-    noise dict."""
-    per = []
-    for k in keys:
-        if method in ("lad-ts", "d2sac-ts"):
-            k_chain, k_samp = jax.random.split(k)
-            eps0, chain = _chain_draws(k_chain, None, A, I)
-            per.append({"eps0": eps0, "chain": chain,
-                        "gumbel": _np(jax.random.gumbel(k_samp, (A,))),
-                        "x_used": _np(jax.random.normal(
-                            jax.random.fold_in(k, 7), (A,)))})
-        elif method == "sac-ts":
-            per.append({"gumbel": _np(jax.random.gumbel(k, (A,)))})
-        else:
-            k1, k2 = jax.random.split(k)
-            per.append({"rand_a": _np(jax.random.randint(k1, (), 0, A)),
-                        "u": _np(jax.random.uniform(k2))})
-    out = {name: _t(np.stack([d[name] for d in per])) for name in per[0]}
-    if "eps0" in out:
-        out["chain"] = ag.ChainNoise(out.pop("eps0"), out["chain"])
-    if "rand_a" in out:
-        out["rand_a"] = out["rand_a"].long()
-    return out
-
-
 def _update_draws(method, keys, sizes, K, A, I):  # noqa: E741
     per = []
     for k, n in zip(keys, sizes):
@@ -362,7 +324,7 @@ def _update_draws(method, keys, sizes, K, A, I):  # noqa: E741
             d = {"idx": _np(jax.random.randint(k_samp, (K,), 0, hi))}
             for name, kk in (("next", k_next), ("actor", k_actor),
                              ("now", k_pi)):
-                d[name] = _chain_draws(kk, K, A, I)
+                d[name] = chain_draws(kk, K, A, I)
         elif method == "sac-ts":
             d = {"idx": _np(jax.random.randint(jax.random.split(k)[0], (K,),
                                                0, hi))}
@@ -388,8 +350,12 @@ def _assert_states_close(got, want_jax, method, atol):
             np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("method", LEARNED)
-def test_act_matches_reference(method):
+@pytest.mark.parametrize("method,greedy", [
+    pytest.param(m, g, id=m + ("-greedy" if g else ""))
+    for g in (False, True) for m in LEARNED])
+def test_act_matches_reference(method, greedy):
+    """Sampled and greedy (Eqn 8) decisions, latent stores and states
+    equal the reference's on its own draws."""
     jstates, tstates = _filled_state(method)
     _, jact, *_ = jax_make_agent_fns(method, CFG_J)
     fns = make_agent_fns(method, CFG_T)
@@ -398,10 +364,11 @@ def test_act_matches_reference(method):
     keys = jax.random.split(jax.random.key(8), 3)
     for n in (1, 3):
         want_a, want_x, jstates = jax.vmap(
-            jact, in_axes=(0, 0, None, 0, None))(jstates, s, n, keys, False)
-        noise = _act_draws(method, keys, P.action_dim,
-                           CFG_T.diffusion.num_steps)
-        got_a, got_x, tstates = fns.act(tstates, _t(s), n, noise=noise)
+            jact, in_axes=(0, 0, None, 0, None))(jstates, s, n, keys, greedy)
+        noise = act_draws(method, keys, P.action_dim,
+                          CFG_T.diffusion.num_steps)
+        got_a, got_x, tstates = fns.act(tstates, _t(s), n, noise=noise,
+                                        greedy=greedy)
         np.testing.assert_array_equal(got_a.numpy(), _np(want_a))
         np.testing.assert_allclose(got_x.numpy(), _np(want_x), atol=1e-5,
                                    rtol=0)

@@ -1,8 +1,10 @@
 """Port of the fused LADN chain: the plain version against the JAX Pallas
 kernel (interpret mode) and the JAX oracle, stacked agents against
 separate calls, ``ops.ladn_denoise`` against the reference's
-``run_reverse_chain``, the ops dispatch and its no-gradient guard, and
-the CUDA kernel against its plain version on a card.
+``run_reverse_chain``, the ops dispatch and its no-gradient guard, the
+kernel's launch plan and a plain mirror of its order of summation
+(``_torch_ladn_sums.py``), and the CUDA kernel against its plain version
+on a card.
 
 Inputs are numpy arrays from a seed, fed to both packages; the chain's
 noise is injected, so both run the same draws.  f32 throughout; the
@@ -16,12 +18,24 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_ladn_sums import ladn_chain_split
 from repro_torch.core import networks as nets
 from repro_torch.core.diffusion import make_schedule_np
 from repro_torch.kernels import ladn_denoise, ops, ref
 
 TOL = 1e-5
 CASES = [(64, 20, 22, 5), (128, 10, 12, 3), (32, 30, 42, 8)]  # T, A, S, I
+# (G, T, I, A, S, H): the LAD-TS path's shapes (chip_smoke.py phase 5):
+# acting, the update's K = 64 chains, one live placement, and a shape
+# above 32 wide with a ragged last block
+SHAPES = {"act": (20, 1, 5, 20, 22, 20), "update": (20, 64, 5, 20, 22, 20),
+          "live": (1, 1, 3, 2, 4, 20), "wide": (4, 33, 7, 40, 70, 64)}
+# the width class each shape takes on the card: the phase-5 shapes, and
+# one shape for each class no phase-5 shape reaches
+CUDA_WIDTHS = {"act": 24, "update": 24, "live": 24, "wide": 128,
+               "width32": 32, "width64": 64}
+CUDA_SHAPES = {**SHAPES, "width32": (3, 5, 4, 30, 32, 28),
+               "width64": (2, 9, 5, 40, 60, 64)}
 
 
 def _inputs(T, A, S, I, seed=0):  # noqa: E741
@@ -207,14 +221,95 @@ def test_step_constants_fold_the_schedule():
     assert ddpm[0][2] == pytest.approx(float(sched.beta_tildes[3]) ** 0.5)
 
 
+@pytest.mark.parametrize("name,width", [("act", 24), ("update", 24),
+                                        ("live", 24), ("wide", 128)])
+def test_plan_picks_the_width_class(name, width):
+    """The three main-path shapes take the register kernel (the <= 32
+    classes: no shared memory, one warp a block) at width 24, their widest
+    width being 22 or 20; the shape above 32 wide takes the shared-memory
+    kernel of the next width class, 4 rows a block."""
+    G, T, I, A, S, H = SHAPES[name]  # noqa: E741
+    plan = ladn_denoise.plan(G, T, A, S, H, I)
+    assert plan.width == width
+    if width <= 32:
+        assert (plan.rows, plan.smem) == (1, 0)
+        assert plan.kernel == "ladn_regs_kernel<24>"
+    else:
+        assert plan.rows == 4 and plan.kernel == "ladn_smem_kernel<128>"
+        # w1x 64 x 64, w2 64 x 64, w3 64 x 64 (A padded to 64), 7 time
+        # rows of 64 and the biases
+        assert plan.smem == 4 * (3 * 64 * 64 + 7 * 64 + 2 * 64 + 64)
+    assert plan.threads == 32 * plan.rows and plan.agents == G
+    for widths, want in (((2, 4, 8), 24), ((9, 4, 8), 24), ((24, 2, 2), 24),
+                         ((25, 2, 2), 32), ((20, 32, 8), 32),
+                         ((40, 60, 64), 64), ((33, 2, 2), 64),
+                         ((2, 65, 2), 128)):
+        assert ladn_denoise.plan(4, 33, *widths, 7).width == want
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    plan = ladn_denoise.plan
+    for args, match in (((1, 1, 129, 4, 20, 5), "widths"),
+                        ((1, 1, 2, 4, 129, 5), "widths"),
+                        ((1, 1, 2, 0, 20, 5), "widths"),
+                        ((1, 1, 2, 4, 20, 17), "steps"),
+                        ((1, 1, 2, 4, 20, 0), "steps"),
+                        ((65536, 1, 2, 4, 20, 5), "agents"),
+                        ((0, 1, 2, 4, 20, 5), "agents"),
+                        ((1, 0, 2, 4, 20, 5), "rows")):
+        with pytest.raises(ValueError, match=match):
+            plan(*args)
+    # the largest shape fits a block's shared memory
+    assert ladn_denoise.plan(1, 1, 128, 128, 128, 16).smem <= \
+        ladn_denoise.MAX_SMEM
+
+
+@pytest.mark.parametrize("T", [1, 33, 64])
+@pytest.mark.parametrize("A,S,H", [(20, 22, 20), (40, 60, 64),
+                                   (40, 70, 64)])
+def test_plan_grid_covers_every_row(T, A, S, H):
+    """Warp w of row tile b takes row b * rows + w: every row once, and
+    only the last tile has warps past T."""
+    plan = ladn_denoise.plan(3, T, A, S, H, 5)
+    assert plan.grid == (plan.blocks, 3)
+    taken = [b * plan.rows + w for b in range(plan.blocks)
+             for w in range(plan.rows)]
+    assert [r for r in taken if r < T] == list(range(T))
+    assert all(r >= (plan.blocks - 1) * plan.rows for r in taken if r >= T)
+
+
+@pytest.mark.parametrize("name", list(CUDA_SHAPES))
+def test_split_sums_stay_close_to_plain_version(name):
+    """The kernel's four partial sums (k % 4) change the order of every
+    product's sum; at each shape the card is tested at that stays within
+    1e-5 of the plain version's k order."""
+    G, T, I, A, S, H = CUDA_SHAPES[name]  # noqa: E741
+    gen = torch.Generator().manual_seed(11)
+    theta = nets.init_ladn(gen, S, A, (H, H), num_agents=G)
+    rng = np.random.default_rng(11)
+    x, s, noise = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32))
+                   for shape in ((G, T, A), (G, T, S), (G, T, I, A)))
+    w1x, w1t, w1s, b1, w2, b2, w3, b3 = ops.pack_ladn_weights(theta, S, A)
+    temb_w1 = nets.timestep_embed(torch.arange(I, 0, -1)) @ w1t
+    args = (x, s, noise, temb_w1, w1x, w1s, b1, w2, b2, w3, b3,
+            make_schedule_np(I))
+    want = ref.ladn_denoise_ref(*args)
+    got = ladn_chain_split(*args)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,T,I,A,S,H", [(20, 1, 5, 20, 22, 20),
-                                         (20, 64, 5, 20, 22, 20),
-                                         (1, 1, 3, 2, 4, 20)],
-                         ids=["act", "update", "live"])
-def test_cuda_kernel_matches_plain_version(G, T, I, A, S, H):  # noqa: E741
+@pytest.mark.parametrize("name", list(CUDA_SHAPES))
+def test_cuda_kernel_matches_plain_version(name):
+    """At each phase-5 shape and at one shape of each width class they do
+    not reach, through ``ops.ladn_denoise``'s views of the stacked first
+    layer and on packed copies alike; a CUDA-graph replay gives the eager
+    call's bits; the C entry's shared memory is the plan's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (run on the H100 with -m cuda)")
+    G, T, I, A, S, H = CUDA_SHAPES[name]  # noqa: E741
+    assert ladn_denoise.plan(G, T, A, S, H, I).width == CUDA_WIDTHS[name]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     theta = nets.init_ladn(gen, S, A, (H, H), num_agents=G, device=dev)
@@ -230,3 +325,32 @@ def test_cuda_kernel_matches_plain_version(G, T, I, A, S, H):  # noqa: E741
     torch.cuda.synchronize()
     want = ref.ladn_denoise_ref(*args)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    before = ops.launches["ladn_denoise"]
+    x0, _ = ops.ladn_denoise(theta, x, s, noise, num_steps=I)
+    assert ops.launches["ladn_denoise"] == before + 1
+    torch.testing.assert_close(x0, want, atol=1e-4, rtol=1e-4)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ladn_denoise.ladn_denoise_fused(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ladn_denoise.ladn_denoise_fused(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)
+
+    plan = ladn_denoise.plan(G, T, A, S, H, I)
+    lib = ladn_denoise._library()
+    assert lib.repro_ladn_denoise_smem_bytes(plan.width, A, H, I) == \
+        plan.smem
+
+
+@pytest.mark.cuda
+def test_cuda_noop_launches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the H100 with -m cuda)")
+    ladn_denoise.noop()
+    torch.cuda.synchronize()
