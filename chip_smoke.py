@@ -11,20 +11,26 @@ Phases, in order; the script exits non-zero at the first that fails:
    the sources in the checkout (one ``nvcc`` per source, all at once),
    turn TF32 off;
 2. ``paged_flash_decode`` against its plain PyTorch version at the serve
-   path's shapes and at 8 lanes of 2048 tokens, in bf16 and f32, with its
-   time, its bound, the plain version's time and one library call's time;
+   path's shapes, at 8 lanes of 2048 tokens and at the closed loop's
+   rounds of its two paged archs (page 8, an 18-page table: qwen2-1.5b,
+   and starcoder2-3b's 24 query heads over 2 KV heads), in bf16 and f32,
+   with its time, its bound, the plain version's time and one library call's time;
    each call is two kernels, split and merge, and a profiler trace of one
    call shows both, with the grids its split plan gives;
 3. decode against prefill on the card: full-width qwen2-1.5b in f32 with
    2 layers serves one request greedily, and a teacher-forced paged
    prefill over the same tokens must pick the same token everywhere;
+   3b: the same for xLSTM: xlstm-350m at published width in f32 with 4
+   layers (3 mLSTM, 1 sLSTM) decodes 16 greedy tokens from the dense slot
+   pool after a 64-token prompt, and the ``train``-mode forward over the
+   same tokens picks the same token everywhere;
 4. serve: ``repro_torch.launch.serve.main`` at full qwen2-1.5b width and
    depth in bf16 (2 engines, 8 requests, JSQ), every request completed,
    no KV leak, and the kernel launched once per layer per decode round;
    4b: where a decode round's time goes (``torch.profiler``);
-5. ``ladn_denoise`` against its plain version at the LAD-TS path's three
-   shapes (acting, update terms, live placement) and one shape above 32
-   wide, f32, with its time, its bound, the launch floor (the library's
+5. ``ladn_denoise`` against its plain version at the LAD-TS path's
+   shapes (acting, update terms, live placement; phase 8's and phase
+   13's, on its 11-wide QoS observation) and one shape above 32 wide, f32, with its time, its bound, the launch floor (the library's
    empty kernel in a CUDA graph) and the plain version's time; a
    profiler trace of one call per shape must show the instantiation,
    grid and shared memory ``ladn_denoise.plan`` gives; the compiler's
@@ -43,7 +49,9 @@ Phases, in order; the script exits non-zero at the first that fails:
 9. ``flash_attention`` against its plain version at the dense prefill's
    shapes (recurrentgemma-9b heads at 128 and 4096 positions) and the
    paged prefill chunks' (qwen2-1.5b, with a query offset: the serve
-   path's and the last chunk of a 2048-token prompt), bf16 and f32, with
+   path's and the last chunk of a 2048-token prompt; the closed loop's
+   last chunk of a 64-token prompt at qwen2-1.5b's and starcoder2-3b's
+   heads), bf16 and f32, with
    its time, its bound, the plain version's and SDPA's; a profiler trace
    of one call per shape must show one kernel with the grid its tile
    plan gives; the compiler's registers and spills per instantiation;
@@ -61,6 +69,15 @@ Phases, in order; the script exits non-zero at the first that fails:
    completed, no slot leaked, ``flash_decode`` launched once per attention
    layer per decode round and ``flash_attention`` once per attention
    layer per prefill; 12b: where a dense decode round's time goes;
+13. the closed loop: ``repro_torch.bench.serving.bench_closed_loop`` with
+   the fleet at published width and depth (qwen2-1.5b, starcoder2-3b,
+   xlstm-350m, qwen2-1.5b; bf16): LAD-TS trained in the QoS simulator,
+   the sim half, then a 24-request mixed-QoS trace under all seven
+   schedulers, every request finished ``ok``, no KV leak, and in each
+   run ``paged_flash_decode`` launched once per attention layer per paged
+   decode round, ``flash_attention`` once per attention layer per paged
+   prefill chunk and ``ladn_denoise`` once per LAD-TS placement plus the
+   warm-up;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -96,6 +113,13 @@ B, H, KV, HD, PS, P, W = 8, 12, 2, 128, 16, 41, 15
 PAGED_SHAPES = {
     "serve": (B, H, KV, HD, PS, P, W, (1, W * PS, 37, 16, 17, 100, 2, 160)),
     "long_2048": (8, H, KV, HD, PS, 1 + 8 * 128, 128, (2048,) * 8),
+    # phase 13's paged engines: 8 lanes, page 8, max_len
+    # 3 * (32 + 8) = 120 -> 1 + 2 * 15 pages and a 15 + 2 + 1 wide table,
+    # at qwen2-1.5b's heads and at starcoder2-3b's
+    "qwen2_closedloop": (8, H, KV, HD, 8, 31, 18,
+                         (1, 120, 37, 16, 17, 64, 2, 88)),
+    "starcoder2_3b": (8, 24, 2, 128, 8, 31, 18,
+                      (1, 120, 37, 16, 17, 64, 2, 88)),
 }
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
               "--scheduler", "jsq", "--requests", "8", "--prompt-len", "128",
@@ -105,10 +129,15 @@ N_REQUESTS = 8
 # ladn_denoise's shapes on the LAD-TS path (G agents, T rows, I steps,
 # A actions, S state, H hidden): one decision per agent at a task step;
 # the update's K = 64 no-grad chains per agent; one live placement
-# (serve.build_scheduler: 2 engines, I = 3)
+# (serve.build_scheduler: 2 engines, I = 3); and phase 13's, on the QoS
+# observation of 4 edges (S = 3 + 2 * 4, I = 3): acting and the update in
+# the QoS simulator, one live placement
 LADN_SHAPES = {"act": (20, 1, 5, 20, 22, 20),
                "update": (20, 64, 5, 20, 22, 20),
-               "live": (1, 1, 3, 2, 4, 20)}
+               "live": (1, 1, 3, 2, 4, 20),
+               "cl_act": (4, 1, 3, 4, 11, 20),
+               "cl_update": (4, 64, 3, 4, 11, 20),
+               "cl_live": (1, 1, 3, 4, 11, 20)}
 # and one shape above 32 wide, for the shared-memory instantiation (no
 # main path reaches it; T 33 leaves the last block ragged)
 LADN_WIDE = {"wide": (4, 33, 7, 40, 70, 64)}
@@ -133,6 +162,11 @@ ATTN_SHAPES = {
     "qwen2_chunk": (1, 12, 2, 64, 240, 128, None, 64, "bfloat16"),
     "qwen2_chunk_2048": (1, 12, 2, 64, 2048, 128, None, 1984, "bfloat16"),
     "rg_prefill_f32": (1, 16, 1, 128, 128, 256, 2048, 0, "float32"),
+    # phase 13's paged engines: the last 16-token chunk of a 64-token
+    # prompt against the 18 x 8-token table, at qwen2-1.5b's heads and at
+    # starcoder2-3b's
+    "qwen2_cl_chunk": (1, 12, 2, 16, 144, 128, None, 48, "bfloat16"),
+    "sc2_chunk": (1, 24, 2, 16, 144, 128, None, 48, "bfloat16"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
 # decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
@@ -479,6 +513,76 @@ def phase_decode_vs_prefill() -> None:
     torch.cuda.empty_cache()
 
 
+XLSTM = "xlstm-350m"
+
+
+def phase_xlstm_decode_vs_forward() -> None:
+    """xlstm-350m at published width, f32, 4 layers: 16 greedy tokens
+    from the dense slot pool against the train-mode forward's argmax, and
+    the decode logits' distance from the teacher-forced ones."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import (apply_head, forward,
+                                                init_params)
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(XLSTM), num_layers=4,
+                              dtype="float32")
+    if [b.mixer for b in cfg.layer_pattern()] != ["mlstm"] * 3 + ["slstm"]:
+        fail(f"phase 3b: unexpected layers {cfg.layer_pattern()}")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(13),
+                         dev)
+    plen, n_new = 64, 16
+    eng = ServeEngine(cfg, params, max_len=plen + n_new, kv_slots=2,
+                      device=dev)
+    if eng.paged:
+        fail("phase 3b: xlstm-350m did not get a dense engine")
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab_size,
+                                                (1, plen), dtype=np.int32)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks = np.concatenate(eng.generate(prompt, n_new).tokens)
+    gen_s = time.perf_counter() - t0
+    if any(ops.launches.values()):
+        fail(f"phase 3b: an xLSTM engine launched {ops.launches}; it has "
+             f"no attention layer")
+    if eng.kv_leak:
+        fail(f"phase 3b: the engine holds {eng.kv_leak} slots when idle")
+    seq = torch.from_numpy(
+        np.concatenate([prompt[0], toks[:-1]]).astype(np.int32)[None]
+    ).to(dev)
+    hidden = forward(params, cfg, {"tokens": seq}, mode="train")["hidden"]
+    want = apply_head(params, cfg, hidden[:, plen - 1:])[0].float()
+    if not torch.isfinite(want).all():
+        fail("phase 3b: teacher-forced logits are not finite")
+    pred = want.argmax(-1).cpu().numpy()
+    for i in np.flatnonzero(pred != toks):
+        top2 = torch.topk(want[i], 2).values
+        fail(f"phase 3b: decode token {i} (position {plen + i}) = "
+             f"{toks[i]} but the teacher-forced argmax = {pred[i]} (top-2 "
+             f"logit gap {(top2[0] - top2[1]).item():.3e})")
+    # the decode path's own logits over the same tokens
+    out = forward(params, cfg, {"tokens": seq[:, :plen]}, mode="prefill",
+                  max_len=plen + n_new)
+    got, states = [out["last_logits"][0]], out["states"]
+    for j in range(plen, plen + n_new - 1):
+        out = forward(params, cfg, {"tokens": seq[:, j:j + 1]},
+                      mode="decode", states=states)
+        got.append(out["logits"][0])
+        states = out["states"]
+    err = (torch.stack(got).float() - want).abs().max().item()
+    log(f"phase 3b ok: {n_new} greedy decode tokens of xlstm-350m (d "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, 3 mLSTM "
+        f"+ 1 sLSTM layers, f32) after a {plen}-token prompt equal the "
+        f"teacher-forced train-mode argmax; max abs logit error of decode "
+        f"against teacher forcing {err:.3e}; engine prefill + decode "
+        f"{gen_s:.2f} s; no kernel launched")
+    del eng, params, hidden, want, got, states, out
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve through the port's launcher
 # ---------------------------------------------------------------------------
@@ -780,9 +884,9 @@ def phase_ladn_kernel() -> dict:
             f"err={err:.3e} (tol {LADN_TOL:.0e}) kernel={ms:.4f} ms (eager "
             f"call {call_ms:.4f} ms) floor={floor_ms:.4f} ms "
             f"plain={plain_ms:.4f} ms bound={bound_ms:.6f} ms ({bound_by})")
-    log("phase 5 ok: ladn_denoise matches ladn_denoise_ref at the act, "
-        "update, live and wide shapes (no single PyTorch call computes the "
-        "chain: no library time)")
+    log(f"phase 5 ok: ladn_denoise matches ladn_denoise_ref at "
+        f"{', '.join({**LADN_SHAPES, **LADN_WIDE})} (no single PyTorch call "
+        f"computes the chain: no library time)")
     return result
 
 
@@ -1118,8 +1222,8 @@ def phase_flash_attention() -> dict:
             f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
         del q, k, v, got, want, lib_out, mask
         torch.cuda.empty_cache()
-    log("phase 9 ok: flash_attention matches attention_ref at the dense "
-        "prefill, long-window and paged-chunk shapes")
+    log(f"phase 9 ok: flash_attention matches attention_ref at "
+        f"{', '.join(ATTN_SHAPES)}")
     return result
 
 
@@ -1388,6 +1492,104 @@ def phase_dense_round_breakdown(rounds: int = 4) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the closed loop on the published-width heterogeneous fleet
+# ---------------------------------------------------------------------------
+
+CL_REQUESTS = 24
+CL_SCHEDULERS = {"lad-ts", "deadline", "prefix-affinity", "jsq",
+                 "round-robin", "random", "local"}
+# published depths of the fleet's archs
+CL_DEPTHS = {"qwen2-1.5b": 28, "starcoder2-3b": 30, XLSTM: 24}
+
+
+def _closed_loop_launches(rec: dict) -> dict:
+    """The launches a live run implies: per paged (all-attention) engine,
+    its layers x its decode rounds and x its prefill chunks; one
+    ``ladn_denoise`` per LAD-TS placement plus the cluster's warm-up."""
+    paged = [e for e in rec["engines"] if e["paged"]]
+    return {"paged_flash_decode": sum(e["layers"] * e["decode_rounds"]
+                                      for e in paged),
+            "flash_attention": sum(e["layers"] * e["prefills"]
+                                   for e in paged),
+            "ladn_denoise": (CL_REQUESTS + 1 if rec["scheduler"] == "lad-ts"
+                             else 0),
+            "flash_decode": 0}
+
+
+def phase_closed_loop() -> dict:
+    """Returns each kernel's launches summed over the live runs."""
+    import math
+    import torch
+    from repro_torch.bench.serving import bench_closed_loop
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, records = bench_closed_loop(num_requests=CL_REQUESTS, device="cuda",
+                                   full_scale=True,
+                                   log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launched = dict(ops.launches)
+    sim = [r for r in records if r["bench"] == "closedloop_sim"]
+    live = [r for r in records if r["bench"] == "closedloop_live"]
+    if {r["scheduler"] for r in live} != CL_SCHEDULERS or \
+            {r["scheduler"] for r in sim} != CL_SCHEDULERS - {
+                "prefix-affinity"}:
+        fail(f"phase 13: schedulers sim {[r['scheduler'] for r in sim]}, "
+             f"live {[r['scheduler'] for r in live]}")
+    for r in sim:
+        if not r["count"] or not math.isfinite(r["mean_s"]):
+            fail(f"phase 13: sim {r['scheduler']} gave {r}")
+    sums = dict.fromkeys(ops.launches, 0)
+    for r in live:
+        name = r["scheduler"]
+        depths = {e["arch"]: e["layers"] for e in r["engines"]}
+        if depths != CL_DEPTHS or [e["paged"] for e in r["engines"]] != [
+                e["arch"] != XLSTM for e in r["engines"]]:
+            fail(f"phase 13: {name}: the fleet is not at published depth "
+                 f"or not on the expected pools: {r['engines']}")
+        if not (r["completed"] == r["count"] == CL_REQUESTS
+                and r["unfinished"] == 0):
+            fail(f"phase 13: {name}: {r['completed']} of {CL_REQUESTS} "
+                 f"requests finished ok ({r['unfinished']} unfinished)")
+        if any(e["kv_leak"] for e in r["engines"]):
+            fail(f"phase 13: {name}: KV held after the run: "
+                 f"{[e['kv_leak'] for e in r['engines']]}")
+        want = _closed_loop_launches(r)
+        if r["launches"] != want:
+            fail(f"phase 13: {name}: launches {r['launches']}, the loop "
+                 f"implies {want} (engines {r['engines']})")
+        for k, v in r["launches"].items():
+            sums[k] += v
+        log(f"  live {name}: service mean {r['mean_s'] * 1e3:.1f} / p50 "
+            f"{r['p50_s'] * 1e3:.1f} / p95 {r['p95_s'] * 1e3:.1f} / p99 "
+            f"{r['p99_s'] * 1e3:.1f} ms; deadline miss "
+            f"{r['deadline_miss_rate']:.3f}, weighted goodput "
+            f"{r['weighted_goodput']:.3f}; prefill tokens saved "
+            f"{r['prefill_tokens_saved']}, hit rate "
+            f"{r['prefix_hit_rate']:.3f}; wall {r['wall_s']:.2f} s, "
+            f"{r['tok_s']:.1f} generated tok/s; peak memory "
+            f"{r['peak_mem_gib']:.2f} GiB; requests per engine "
+            f"{[e['requests'] for e in r['engines']]}, decode ms/token "
+            f"{[round(e['token_ms'], 2) for e in r['engines']]}; launches "
+            f"{r['launches']}")
+    for r in sim:
+        log(f"  sim {r['scheduler']}: delay mean {r['mean_s']:.4f} s p95 "
+            f"{r['p95_s']:.4f} s; deadline miss "
+            f"{r.get('deadline_miss_rate', 0.0):.3f}, weighted goodput "
+            f"{r.get('weighted_goodput', 0.0):.3f}; {r['wall_s']:.2f} s")
+    for k in ("paged_flash_decode", "flash_attention", "ladn_denoise"):
+        if sums[k] <= 0 or launched[k] < sums[k]:
+            fail(f"phase 13: {k} launched {sums[k]} times in the live "
+                 f"runs, {launched[k]} in the phase")
+    log(f"phase 13 ok: {len(live)} schedulers x {CL_REQUESTS}/"
+        f"{CL_REQUESTS} requests ok on the published-width fleet, no KV "
+        f"leak; live launches {sums} as the loop implies ({launched} with "
+        f"training, the sim half and warm-up); {total:.1f} s")
+    return sums
+
+
 def _free_card() -> None:
     import torch
     gc.collect()
@@ -1400,6 +1602,7 @@ def main() -> None:
     phase_setup()
     checks = phase_kernel()
     phase_decode_vs_prefill()
+    phase_xlstm_decode_vs_forward()
     launches, paged_attn_launches = phase_serve()
     phase_round_breakdown()
     ladn = phase_ladn_kernel()
@@ -1416,6 +1619,8 @@ def main() -> None:
     attn_launches, dec_launches, _ = phase_rg_serve()
     _free_card()
     phase_dense_round_breakdown()
+    _free_card()
+    closed = phase_closed_loop()
     bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
     ladn_shapes = {k: v for k, v in ladn.items()
@@ -1428,6 +1633,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:132",
         "launches": launches,
+        "launches_closedloop": closed["paged_flash_decode"],
         "kernel_launches_per_call": bf["kernel_launches_per_call"],
         "max_abs_err": max(c["bfloat16"]["max_abs_err"]
                            for c in checks.values()),
@@ -1442,6 +1648,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/ladn_denoise.py:34",
         "launches": ladn_launches,
         "launches_eval": eval_launches, "launches_live": live_launches,
+        "launches_closedloop": closed["ladn_denoise"],
         "max_abs_err": max(v["max_abs_err"] for v in ladn_shapes.values()),
         "ms": act["ms"], "eager_ms": act["eager_ms"],
         "plain_ms": act["plain_ms"], "bound_ms": act["bound_ms"],
@@ -1458,6 +1665,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": attn_launches,
         "launches_paged_prefill": paged_attn_launches,
+        "launches_closedloop": closed["flash_attention"],
         "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
         "max_abs_err_f32": attn["rg_prefill_f32"]["max_abs_err"],

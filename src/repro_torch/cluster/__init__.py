@@ -3,9 +3,16 @@ schedulers, the simulator's evaluation loop, and the live closed loop over
 serving engines (port of ``repro.cluster``)."""
 from repro_torch.cluster.live import EdgeCluster, LiveObsConfig
 from repro_torch.cluster.request import Request, poisson_trace, summarize
-from repro_torch.cluster.schedulers import (BASELINES, PolicyScheduler,
+from repro_torch.cluster.schedulers import (BASELINES,
+                                            DeadlineAwareScheduler,
+                                            PolicyScheduler,
+                                            PrefixAffinityScheduler,
                                             Scheduler, make_scheduler)
+from repro_torch.cluster.simulate import (build_sim_episode,
+                                          evaluate_scheduler)
 
-__all__ = ["BASELINES", "EdgeCluster", "LiveObsConfig", "PolicyScheduler",
-           "Request", "Scheduler", "make_scheduler", "poisson_trace",
+__all__ = ["BASELINES", "DeadlineAwareScheduler", "EdgeCluster",
+           "LiveObsConfig", "PolicyScheduler", "PrefixAffinityScheduler",
+           "Request", "Scheduler", "build_sim_episode",
+           "evaluate_scheduler", "make_scheduler", "poisson_trace",
            "summarize"]

@@ -165,6 +165,13 @@ def poisson_trace(num_requests: int, rate: float, prompt_len: int,
     ones mid-flight).  Prompt length is fixed so one prefill compile serves
     the whole trace.
 
+    With ``qos_mix`` (a sequence of ``(QoSClass, weight)`` pairs) each
+    request additionally draws a service class: the generation length
+    comes from the class ``z_range``, ``deadline_s`` becomes the absolute
+    arrival-relative deadline (``arrival + class budget``; best-effort
+    classes get none), ``model_pref`` passes through, and a per-class
+    ``prompt_len`` overrides the trace-level prompt length.
+
     With ``prefix_len > 0`` and ``prefix_frac > 0``, a deterministic
     fraction of requests share one seeded "system prompt": their first
     ``min(prefix_len, plen)`` tokens are replaced by a common prefix
@@ -174,18 +181,20 @@ def poisson_trace(num_requests: int, rate: float, prompt_len: int,
     stream as before, so prefix-free traces are bit-identical to
     pre-prefix behavior.
 
-    Arrivals, generation lengths, origins and the prefix draw come from
+    Arrivals, classes, generation lengths, deadlines, model preferences,
+    prompt lengths, origins and the prefix draw come from
     ``np.random.default_rng(seed)`` in the reference's order, so they
     equal the reference's exactly.  Prompt tokens come from a per-request
     numpy generator seeded ``seed * 100_003 + r`` (the shared prefix from
     ``seed * 77_003 + 13``): the same seeds as the reference's
-    ``jax.random`` keys, but NOT the same tokens.  ``qos_mix`` comes with
-    the QoS slice.
+    ``jax.random`` keys, but NOT the same tokens.
     """
-    if qos_mix:
-        raise NotImplementedError("QoS traces are not ported to repro_torch "
-                                  "yet (ROADMAP.md A4)")
     rng = np.random.default_rng(seed)
+    classes, probs = None, None
+    if qos_mix:
+        # imported here: repro_torch.workload imports this module
+        from repro_torch.workload.qos import normalized_weights
+        classes, probs = normalized_weights(qos_mix)
     shared = None
     if prefix_len > 0 and prefix_frac > 0:
         pshape = ((1, num_codebooks, prefix_len) if num_codebooks
@@ -196,20 +205,35 @@ def poisson_trace(num_requests: int, rate: float, prompt_len: int,
     reqs = []
     for r in range(num_requests):
         t += float(rng.exponential(1.0 / max(rate, 1e-9)))
-        new_tokens = int(rng.integers(min_new_tokens, max_new_tokens + 1))
-        shape = ((1, num_codebooks, prompt_len) if num_codebooks
-                 else (1, prompt_len))
+        qos = deadline = pref = None
+        plen = prompt_len
+        if classes is not None:
+            qos = classes[int(rng.choice(len(classes), p=probs))]
+            lo, hi = qos.z_range
+            new_tokens = int(rng.integers(lo, hi + 1))
+            budget = float(getattr(qos, "deadline_s", math.inf))
+            if math.isfinite(budget):
+                deadline = t + budget
+            pref = getattr(qos, "model_pref", None)
+            if getattr(qos, "prompt_len", None):
+                plen = int(qos.prompt_len)
+        else:
+            new_tokens = int(rng.integers(min_new_tokens,
+                                          max_new_tokens + 1))
+        shape = ((1, num_codebooks, plen) if num_codebooks
+                 else (1, plen))
         prompt = np.random.default_rng(seed * 100_003 + r).integers(
             0, vocab_size, shape, dtype=np.int32)
         if shared is not None and rng.random() < prefix_frac:
-            L = min(prefix_len, prompt_len)
+            L = min(prefix_len, plen)
             prompt = np.concatenate([shared[..., :L], prompt[..., L:]],
                                     axis=-1)
         reqs.append(Request(
             rid=r, prompt=prompt,
             max_new_tokens=new_tokens,
             arrival_s=t,
-            origin=int(rng.integers(0, num_origins))))
+            origin=int(rng.integers(0, num_origins)),
+            qos=qos, deadline_s=deadline, model_pref=pref))
     return reqs
 
 

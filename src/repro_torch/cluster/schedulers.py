@@ -11,8 +11,9 @@ caller, where the reference takes a JAX key.
 
 ``PolicyScheduler`` wraps trained LAD-TS / D2SAC-TS / SAC-TS / DQN-TS
 agent states from ``repro_torch.core.trainer``; the rest are the
-non-learned baselines.  The deadline, failure-aware and prefix-affinity
-baselines come with their slice (ROADMAP.md A4).
+non-learned baselines, the deadline-aware and prefix-affinity ones on the
+QoS- and prefix-extended rows.  The failure-aware baseline comes with the
+fault slice (ROADMAP.md A4).
 """
 from __future__ import annotations
 
@@ -110,6 +111,64 @@ class LocalOnlyScheduler(Scheduler):
         return int(origin) % self.num_engines, carry
 
 
+class DeadlineAwareScheduler(Scheduler):
+    """Earliest-expected-completion placement on the QoS observation.
+
+    Requires the extended row ``[d, w, q_1..q_E, slack, c_1..c_E]``:
+    picks the engine minimising backlog + this task's own expected
+    compute there (``q_e + c_e``).  Per-request deadline urgency is left
+    to the engines' priority/EDF queues."""
+
+    name = "deadline"
+
+    def __init__(self, num_engines: int):
+        super().__init__(num_engines)
+        self.state_dim = 3 + 2 * num_engines
+
+    def select(self, carry, s, n, generator):
+        E = self.num_engines
+        return torch.argmin(s[:, 2:2 + E] + s[:, 3 + E:3 + 2 * E],
+                            dim=-1), carry
+
+
+class PrefixAffinityScheduler(Scheduler):
+    """Cache-aware placement: route where the prompt's KV already lives.
+
+    Declares ``prefix_obs = True``, so ``EdgeCluster.observe`` appends a
+    trailing per-engine block of expected prefix hits (prompt tokens each
+    engine could serve from its prefix cache; dense engines report 0).
+    Placement minimises::
+
+        cost_e = q_e [+ c_e with qos=True] - hit_weight * hit_e
+
+    ``fault=True`` (the availability columns before the hit block) comes
+    with the fault slice (ROADMAP.md A4)."""
+
+    name = "prefix-affinity"
+    prefix_obs = True
+
+    def __init__(self, num_engines: int, qos: bool = False,
+                 fault: bool = False, hit_weight: float = 0.5):
+        if fault:
+            raise NotImplementedError(
+                "prefix-affinity with fault=True reads the availability "
+                "columns, which are not ported to repro_torch yet "
+                "(ROADMAP.md A4)")
+        super().__init__(num_engines)
+        self.qos = bool(qos)
+        self.hit_weight = float(hit_weight)
+        self.state_dim = (3 + 2 * num_engines if self.qos
+                          else 2 + num_engines) + num_engines
+
+    def select(self, carry, s, n, generator):
+        E = self.num_engines
+        cost = s[:, 2:2 + E]
+        if self.qos:
+            cost = cost + s[:, 3 + E:3 + 2 * E]
+        return torch.argmin(cost - self.hit_weight * s[:, -E:],
+                            dim=-1), carry
+
+
 def _infer_state_dim(states) -> Optional[int]:
     """Observation width a stacked agent state was trained on (the input
     width of the first critic/Q layer)."""
@@ -173,15 +232,16 @@ class PolicyScheduler(Scheduler):
         return int(a[0]), tree_map(put, carry, one, new)
 
 
-BASELINES = ("round-robin", "jsq", "random", "local")
-_LATER = {"deadline": "A4", "failure-aware": "A4",
-          "prefix-affinity": "A4"}
+BASELINES = ("round-robin", "jsq", "random", "local", "deadline",
+             "prefix-affinity")
+_LATER = {"failure-aware": "A4"}
 
 
 def make_scheduler(name: str, num_engines: int,
                    **policy_kwargs) -> Scheduler:
     """Factory: a baseline by name, or a learned method given
-    ``cfg``, ``states`` and ``n_max``."""
+    ``cfg``, ``states`` and ``n_max``.  ``prefix-affinity`` accepts
+    ``qos=``, ``fault=`` and ``hit_weight=`` (cache-credit strength)."""
     if name == "round-robin":
         return RoundRobinScheduler(num_engines)
     if name == "jsq":
@@ -190,6 +250,13 @@ def make_scheduler(name: str, num_engines: int,
         return RandomScheduler(num_engines)
     if name == "local":
         return LocalOnlyScheduler(num_engines)
+    if name == "deadline":
+        return DeadlineAwareScheduler(num_engines)
+    if name == "prefix-affinity":
+        return PrefixAffinityScheduler(
+            num_engines, qos=policy_kwargs.pop("qos", False),
+            fault=policy_kwargs.pop("fault", False),
+            hit_weight=policy_kwargs.pop("hit_weight", 0.5))
     if name in LEARNED:
         return PolicyScheduler(name, num_engines=num_engines,
                                **policy_kwargs)

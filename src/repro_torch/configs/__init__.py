@@ -11,8 +11,12 @@ from typing import Dict, List
 from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
 
 _ARCH_MODULES: Dict[str, str] = {
-    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

@@ -7,9 +7,10 @@ request, and prints the same per-request and summary lines:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --edges 2 --scheduler jsq --requests 8 --tokens 16 --rate 4
 
-All-attention archs (``qwen2-1.5b``) serve from the paged KV pool;
-``recurrentgemma-9b`` (RG-LRU and local-attention layers) from dense
-slot pools, as the reference's engines pick.
+All-attention archs (``qwen2-1.5b``, ``starcoder2-3b``, ``starcoder2-7b``,
+``minitron-8b``) serve from the paged KV pool; ``recurrentgemma-9b``
+(RG-LRU and local-attention layers) and ``xlstm-350m`` from dense slot
+pools, as the reference's engines pick.
 
 ``--scheduler lad-ts`` (or ``d2sac-ts``, ``sac-ts``, ``dqn-ts``) first
 trains the policy in the simulator on the serving device (matching the
@@ -17,7 +18,14 @@ engine count, ``--train-episodes`` episodes), then serves with it — the
 closed loop of paper Fig. 10.  Engines run on ``cuda`` unless ``--device
 cpu`` is given.  Without ``--full-scale`` they serve the reference's
 reduced configs; ``--full-scale`` keeps the published widths, depth and
-dtype.  ``--qos`` and ``--chaos`` are not ported yet.
+dtype.
+
+``--qos`` switches on the mixed-QoS workload: the trace mixes
+interactive / standard / batch classes (``DEFAULT_MIX``), engines drain
+in priority/EDF order, learned policies train on the QoS-extended
+observation, ``--scheduler deadline`` becomes available, and the summary
+adds the deadline-miss rate, priority-weighted goodput and a line per
+class.  ``--chaos`` (the fault layer) is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,23 +36,32 @@ from typing import List, Optional
 from repro_torch import DeviceLike
 from repro_torch.cluster.live import EdgeCluster
 from repro_torch.cluster.request import poisson_trace, summarize
-from repro_torch.cluster.schedulers import PolicyScheduler, make_scheduler
+from repro_torch.cluster.schedulers import (BASELINES, PolicyScheduler,
+                                            make_scheduler)
 from repro_torch.core.agents import AgentConfig
 from repro_torch.core.diffusion import DiffusionPolicyConfig
 from repro_torch.core.env import EnvParams
 from repro_torch.core.trainer import LEARNED, train_method
 from repro_torch.kernels import ops
 from repro_torch.serving.builders import build_engines, warmup
+from repro_torch.workload import DEFAULT_MIX
 
 
 def build_scheduler(name: str, n_edge: int, train_episodes: int, seed: int,
-                    device: DeviceLike = None):
+                    device: DeviceLike = None, qos: bool = False):
     """A baseline by name, or a learned policy trained in the simulator on
     ``device`` first (``n_edge`` stations, 8 slots of up to 6 tasks, a
-    3-step chain), as the reference's launcher trains it."""
+    3-step chain, and ``DEFAULT_MIX`` with ``qos``), as the reference's
+    launcher trains it."""
+    if name == "deadline" and not qos:
+        raise SystemExit("--scheduler deadline needs the QoS-extended "
+                         "observation; pass --qos")
+    if name == "prefix-affinity":
+        return make_scheduler(name, n_edge, qos=qos)
     if name not in LEARNED:
         return make_scheduler(name, n_edge)
-    p = EnvParams(num_bs=n_edge, num_slots=8, max_tasks=6)
+    p = EnvParams(num_bs=n_edge, num_slots=8, max_tasks=6,
+                  qos_mix=DEFAULT_MIX if qos else ())
     acfg = AgentConfig(train_after=40, replay_capacity=200,
                        diffusion=DiffusionPolicyConfig(num_steps=3))
     print(f"[serve] training {name} in-sim for {train_episodes} episodes "
@@ -60,8 +77,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--edges", type=int, default=2)
     ap.add_argument("--scheduler", default="jsq",
-                    help="jsq | round-robin | random | local | lad-ts | "
-                         "d2sac-ts | sac-ts | dqn-ts")
+                    help=" | ".join(BASELINES + LEARNED))
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--rate", type=float, default=4.0,
                     help="Poisson arrival rate (req/s)")
@@ -70,7 +86,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-slots", type=int, default=4)
     ap.add_argument("--train-episodes", type=int, default=3,
                     help="in-sim training episodes of a learned scheduler")
-    ap.add_argument("--qos", action="store_true", help="not yet ported")
+    ap.add_argument("--qos", action="store_true",
+                    help="mixed interactive/standard/batch QoS trace + "
+                         "extended scheduler observation")
     ap.add_argument("--chaos", action="store_true", help="not yet ported")
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="share a seeded system-prompt prefix of this many "
@@ -98,21 +116,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     scheduler: a learned one's in-sim training), ``wall_s`` and ``tok_s``
     (generated tokens per second of the run)."""
     args = _parser().parse_args(argv)
-    if args.qos or args.chaos:
-        raise SystemExit("--qos and --chaos are not yet ported to "
-                         "repro_torch (ROADMAP.md A4)")
+    if args.chaos:
+        raise SystemExit("--chaos is not yet ported to repro_torch "
+                         "(ROADMAP.md A4)")
     t0 = time.perf_counter()
     try:
         scheduler = build_scheduler(args.scheduler, args.edges,
                                     args.train_episodes, args.seed,
-                                    device=args.device)
+                                    device=args.device, qos=args.qos)
     except NotImplementedError as exc:
         raise SystemExit(f"--scheduler {args.scheduler}: not yet ported "
                          f"({exc})") from exc
     train_s = time.perf_counter() - t0
 
+    max_tokens = (max(args.tokens, *(c.z_range[1] for c, _ in DEFAULT_MIX))
+                  if args.qos else args.tokens)
     engines = build_engines(args.arch, args.edges,
-                            args.prompt_len + args.tokens,
+                            args.prompt_len + max_tokens,
                             kv_slots=args.kv_slots, sample=args.sample,
                             prefix_cache=(False if args.no_prefix_cache
                                           else None),
@@ -121,11 +141,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
     warmup(engines, args.prompt_len)
     launches0 = dict(ops.launches)
 
-    cluster = EdgeCluster(engines, scheduler, seed=args.seed)
+    cluster = EdgeCluster(engines, scheduler, seed=args.seed,
+                          qos_obs=args.qos)
     trace = poisson_trace(args.requests, rate=args.rate,
                           prompt_len=args.prompt_len,
                           max_new_tokens=args.tokens, vocab_size=vocab,
                           num_origins=args.edges, seed=args.seed,
+                          qos_mix=DEFAULT_MIX if args.qos else None,
                           prefix_len=args.prefix_len,
                           prefix_frac=args.prefix_frac)
     t0 = time.perf_counter()
@@ -146,6 +168,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if st["prefill_tokens_saved"]:
         line += (f" prefix_saved={st['prefill_tokens_saved']}tok"
                  f" hit={st['prefix_hit_rate']:.2f}")
+    if args.qos:
+        line += (f" miss={st['deadline_miss_rate']:.2f}"
+                 f" goodput={st['weighted_goodput']:.2f}")
+        for name, cs in st.get("classes", {}).items():
+            print(f"[serve]   class {name}: n={cs['count']} "
+                  f"p50={cs['p50_s']*1e3:.1f}ms "
+                  f"p95={cs['p95_s']*1e3:.1f}ms "
+                  f"miss={cs['deadline_miss_rate']:.2f}")
     print(line)
     st["engines"] = [{"layers": e.cfg.num_layers, "paged": e.paged,
                       "prefills": e.prefills,

@@ -1,8 +1,10 @@
-"""Unified decoder: attention and RG-LRU blocks, dense and paged modes.
+"""Unified decoder: attention, RG-LRU and xLSTM blocks, dense and paged
+modes.
 
-Port of ``repro/models/transformer.py`` for stacks of attention or RG-LRU
-mixers with dense MLPs.  Params keep the reference's keys and ``(in,
-out)`` layout, except that layers are one flat list
+Port of ``repro/models/transformer.py`` for stacks of attention, RG-LRU,
+mLSTM or sLSTM mixers with dense MLPs or none (``ffn="none"``: xLSTM
+blocks carry their own projections).  Params keep the reference's keys
+and ``(in, out)`` layout, except that layers are one flat list
 (``params["layers"][i]``) where the reference may stack them for
 ``lax.scan``; ``repro_torch.convert.params_from_jax`` unstacks.  Layer
 states are a flat list too, one dict per layer, each with a leading
@@ -10,8 +12,8 @@ batch (slot) axis and a per-row ``pos`` (B,) int32.
 
 Forward modes: ``train`` (forward only: hidden states, no loss and no
 backward), ``prefill``, ``decode``, ``paged_prefill`` and
-``paged_decode``.  xLSTM mixers, MoE and the multimodal inputs raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``paged_decode``.  MoE, sinusoidal positions and the multimodal inputs
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.models import attention, rglru
+from repro_torch.models import attention, rglru, xlstm
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
                                        init_rmsnorm, rmsnorm)
 
@@ -29,10 +31,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
 
 
+_MIXERS = ("attn", "rglru", "mlstm", "slstm")
+
+
 def _check_block(blk) -> None:
-    if blk.mixer not in ("attn", "rglru"):
-        raise _not_ported(f"the {blk.mixer} mixer", "A3")
-    if blk.ffn != "dense":
+    if blk.mixer not in _MIXERS:
+        raise ValueError(f"unknown mixer {blk.mixer!r}; options {_MIXERS}")
+    if blk.ffn not in ("dense", "none"):
         raise _not_ported(f"the {blk.ffn} feed-forward", "A7")
 
 
@@ -41,15 +46,21 @@ def _check_block(blk) -> None:
 # ---------------------------------------------------------------------------
 
 
+_INIT_MIXER = {"attn": attention.init_attention, "rglru": rglru.init_rglru,
+               "mlstm": xlstm.init_mlstm, "slstm": xlstm.init_slstm}
+
+
 def _init_block(generator, cfg, blk, dtype, device) -> dict:
+    """norm1 and the mixer, then norm2 and the MLP unless ``ffn="none"``
+    (the reference leaves both out there too)."""
     _check_block(blk)
-    init_mixer = (attention.init_attention if blk.mixer == "attn"
-                  else rglru.init_rglru)
-    return {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
-            "mixer": init_mixer(generator, cfg, dtype, device),
-            "norm2": init_rmsnorm(cfg.d_model, dtype, device),
-            "ffn": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
-                            dtype, device)}
+    p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
+         "mixer": _INIT_MIXER[blk.mixer](generator, cfg, dtype, device)}
+    if blk.ffn == "dense":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
+                            dtype, device)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator,
@@ -74,16 +85,20 @@ def init_params(cfg, generator: torch.Generator,
 def init_layer_states(cfg, batch: int, max_len: int,
                       device: torch.device) -> List[dict]:
     """Empty per-layer states with a leading batch (slot) axis: dense
-    K/V rings (``attention.init_kv_cache``) or RG-LRU states, each with a
-    ``pos`` (batch,) int32."""
+    K/V rings (``attention.init_kv_cache``), RG-LRU, mLSTM or sLSTM
+    states, each with a ``pos`` (batch,) int32."""
     states = []
     for blk in cfg.layer_pattern():
         _check_block(blk)
         if blk.mixer == "attn":
             states.append(attention.init_kv_cache(cfg, blk, batch, max_len,
                                                   device))
-        else:
+        elif blk.mixer == "rglru":
             states.append(rglru.init_rglru_state(cfg, batch, device))
+        elif blk.mixer == "mlstm":
+            states.append(xlstm.init_mlstm_state(cfg, batch, device))
+        else:
+            states.append(xlstm.init_slstm_state(cfg, batch, device))
     return states
 
 
@@ -105,6 +120,12 @@ def init_paged_states(cfg, num_pages: int, page_size: int,
 # ---------------------------------------------------------------------------
 
 
+# the recurrent mixers' (decode step, prompt scan)
+_RECURRENT = {"rglru": (rglru.rglru_step, rglru.rglru_scan),
+              "mlstm": (xlstm.mlstm_step, xlstm.mlstm_scan),
+              "slstm": (xlstm.slstm_step, xlstm.slstm_scan)}
+
+
 def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
                  paged=None):
     """Returns (x_out, new_state); ``new_state`` is None in train mode."""
@@ -114,11 +135,12 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
     if mode in ("paged_prefill", "paged_decode") and blk.mixer != "attn":
         raise ValueError(
             f"paged serving requires attention mixers, got {blk.mixer}")
-    if blk.mixer == "rglru":
+    if blk.mixer != "attn":
+        step, scan = _RECURRENT[blk.mixer]
         if mode == "decode":
-            mix, new_state = rglru.rglru_step(p["mixer"], cfg, h, state)
+            mix, new_state = step(p["mixer"], cfg, h, state)
         else:
-            mix, new_state = rglru.rglru_scan(p["mixer"], cfg, h)
+            mix, new_state = scan(p["mixer"], cfg, h)
     elif mode == "train":
         mix = attention.attend_train(p["mixer"], cfg, blk, h, positions)
     elif mode == "prefill":
@@ -135,6 +157,8 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
             p["mixer"], cfg, blk, h, state, paged["block_tables"],
             paged["lengths"])
     x = x + mix
+    if blk.ffn == "none":
+        return x, new_state
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     return x + apply_mlp(p["ffn"], h2), new_state
 

@@ -75,23 +75,33 @@ def build_fleet(archs: Sequence[str], max_len: int, *,
                 page_size: int = 16, max_lanes: Optional[int] = None,
                 prefill_chunk: int = 64,
                 prefix_cache: Optional[bool] = None,
-                device: DeviceLike = None) -> List[ServeEngine]:
-    """Heterogeneous fleet: one engine per entry of ``archs``, each a
-    ``reduced()`` config at ``depths[i]`` (default: alternating 2/4
-    layers), tagged with its arch id.  Mixed families mean mixed memory
-    models behind one cluster interface: paged attention pools next to
-    dense RG-LRU slot pools."""
+                device: DeviceLike = None,
+                full_scale: bool = False) -> List[ServeEngine]:
+    """Heterogeneous fleet: one engine per entry of ``archs``, tagged with
+    its arch id.  Mixed families mean mixed memory models behind one
+    cluster interface: paged attention pools next to dense RG-LRU or
+    xLSTM slot pools.
+
+    ``full_scale=False`` serves each arch's ``reduced()`` config at
+    ``depths[i]`` (default: alternating 2/4 layers), as the reference
+    does.  ``full_scale=True`` keeps the published widths and dtype, with
+    the depth from ``depths`` or, when that is not given, each config's
+    own."""
     device = resolve_device(device)
     archs = list(archs)
-    depths = (list(depths) if depths is not None
-              else default_depths(len(archs)))
-    return [_engine(arch, dataclasses.replace(reduced(get_config(arch)),
-                                              num_layers=depths[i]),
+    bases = [get_config(a) for a in archs]
+    if not full_scale:
+        bases = [reduced(b) for b in bases]
+        depths = (list(depths) if depths is not None
+                  else default_depths(len(archs)))
+    elif depths is None:
+        depths = [b.num_layers for b in bases]
+    return [_engine(arch, dataclasses.replace(base, num_layers=depths[i]),
                     i, seed0, device, max_len, kv_slots=kv_slots,
                     sample=sample, paged=paged, page_size=page_size,
                     max_lanes=max_lanes, prefill_chunk=prefill_chunk,
                     prefix_cache=prefix_cache)
-            for i, arch in enumerate(archs)]
+            for i, (arch, base) in enumerate(zip(archs, bases))]
 
 
 def warmup(engines: Sequence[ServeEngine], prompt_len: int,

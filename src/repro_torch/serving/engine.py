@@ -538,8 +538,21 @@ class ServeEngine:
         """Measured backlog estimate: pending tokens x EWMA token time."""
         return self.pending_tokens * self._ewma_tok_s
 
+    # ------------------------------------------------------------------
+    # prefix-cache signals (the prefix-affinity scheduler's feature)
+    # ------------------------------------------------------------------
+    def expected_prefix_tokens(self, req: Request) -> int:
+        """Prompt tokens this engine could skip for ``req`` right now: a
+        pure peek at the prefix index (no reference taken, no LRU bump).
+        0 for dense and cache-off engines."""
+        if not self.paged or self._prefix is None:
+            return 0
+        return self._prefix.match(
+            req.prompt, max_tokens=self._prompt_len(req) - 1).tokens
+
     @property
     def prefix_hit_rate(self) -> float:
+        """Fraction of admissions that reused at least one cached page."""
         if not self.prefix_lookups:
             return 0.0
         return self.prefix_hits / self.prefix_lookups
@@ -547,6 +560,10 @@ class ServeEngine:
     @property
     def prefix_cached_pages(self) -> int:
         return self._prefix.size if self._prefix is not None else 0
+
+    @property
+    def prefix_evictions(self) -> int:
+        return self._prefix.evictions if self._prefix is not None else 0
 
     @property
     def est_token_seconds(self) -> float:

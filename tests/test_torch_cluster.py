@@ -140,8 +140,9 @@ def test_serve_main_on_cpu_completes_every_request(capsys):
     assert out.count("[serve] req ") == 5 and "[serve] jsq: n=5" in out
 
 
-@pytest.mark.parametrize("flag", [["--qos"], ["--chaos"],
-                                  ["--scheduler", "deadline"]])
+@pytest.mark.parametrize("flag", [["--chaos"],
+                                  ["--scheduler", "failure-aware"],
+                                  ["--qos", "--chaos"]])
 def test_serve_main_refuses_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--arch", "qwen2-1.5b", "--device", "cpu", *flag])
@@ -285,3 +286,187 @@ def test_run_warms_the_scheduler_and_drops_the_warm_up_carry():
     assert [c for c, _, _ in sched.calls[1:]] == ["init", "after-2",
                                                   "after-3"]
     assert cluster.carry == "after-4"
+
+
+# ---------------------------------------------------------------------------
+# the QoS- and prefix-extended observations and their schedulers
+# ---------------------------------------------------------------------------
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _port_request(r, classes):
+    """The port's twin of a reference request: same prompt, demand,
+    timing, origin and class (by name)."""
+    return Request(rid=r.rid, prompt=np.asarray(r.prompt),
+                   max_new_tokens=r.max_new_tokens, arrival_s=r.arrival_s,
+                   origin=r.origin, qos=classes[r.qos.name],
+                   deadline_s=r.deadline_s, model_pref=r.model_pref)
+
+
+def _warm_fleets():
+    """The reference's fleet (paged qwen2, dense xLSTM, paged starcoder2)
+    and the port's on the same weights, each fed the same two requests
+    (a shared 16-token prefix) so the paged engines' prefix caches are
+    warm, with the same measured token times; plus the rest of the
+    trace as (reference, port) request pairs."""
+    from repro.serving.builders import build_fleet as jax_build_fleet
+    from repro.workload import DEFAULT_MIX as JMIX
+    from repro.workload import scaled as jax_scaled
+    from repro_torch.serving.builders import build_fleet
+    from repro_torch.workload import DEFAULT_MIX, scaled
+    kw = dict(kv_slots=2, page_size=8, prefill_chunk=8)
+    archs = ["qwen2-1.5b", "xlstm-350m", "starcoder2-3b"]
+    jeng = jax_build_fleet(archs, 48, **kw)
+    teng = build_fleet(archs, 48, device=CPU, **kw)
+    for je, te in zip(jeng, teng):
+        te.params = params_from_jax(_np(je.params), te.cfg, CPU)
+    jmix = tuple((jax_scaled(c, model_pref="xlstm-350m") if i == 0 else c,
+                  w) for i, (c, w) in enumerate(JMIX))
+    tmix = tuple((scaled(c, model_pref="xlstm-350m") if i == 0 else c, w)
+                 for i, (c, w) in enumerate(DEFAULT_MIX))
+    classes = {c.name: c for c, _ in tmix}
+    trace = jax_poisson_trace(8, rate=10.0, prompt_len=24,
+                              max_new_tokens=4, vocab_size=512,
+                              num_origins=3, seed=4, qos_mix=jmix,
+                              prefix_len=16, prefix_frac=0.9)
+    pairs = [(r, _port_request(r, classes)) for r in trace]
+    for jr, tr in pairs[:2]:
+        for je, te in ((jeng[0], teng[0]), (jeng[2], teng[2])):
+            je.admit(jr)
+            je.run_to_completion()
+            te.admit(tr)
+            te.run_to_completion()
+            jr.tokens.clear()
+            tr.tokens.clear()
+    for i, (je, te) in enumerate(zip(jeng, teng)):
+        je._ewma_tok_s = te._ewma_tok_s = 0.01 * (i + 1)
+    return jeng, teng, pairs[2:]
+
+
+@pytest.mark.parametrize("qos,prefix", [(True, False), (False, True),
+                                        (True, True)],
+                         ids=["qos", "prefix", "qos+prefix"])
+def test_observe_rows_match_reference(qos, prefix):
+    """``observe`` with the QoS block, the prefix block or both equals
+    the reference's row for engines fed the same requests: slack capped
+    and scaled, affinity penalised off the preferred arch, expected
+    prefix hits from a pure peek (nothing retained, no LRU bump)."""
+    jeng, teng, pairs = _warm_fleets()
+    if prefix:
+        jsched = jax_make_scheduler("prefix-affinity", 3, qos=qos)
+        tsched = make_scheduler("prefix-affinity", 3, qos=qos)
+    else:
+        jsched, tsched = jax_make_scheduler("jsq", 3), make_scheduler(
+            "jsq", 3)
+
+    def now():
+        return 10.0
+
+    jc = JEdgeCluster(jeng, jsched, clock=now, qos_obs=qos)
+    tc = EdgeCluster(teng, tsched, clock=now, qos_obs=qos)
+    assert (tc.qos_obs, tc.prefix_obs, tc.obs_dim) == \
+        (jc.qos_obs, jc.prefix_obs, jc.obs_dim)
+    refs_before = [e._pool.total_refs for e in teng if e.paged]
+    hits = []
+    for k, (jr, tr) in enumerate(pairs):
+        jr.t_arrival = tr.t_arrival = 9.0 - 3.0 * k
+        want = np.asarray(jc.observe(jr))
+        got = tc.observe(tr).numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+        if prefix:
+            hits.append(got[-3:])
+    assert [e._pool.total_refs for e in teng if e.paged] == refs_before
+    if prefix:
+        hits = np.stack(hits)
+        assert hits[:, 0].max() > 0 and hits[:, 2].max() > 0
+        assert hits[:, 1].max() == 0            # the dense xLSTM engine
+    for je, te in zip(jeng, teng):
+        assert te.prefix_evictions == je.prefix_evictions
+        assert te.expected_prefix_tokens(pairs[0][1]) == \
+            je.expected_prefix_tokens(pairs[0][0])
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("deadline", {}), ("prefix-affinity", {}),
+    ("prefix-affinity", {"qos": True}),
+    ("prefix-affinity", {"qos": True, "hit_weight": 2.0})],
+    ids=["deadline", "prefix", "prefix-qos", "prefix-qos-hit2"])
+def test_select_matches_reference(name, kw):
+    jsched = jax_make_scheduler(name, 4, **dict(kw))
+    tsched = make_scheduler(name, 4, **dict(kw))
+    assert tsched.state_dim == jsched.state_dim
+    assert getattr(tsched, "prefix_obs", False) == \
+        getattr(jsched, "prefix_obs", False)
+    rows = np.random.default_rng(len(name) + len(kw)).uniform(
+        0, 2, (9, tsched.state_dim)).astype(np.float32)
+    want, _ = jsched.select(jsched.init_carry(), jax.numpy.asarray(rows), 0,
+                            jax.random.key(0))
+    got, _ = tsched.select(tsched.init_carry(), torch.from_numpy(rows), 0,
+                           torch.Generator())
+    assert got.tolist() == np.asarray(want).tolist()
+    for i in range(3):
+        assert tsched.select_one(tsched.init_carry(),
+                                 torch.from_numpy(rows[i]), i, 0,
+                                 torch.Generator())[0] == int(want[i])
+
+
+class _Engine2(_Engine):
+    est_token_seconds = 0.01
+    arch_id = "x"
+
+    def expected_prefix_tokens(self, req):
+        return 0
+
+
+def _fixed(base, dim, prefix):
+    """A scheduler of ``base``'s class that claims a fixed width."""
+    class Fixed(base):
+        name = "fixed"
+        prefix_obs = prefix
+
+        def __init__(self):
+            super().__init__(2)
+            self.state_dim = dim
+
+    return Fixed()
+
+
+@pytest.mark.parametrize("qos,prefix", [(False, False), (True, False),
+                                        (False, True), (True, True)],
+                         ids=["base", "qos", "prefix", "qos+prefix"])
+def test_width_mismatch_errors_match_reference(qos, prefix):
+    """A scheduler one column off the cluster's layout is refused at
+    construction with the reference's message, for each layout."""
+    from repro.cluster import Scheduler as JScheduler
+    want_dim = (7 if qos else 4) + (2 if prefix else 0)
+    errors = []
+    for base, cluster in ((JScheduler, JEdgeCluster),
+                          (Scheduler, EdgeCluster)):
+        with pytest.raises(ValueError, match="state_dim") as exc:
+            cluster([_Engine2(), _Engine2()],
+                    _fixed(base, want_dim + 1, prefix), qos_obs=qos)
+        errors.append(str(exc.value))
+        assert cluster([_Engine2(), _Engine2()],
+                       _fixed(base, want_dim, prefix)).obs_dim == want_dim
+    assert errors[0] == errors[1]
+
+
+def test_fault_observation_and_fault_layout_raise_naming_a4():
+    """The availability block is not ported: a width only it explains,
+    ``faults=``, ``retry=``, ``fault_obs=True`` and a fault-aware
+    prefix-affinity scheduler raise naming ROADMAP A4."""
+    engines = [_Engine2(), _Engine2()]
+    for dim in (2 + 2 + 2, 3 + 4 + 2):    # base + E, QoS + E
+        with pytest.raises(NotImplementedError, match="A4"):
+            EdgeCluster(engines, _fixed(Scheduler, dim, False))
+    for kw in ({"faults": []}, {"retry": object()}, {"fault_obs": True}):
+        with pytest.raises(NotImplementedError, match="A4"):
+            EdgeCluster(engines, make_scheduler("jsq", 2), **kw)
+    with pytest.raises(NotImplementedError, match="A4"):
+        make_scheduler("prefix-affinity", 2, fault=True)
+    with pytest.raises(NotImplementedError, match="A4"):
+        make_scheduler("failure-aware", 2)

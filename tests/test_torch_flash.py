@@ -229,13 +229,16 @@ def _needs_card():
         pytest.skip("needs a CUDA card (run on the H100 with -m cuda)")
 
 
-# (B, H, KV, Sq, Skv, hd, window, q_offset): the main path's shapes, then
-# hd 64 / 128 / 256 at G 1 / 6 / 16 with a window that bites inside a key
-# tile, a deep query offset, and rows with no valid key (Sq past
-# Skv + window - 1)
+# (B, H, KV, Sq, Skv, hd, window, q_offset): the main path's shapes (with
+# the closed loop's last 16-token chunk of a 64-token prompt at qwen2's
+# heads and at starcoder2-3b's G 12), then hd 64 / 128 / 256 at G 1 / 6 / 16 with a window
+# that bites inside a key tile, a deep query offset, and rows with no
+# valid key (Sq past Skv + window - 1)
 ATTN_CUDA_CASES = {
     "rg": (1, 16, 1, 128, 128, 256, 2048, 0),
     "qwen2-chunk": (1, 12, 2, 64, 240, 128, None, 64),
+    "qwen2-closedloop-chunk": (1, 12, 2, 16, 144, 128, None, 48),
+    "starcoder2-chunk": (1, 24, 2, 16, 144, 128, None, 48),
     "ragged": (2, 4, 4, 37, 37, 64, 5, 0),
 }
 for _hd in (64, 128, 256):

@@ -30,11 +30,19 @@ CASES = [(64, 20, 22, 5), (128, 10, 12, 3), (32, 30, 42, 8)]  # T, A, S, I
 # above 32 wide with a ragged last block
 SHAPES = {"act": (20, 1, 5, 20, 22, 20), "update": (20, 64, 5, 20, 22, 20),
           "live": (1, 1, 3, 2, 4, 20), "wide": (4, 33, 7, 40, 70, 64)}
+# the closed loop's (repro_torch.bench): 4 edges, the QoS observation
+# S = 3 + 2 * 4, I = 3; acting and the update in the QoS simulator, one
+# live placement
+CLOSED_LOOP_SHAPES = {"cl_act": (4, 1, 3, 4, 11, 20),
+                      "cl_update": (4, 64, 3, 4, 11, 20),
+                      "cl_live": (1, 1, 3, 4, 11, 20)}
 # the width class each shape takes on the card: the phase-5 shapes, and
 # one shape for each class no phase-5 shape reaches
 CUDA_WIDTHS = {"act": 24, "update": 24, "live": 24, "wide": 128,
+               "cl_act": 24, "cl_update": 24, "cl_live": 24,
                "width32": 32, "width64": 64}
-CUDA_SHAPES = {**SHAPES, "width32": (3, 5, 4, 30, 32, 28),
+CUDA_SHAPES = {**SHAPES, **CLOSED_LOOP_SHAPES,
+               "width32": (3, 5, 4, 30, 32, 28),
                "width64": (2, 9, 5, 40, 60, 64)}
 
 

@@ -194,8 +194,8 @@ def test_apply_head_matches(tied):
 
 def test_forward_modes_outside_the_slice_raise():
     """Every forward mode is ported; what stays outside the port (int8 KV
-    caches, xLSTM mixers) raises naming its ROADMAP item, and an unknown
-    mode is refused."""
+    caches, sinusoidal positions) raises naming its ROADMAP item, and an
+    unknown mode is refused."""
     jcfg, tcfg = configs(num_layers=1)
     _, tparams = params_pair(jcfg, tcfg)
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
@@ -203,8 +203,7 @@ def test_forward_modes_outside_the_slice_raise():
         forward(tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
                 toks, mode="prefill")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(tparams, dataclasses.replace(tcfg, pattern=(("mlstm",
-                                                             "none"),)),
+        forward(tparams, dataclasses.replace(tcfg, use_rope=False),
                 toks, mode="train")
     with pytest.raises(ValueError, match="unknown forward mode"):
         forward(tparams, tcfg, toks, mode="generate")
