@@ -51,14 +51,18 @@ Phases, in order; the script exits non-zero at the first that fails:
    paged prefill chunks' (qwen2-1.5b, with a query offset: the serve
    path's and the last chunk of a 2048-token prompt; the closed loop's
    last chunk of a 64-token prompt at qwen2-1.5b's and starcoder2-3b's
-   heads), bf16 and f32, with
+   heads) and phase 15's dense prefills (llava-next-mistral-7b's 640
+   tokens at 32 heads over 8, musicgen-large's 128 at hd 64 and a group
+   of 1), bf16 and f32, with
    its time, its bound, the plain version's and SDPA's; a profiler trace
    of one call per shape must show one kernel with the grid its tile
    plan gives; the compiler's registers and spills per instantiation;
 10. ``flash_decode`` against its plain version at the dense decode
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
-   per-slot lengths, and a wrapped 2048-slot ring), likewise, its split
-   and merge launches traced as in phase 2;
+   per-slot lengths, and a wrapped 2048-slot ring) and phase 15's rounds
+   (llava's 672-slot rings in bf16, musicgen's 160-slot rings in f32, as
+   its dequantised int8 rings reach it), likewise, its split and merge
+   launches traced as in phase 2;
 11. decode against teacher-forced forward on the card: full-width
    recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
    greedily for 16 tokens, so decode crosses the 2048 window and the ring
@@ -78,6 +82,21 @@ Phases, in order; the script exits non-zero at the first that fails:
    decode round, ``flash_attention`` once per attention layer per paged
    prefill chunk and ``ladn_denoise`` once per LAD-TS placement plus the
    warm-up;
+14. the multimodal paths against teacher forcing, at published width with
+   2 layers in f32: llava-next-mistral-7b decodes 16 greedy tokens after
+   576 seeded patches and a 64-token prompt, musicgen-large (model-dtype
+   cache) 16 tokens of 4 codebooks, and the ``train``-mode forward over
+   the same input picks the same tokens; musicgen's int8 cache gives
+   decode logits within the reference's relative bound (0.05) of the
+   model-dtype cache's; recurrentgemma-9b's 2040-token prefill with
+   ``use_assoc_scan`` gives last logits within 1e-4 of the loop's;
+15. serve: ``serve.main`` at full llava-next-mistral-7b and then
+   musicgen-large width and depth in bf16 (2 dense engines of 4 slots, 8
+   requests, prompts of 64 and 128 tokens, JSQ), every request completed,
+   no slot leaked, ``flash_attention`` once per attention layer per
+   prefill and ``flash_decode`` once per attention layer per decode round
+   (warm-up included); 15b: where a musicgen decode round's time goes,
+   with the share of dequantising its int8 rings;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -167,6 +186,11 @@ ATTN_SHAPES = {
     # starcoder2-3b's
     "qwen2_cl_chunk": (1, 12, 2, 16, 144, 128, None, 48, "bfloat16"),
     "sc2_chunk": (1, 24, 2, 16, 144, 128, None, 48, "bfloat16"),
+    # phase 15's dense prefills: llava-next-mistral-7b's 576 patches and
+    # 64-token prompt (H 32 over KV 8, hd 128), musicgen-large's 128-token
+    # prompt (MHA, hd 64)
+    "llava_prefill": (1, 32, 8, 640, 640, 128, None, 0, "bfloat16"),
+    "musicgen_prefill": (1, 32, 32, 128, 128, 64, None, 0, "bfloat16"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
 # decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
@@ -176,6 +200,11 @@ DECODE_SHAPES = {
     "rg_ring_2048": (4, 16, 1, 2048, 256, (2048,) * 4, "bfloat16"),
     "rg_round_f32": (4, 16, 1, 160, 256, (129, 145, 160, 131), "float32"),
     "rg_ring_2048_f32": (4, 16, 1, 2048, 256, (2048,) * 4, "float32"),
+    # phase 15's decode rounds: llava (max_len 576 + 64 + 32 = 672) in
+    # bf16, musicgen (160) in f32, its int8 rings dequantised
+    "llava_round": (4, 32, 8, 672, 128, (641, 655, 672, 645), "bfloat16"),
+    "musicgen_round_f32": (4, 32, 32, 160, 64, (129, 145, 160, 131),
+                           "float32"),
 }
 
 
@@ -1365,38 +1394,44 @@ def phase_dense_decode_vs_forward() -> None:
 # ---------------------------------------------------------------------------
 
 
-def phase_rg_serve():
+def phase_dense_serve(label: str, arch: str, argv: list):
+    """``serve.main(argv)`` on full-depth dense engines of ``arch``: every
+    request completed, no slot held, ``flash_decode`` once per attention
+    layer per decode round and ``flash_attention`` once per attention
+    layer per prefill, after the warm-up and with it.  Returns
+    (flash_attention, flash_decode) launches with the warm-up, and the
+    summary."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    cfg = get_config(RG)
+    cfg = get_config(arch)
     n_attn = sum(b.mixer == "attn" for b in cfg.layer_pattern())
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t0 = time.perf_counter()
-    st = serve.main(RG_SERVE_ARGS)
+    st = serve.main(argv)
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     engines = st["engines"]
     if st["completed"] != N_REQUESTS or st["count"] != N_REQUESTS:
-        fail(f"phase 12: {st['completed']} of {N_REQUESTS} requests "
+        fail(f"{label}: {st['completed']} of {N_REQUESTS} requests "
              f"completed")
     if any(e["kv_leak"] for e in engines):
-        fail(f"phase 12: slots held after serving: {engines}")
+        fail(f"{label}: slots held after serving: {engines}")
     if any(e["layers"] != cfg.num_layers or e["paged"] for e in engines):
-        fail(f"phase 12: engines are not full-depth dense engines: "
+        fail(f"{label}: engines are not full-depth dense engines: "
              f"{engines}")
     rounds = sum(e["decode_rounds"] for e in engines)
     prefills = sum(e["prefills"] for e in engines)
     got = st["launches"]
     if rounds == 0 or got["flash_decode"] != n_attn * rounds:
-        fail(f"phase 12: flash_decode launched {got['flash_decode']} times "
+        fail(f"{label}: flash_decode launched {got['flash_decode']} times "
              f"after warm-up, expected {n_attn} x {rounds} decode rounds")
     if prefills != N_REQUESTS or \
             got["flash_attention"] != n_attn * prefills:
-        fail(f"phase 12: flash_attention launched {got['flash_attention']}"
+        fail(f"{label}: flash_attention launched {got['flash_attention']}"
              f" times over {prefills} prefills after warm-up, expected "
              f"{n_attn} per prefill")
     # the warm-up runs one prefill and one decode round per engine
@@ -1405,11 +1440,11 @@ def phase_rg_serve():
     total_dec = ops.launches["flash_decode"]
     if total_attn != n_attn * (prefills + warm) or \
             total_dec != n_attn * (rounds + warm):
-        fail(f"phase 12: with warm-up flash_attention {total_attn} and "
+        fail(f"{label}: with warm-up flash_attention {total_attn} and "
              f"flash_decode {total_dec}, expected {n_attn} x "
              f"{prefills + warm} and {n_attn} x {rounds + warm}")
-    log(f"phase 12 ok: {N_REQUESTS}/{N_REQUESTS} completed on 2 dense "
-        f"{cfg.num_layers}-layer bf16 engines, kv_leak "
+    log(f"{label} ok: {arch}: {N_REQUESTS}/{N_REQUESTS} completed on "
+        f"{len(engines)} dense {cfg.num_layers}-layer bf16 engines, kv_leak "
         f"{[e['kv_leak'] for e in engines]}; flash_decode {total_dec} = "
         f"{n_attn} x ({rounds} decode rounds + {warm} warm-up), "
         f"flash_attention {total_attn} = {n_attn} x ({prefills} prefills + "
@@ -1422,36 +1457,45 @@ def phase_rg_serve():
     return total_attn, total_dec, st
 
 
-def phase_dense_round_breakdown(rounds: int = 4) -> None:
-    """Where a full-scale dense decode round's time goes: one 38-layer
-    bf16 recurrentgemma-9b engine with its 4 slots decoding; host enqueue
-    time of ``dispatch``, wall time to results, and device time by kernel
-    from ``torch.profiler`` over ``rounds`` rounds.  Also the host time of
-    one 128-token prefill (its RG-LRU scans are Python loops)."""
+def phase_dense_round_breakdown(label: str, arch: str, prompt_len: int,
+                                rounds: int = 4) -> None:
+    """Where a full-scale dense decode round's time goes: one full-depth
+    bf16 engine of ``arch`` with its 4 slots decoding; host enqueue time
+    of ``dispatch``, wall time to results, and device time by kernel from
+    ``torch.profiler`` over ``rounds`` rounds.  Also the host time of one
+    ``prompt_len``-token prefill and its device time.  With an int8 cache,
+    the share of the round that dequantising the rings takes: one call of
+    ``attention._dequantize_kv`` at the round's ring shape, CUDA-graph
+    timed, times two per attention layer."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.cluster.request import Request
+    from repro_torch.models import attention
     from repro_torch.serving import compiled
     from repro_torch.serving.builders import build_engines
-    eng = build_engines(RG, 1, 160, device="cuda", full_scale=True)[0]
+    eng = build_engines(arch, 1, prompt_len + 32, device="cuda",
+                        full_scale=True)[0]
+    cfg = eng.cfg
+    shape = ((1, cfg.num_codebooks, prompt_len) if cfg.num_codebooks
+             else (1, prompt_len))
     rng = np.random.default_rng(12)
-    prompts = [rng.integers(0, eng.cfg.vocab_size, (1, 128), dtype=np.int32)
+    prompts = [rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
                for _ in range(eng.kv_slots + 1)]
     eng.generate(prompts[-1], 2)           # warm the libraries
     eng.reset()
-    prefill = compiled.prefill_step(eng.cfg, eng.max_len)
+    prefill = compiled.prefill_step(cfg, eng.max_len)
     tokens = torch.from_numpy(prompts[0]).to("cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, _ = prefill(eng.params, {"tokens": tokens})
     t1 = time.perf_counter()
-    float(logits[0, 0])
+    float(logits.flatten()[0])
     t2 = time.perf_counter()
-    n_attn = sum(b.mixer == "attn" for b in eng.cfg.layer_pattern())
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_pattern())
     _profile_prefill(lambda: prefill(eng.params, {"tokens": tokens}),
-                     n_attn, "phase 12b: dense prefill (128 tokens, "
-                     f"{eng.cfg.num_layers} layers)")
+                     n_attn, f"{label}: dense prefill ({prompt_len} "
+                     f"tokens, {cfg.num_layers} layers)")
     for rid in range(eng.kv_slots):
         eng.admit(Request(rid=rid, max_new_tokens=32, prompt=prompts[rid]))
     for _ in range(3):               # admission and prefills, warm rounds
@@ -1479,11 +1523,22 @@ def phase_dense_round_breakdown(rounds: int = 4) -> None:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     busy = (f"device busy {busy_ms:.2f} ms (idle share "
             f"{1 - busy_ms / wall_ms:.2f}), flash_decode {attn_ms:.3f} ms "
-            f"of it ({attn_parts})" if by_kernel else
+            f"of it, a share of {attn_ms / busy_ms:.3f} ({attn_parts})"
+            if by_kernel else
             "device busy not measured (the profiler saw no device time)")
-    log(f"phase 12b: dense decode round ({eng.kv_slots} slots, "
-        f"{eng.cfg.num_layers} layers, bf16): enqueue {enqueue_ms:.2f} ms, "
-        f"wall {wall_ms:.2f} ms, {busy}; one 128-token prefill: "
+    if cfg.kv_cache_dtype == "int8":
+        ring = eng._pool_states[0]
+        one_ms = time_ms(lambda: attention._dequantize_kv(
+            ring["k"], ring["k_scale"], torch.float32))
+        deq_ms = 2 * n_attn * one_ms
+        busy += (f"; dequantising the int8 rings {deq_ms:.3f} ms a round "
+                 f"(2 x {n_attn} calls of {one_ms:.4f} ms at "
+                 f"{tuple(ring['k'].shape)}, CUDA-graph timed)"
+                 + (f", a share of {deq_ms / busy_ms:.3f}" if by_kernel
+                    else ""))
+    log(f"{label}: dense decode round ({arch}, {eng.kv_slots} slots, "
+        f"{cfg.num_layers} layers, bf16): enqueue {enqueue_ms:.2f} ms, "
+        f"wall {wall_ms:.2f} ms, {busy}; one {prompt_len}-token prefill: "
         f"{(t1 - t0) * 1e3:.1f} ms to enqueue, {(t2 - t0) * 1e3:.1f} ms "
         f"to its logits")
     for name, us in top:
@@ -1590,6 +1645,186 @@ def phase_closed_loop() -> dict:
     return sums
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multimodal paths and the RG-LRU prefix scan on the card
+# ---------------------------------------------------------------------------
+
+LLAVA = "llava-next-mistral-7b"
+MUSICGEN = "musicgen-large"
+INT8_REL = 0.05      # tests/test_perf_features.py::test_int8_cache_close_to_bf16
+ASSOC_TOL = 1e-4
+
+
+def _teacher_forced(label, cfg, params, eng, prompt, n_new, patches=None):
+    """``eng`` decodes ``n_new`` greedy tokens after ``prompt``; the
+    ``train``-mode forward over [patches | prompt | generated] must pick
+    the same token (every codebook) at every position.  Returns the
+    launches of the engine's run and the tokens (n_new,) or (n_new, K)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import apply_head, forward
+    dev = torch.device("cuda")
+    ops.reset_launches()
+    toks = np.concatenate(eng.generate(prompt, n_new,
+                                       patches=patches).tokens)
+    launches = dict(ops.launches)
+    if eng.kv_leak:
+        fail(f"{label}: the engine holds {eng.kv_leak} slots when idle")
+    seq = np.concatenate([prompt[0], toks[:-1].T], axis=-1).astype(np.int32)
+    inputs = {"tokens": torch.from_numpy(seq[None]).to(dev)}
+    if patches is not None:
+        inputs["patches"] = patches
+    hidden = forward(params, cfg, inputs, mode="train")["hidden"]
+    start = cfg.vision_patches + prompt.shape[-1] - 1
+    logits = apply_head(params, cfg, hidden[:, start:])[0].float()
+    if not torch.isfinite(logits).all():
+        fail(f"{label}: teacher-forced logits are not finite")
+    pred = logits.argmax(-1).cpu().numpy()
+    for i in np.unique(np.argwhere(pred != toks)[:, 0]):
+        top2 = torch.topk(logits[i], 2, dim=-1).values
+        gap = (top2[..., 0] - top2[..., 1]).min().item()
+        fail(f"{label}: decode step {i} gave {toks[i]} but the teacher-"
+             f"forced argmax is {pred[i]} (least top-2 logit gap "
+             f"{gap:.3e})")
+    return launches, toks
+
+
+def phase_multimodal_decode_vs_forward() -> dict:
+    """llava-next-mistral-7b (576 patches, 64-token prompt) and
+    musicgen-large (model-dtype cache; 4 codebooks, sinusoidal positions)
+    at published width, 2 layers, f32: 16 greedy tokens from the dense
+    slot pool equal teacher forcing.  musicgen's int8 cache: decode logits
+    over the same tokens within ``INT8_REL`` of the model-dtype cache's.
+    recurrentgemma-9b at phase 11's size: the prefill's last logits with
+    ``use_assoc_scan`` within ``ASSOC_TOL`` of the loop's.  Returns the
+    launches of each engine run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import forward, init_params
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda")
+    plen, n_new, layers = 64, 16, 2
+    out = {}
+    # llava: patches in front of the prompt
+    cfg = dataclasses.replace(get_config(LLAVA), num_layers=layers,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = init_params(cfg, gen, dev)
+    P = cfg.vision_patches
+    eng = ServeEngine(cfg, params, max_len=P + plen + n_new, kv_slots=1,
+                      device=dev)
+    if eng.paged:
+        fail("phase 14: llava-next-mistral-7b did not get a dense engine")
+    prompt = np.random.default_rng(14).integers(0, cfg.vocab_size,
+                                                (1, plen), dtype=np.int32)
+    patches = torch.randn((1, P, cfg.vision_dim), generator=gen, device=dev)
+    launches, _ = _teacher_forced("phase 14 llava", cfg, params, eng,
+                                  prompt, n_new, patches)
+    want = {"flash_attention": layers, "flash_decode": layers * (n_new - 1)}
+    if {k: launches[k] for k in want} != want:
+        fail(f"phase 14 llava: launches {launches}, expected {want}")
+    out[LLAVA] = launches
+    log(f"  phase 14 llava: {n_new} greedy tokens after {P} patches and a "
+        f"{plen}-token prompt equal the teacher-forced argmax (d "
+        f"{cfg.d_model}, {layers} layers, f32); launches {launches}")
+    del eng, params, patches
+    _free_card()
+    # musicgen: 4 codebooks and sinusoidal positions, model-dtype cache
+    cfg = dataclasses.replace(get_config(MUSICGEN), num_layers=layers,
+                              dtype="float32", kv_cache_dtype="model")
+    K = cfg.num_codebooks
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(15),
+                         dev)
+    eng = ServeEngine(cfg, params, max_len=plen + n_new, kv_slots=1,
+                      paged=False, device=dev)
+    prompt = np.random.default_rng(15).integers(0, cfg.vocab_size,
+                                                (1, K, plen), dtype=np.int32)
+    launches, toks = _teacher_forced("phase 14 musicgen", cfg, params, eng,
+                                     prompt, n_new)
+    if {k: launches[k] for k in want} != want:
+        fail(f"phase 14 musicgen: launches {launches}, expected {want}")
+    out[MUSICGEN] = launches
+    # the int8 cache over the same tokens against the model-dtype logits
+    seq = np.concatenate([prompt[0], toks[:-1].T], axis=-1).astype(np.int32)
+    seq = torch.from_numpy(seq[None]).to(dev)
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    ops.reset_launches()
+    ref_out = forward(params, cfg, {"tokens": seq[..., :plen]},
+                      mode="prefill", max_len=plen + n_new)
+    q_out = forward(params, cfg8, {"tokens": seq[..., :plen]},
+                    mode="prefill", max_len=plen + n_new)
+    if q_out["states"][0]["k"].dtype != torch.int8:
+        fail("phase 14 musicgen: the int8 config did not build int8 rings")
+    ref_st, q_st = ref_out["states"], q_out["states"]
+    rel = []
+    for j in range(plen, plen + n_new - 1):
+        step = {"tokens": seq[..., j:j + 1]}
+        ref_out = forward(params, cfg, step, mode="decode", states=ref_st)
+        q_out = forward(params, cfg8, step, mode="decode", states=q_st)
+        ref_st, q_st = ref_out["states"], q_out["states"]
+        a, b = ref_out["logits"].float(), q_out["logits"].float()
+        if not torch.isfinite(b).all():
+            fail(f"phase 14 musicgen int8: decode logits at {j} not finite")
+        rel.append((a - b).abs().max().item() / a.abs().max().item())
+    if not max(rel) < INT8_REL:
+        fail(f"phase 14 musicgen int8: decode logits {max(rel):.3e} "
+             f"(relative) from the model-dtype cache's, bound {INT8_REL}")
+    q_launches = dict(ops.launches)
+    out[MUSICGEN + "_int8"] = q_launches
+    log(f"  phase 14 musicgen: {n_new} greedy tokens x {K} codebooks after "
+        f"a {plen}-token prompt equal the teacher-forced argmax (d "
+        f"{cfg.d_model}, {layers} layers, f32, model-dtype cache); "
+        f"launches {launches}; int8 cache: {n_new - 1} decode steps' "
+        f"logits within {max(rel):.3e} (relative, bound {INT8_REL}) of the "
+        f"model-dtype cache's; launches of both runs {q_launches}")
+    del eng, params, ref_st, q_st
+    _free_card()
+    # RG-LRU: the log-depth prefix scan against the loop, phase 11's size
+    cfg = dataclasses.replace(get_config(RG), num_layers=3, dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                         dev)
+    S = cfg.layer_pattern()[2].window - 8
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (1, S), dtype=np.int32)).to(dev)
+    times, logits = {}, {}
+    for assoc in (False, True):
+        c = dataclasses.replace(cfg, use_assoc_scan=assoc)
+        forward(params, c, {"tokens": toks}, mode="prefill")   # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits[assoc] = forward(params, c, {"tokens": toks},
+                                mode="prefill")["last_logits"].float()
+        torch.cuda.synchronize()
+        times[assoc] = (time.perf_counter() - t0) * 1e3
+    err = (logits[True] - logits[False]).abs().max().item()
+    if not (torch.isfinite(logits[True]).all() and err <= ASSOC_TOL):
+        fail(f"phase 14 rg-lru: use_assoc_scan's last logits {err:.3e} from "
+             f"the loop's, tolerance {ASSOC_TOL}")
+    log(f"  phase 14 rg-lru: {S}-token prefill (3 layers, f32) with "
+        f"use_assoc_scan: last logits within {err:.3e} of the loop's (tol "
+        f"{ASSOC_TOL}); prefill wall {times[True]:.1f} ms against the "
+        f"loop's {times[False]:.1f} ms")
+    del params
+    log("phase 14 ok: llava and musicgen decode equal teacher forcing, "
+        "the int8 bound holds, the prefix scan matches the loop")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: serve full-width llava-next-mistral-7b and musicgen-large
+# ---------------------------------------------------------------------------
+
+
+def _mm_serve_args(arch: str, prompt_len: int) -> list:
+    return ["--arch", arch, "--full-scale", "--edges", "2", "--scheduler",
+            "jsq", "--requests", str(N_REQUESTS), "--prompt-len",
+            str(prompt_len), "--tokens", "32", "--rate", "8", "--kv-slots",
+            "4", "--device", "cuda"]
+
+
 def _free_card() -> None:
     import torch
     gc.collect()
@@ -1616,11 +1851,23 @@ def main() -> None:
     dec = phase_flash_decode()
     phase_dense_decode_vs_forward()
     _free_card()
-    attn_launches, dec_launches, _ = phase_rg_serve()
+    attn_launches, dec_launches, _ = phase_dense_serve("phase 12", RG,
+                                                       RG_SERVE_ARGS)
     _free_card()
-    phase_dense_round_breakdown()
+    phase_dense_round_breakdown("phase 12b", RG, 128)
     _free_card()
     closed = phase_closed_loop()
+    _free_card()
+    mm_forced = phase_multimodal_decode_vs_forward()
+    _free_card()
+    mm = {}
+    for arch, plen in ((LLAVA, 64), (MUSICGEN, 128)):
+        attn_n, dec_n, _ = phase_dense_serve("phase 15", arch,
+                                             _mm_serve_args(arch, plen))
+        mm[arch] = {"flash_attention": attn_n, "flash_decode": dec_n}
+        _free_card()
+    phase_dense_round_breakdown("phase 15b", MUSICGEN, 128)
+    _free_card()
     bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
     ladn_shapes = {k: v for k, v in ladn.items()
@@ -1666,6 +1913,11 @@ def main() -> None:
         "launches": attn_launches,
         "launches_paged_prefill": paged_attn_launches,
         "launches_closedloop": closed["flash_attention"],
+        # phase 15's serve runs (warm-up included) and phase 14's engines
+        "launches_multimodal": {a: v["flash_attention"]
+                                for a, v in mm.items()},
+        "launches_teacher_forced": {a: v["flash_attention"]
+                                    for a, v in mm_forced.items()},
         "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
         "max_abs_err_f32": attn["rg_prefill_f32"]["max_abs_err"],
@@ -1678,6 +1930,9 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:48",
         "launches": dec_launches,
+        "launches_multimodal": {a: v["flash_decode"] for a, v in mm.items()},
+        "launches_teacher_forced": {a: v["flash_decode"]
+                                    for a, v in mm_forced.items()},
         "kernel_launches_per_call": rnd["kernel_launches_per_call"],
         "max_abs_err": max(v["max_abs_err"] for k, v in dec.items()
                            if v["shape"]["dtype"] == "bfloat16"),

@@ -17,6 +17,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)

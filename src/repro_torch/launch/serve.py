@@ -9,8 +9,13 @@ request, and prints the same per-request and summary lines:
 
 All-attention archs (``qwen2-1.5b``, ``starcoder2-3b``, ``starcoder2-7b``,
 ``minitron-8b``) serve from the paged KV pool; ``recurrentgemma-9b``
-(RG-LRU and local-attention layers) and ``xlstm-350m`` from dense slot
-pools, as the reference's engines pick.
+(RG-LRU and local-attention layers), ``xlstm-350m``, the vision
+``llava-next-mistral-7b`` (each request's patch embeddings in front of
+its prompt) and the audio ``musicgen-large`` (4 codebook streams, int8
+KV caches, sinusoidal positions) from dense slot pools, as the
+reference's engines pick.  The vision tower and the audio codec are
+stubs, as in the reference: each request's patches are drawn on the
+device from a generator seeded from ``(--seed, rid)``.
 
 ``--scheduler lad-ts`` (or ``d2sac-ts``, ``sac-ts``, ``dqn-ts``) first
 trains the policy in the simulator on the serving device (matching the
@@ -33,11 +38,14 @@ import argparse
 import time
 from typing import List, Optional
 
+import torch
+
 from repro_torch import DeviceLike
 from repro_torch.cluster.live import EdgeCluster
 from repro_torch.cluster.request import poisson_trace, summarize
 from repro_torch.cluster.schedulers import (BASELINES, PolicyScheduler,
                                             make_scheduler)
+from repro_torch.configs import get_config, reduced
 from repro_torch.core.agents import AgentConfig
 from repro_torch.core.diffusion import DiffusionPolicyConfig
 from repro_torch.core.env import EnvParams
@@ -131,13 +139,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     max_tokens = (max(args.tokens, *(c.z_range[1] for c, _ in DEFAULT_MIX))
                   if args.qos else args.tokens)
+    # the engine config's patches sit in front of every prompt
+    cfg = get_config(args.arch)
+    n_patches = (cfg if args.full_scale else reduced(cfg)).vision_patches
     engines = build_engines(args.arch, args.edges,
-                            args.prompt_len + max_tokens,
+                            args.prompt_len + max_tokens + n_patches,
                             kv_slots=args.kv_slots, sample=args.sample,
                             prefix_cache=(False if args.no_prefix_cache
                                           else None),
                             device=args.device, full_scale=args.full_scale)
-    vocab = engines[0].cfg.vocab_size
+    cfg0 = engines[0].cfg
     warmup(engines, args.prompt_len)
     launches0 = dict(ops.launches)
 
@@ -145,11 +156,21 @@ def main(argv: Optional[List[str]] = None) -> dict:
                           qos_obs=args.qos)
     trace = poisson_trace(args.requests, rate=args.rate,
                           prompt_len=args.prompt_len,
-                          max_new_tokens=args.tokens, vocab_size=vocab,
+                          max_new_tokens=args.tokens,
+                          vocab_size=cfg0.vocab_size,
                           num_origins=args.edges, seed=args.seed,
+                          num_codebooks=cfg0.num_codebooks,
                           qos_mix=DEFAULT_MIX if args.qos else None,
                           prefix_len=args.prefix_len,
                           prefix_frac=args.prefix_frac)
+    if cfg0.vision_patches:
+        dev = engines[0].device
+        for r in trace:
+            gen = torch.Generator(device=dev).manual_seed(
+                args.seed * 1_000_003 + r.rid)
+            r.patches = torch.randn(
+                (1, cfg0.vision_patches, cfg0.vision_dim), generator=gen,
+                device=dev)
     t0 = time.perf_counter()
     done = cluster.run(trace)
     wall = time.perf_counter() - t0

@@ -20,11 +20,14 @@ Dense cache layout: {"k": (B, KV, W, hd), "v": (B, KV, W, hd),
 "pos": (B,) int32}, one row per slot; ``pos`` is the number of tokens
 already written.  Windowed caches are ring buffers of size W written at
 ``pos % W``.  The reference keeps ``pos`` a scalar and vmaps slots; the
-port batches them, so each slot has its own position.
+port batches them, so each slot has its own position.  With
+``kv_cache_dtype="int8"`` the rings hold int8 values and the cache adds
+f32 ``k_scale`` / ``v_scale`` (B, KV, W, 1), one symmetric scale per
+(head, position); decode dequantises the ring to f32 and attends in f32,
+as the reference does.  The page pool keeps the model dtype only.
 
 The JAX code returns new caches and donates the old ones; the port
-writes K/V caches and page pools in place and returns them.  int8 KV
-caches are not ported (ROADMAP.md A3).
+writes K/V caches and page pools in place and returns them.
 """
 from __future__ import annotations
 
@@ -153,23 +156,43 @@ def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
     return _attend(q, k, v, blk.window) @ p["wo"]
 
 
-def _check_cache_dtype(cfg) -> None:
+def _cache_dtype(cfg) -> torch.dtype:
     if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV caches are not ported to repro_torch yet (ROADMAP.md "
-            "A3)")
+        return torch.int8
+    return getattr(torch, cfg.dtype)
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., S, hd) -> (int8 values, f32 scales (..., S, 1)): symmetric
+    per-(head, position) scaling, one scale per cache slot.  ``round``
+    is half-to-even, as ``jnp.round``."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
 
 
 def init_kv_cache(cfg, blk, batch: int, max_len: int,
                   device: torch.device) -> dict:
-    """Empty dense cache: a ring of min(window, max_len) slots per row."""
-    _check_cache_dtype(cfg)
+    """Empty dense cache: a ring of min(window, max_len) slots per row,
+    plus the scales of an int8 cache."""
     W = min(blk.window or max_len, max_len)
     shape = (batch, cfg.num_kv_heads, W, cfg.head_dim)
-    dtype = getattr(torch, cfg.dtype)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    dtype = _cache_dtype(cfg)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device),
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3] + (1,), dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
@@ -178,8 +201,8 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
 
     ``max_len`` sizes the emitted cache (>= S) so decode steps have room;
     windowed blocks emit a ring buffer of size min(window, max_len) with
-    position p stored at slot p % W (matching :func:`decode`)."""
-    _check_cache_dtype(cfg)
+    position p stored at slot p % W (matching :func:`decode`).  Attention
+    reads the unquantised K/V; an int8 cache quantises the ring after."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
     out = _attend(q, k, v, blk.window) @ p["wo"]
@@ -199,8 +222,13 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
         slots = torch.arange(S - W, S, device=x.device) % W
         kr[:, :, slots] = kT[:, :, S - W:]
         vr[:, :, slots] = vT[:, :, S - W:]
-    pos = torch.full((B,), S, dtype=torch.int32, device=x.device)
-    return out, {"k": kr, "v": vr, "pos": pos}
+    cache = {"pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
+    if cfg.kv_cache_dtype == "int8":
+        cache["k"], cache["k_scale"] = _quantize_kv(kr)
+        cache["v"], cache["v_scale"] = _quantize_kv(vr)
+    else:
+        cache["k"], cache["v"] = kr, vr
+    return out, cache
 
 
 def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
@@ -210,8 +238,9 @@ def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
     Writes the new K/V at ring slot pos % W in place, then attends through
     ``ops.flash_decode`` (the CUDA kernel on the card) over
     min(pos + 1, W) slots: the reference's validity rule, slot j valid iff
-    j <= pos or pos >= W."""
-    _check_cache_dtype(cfg)
+    j <= pos or pos >= W.  An int8 cache writes the quantised K/V and
+    their scales, dequantises the whole ring to f32 and attends with
+    ``q`` in f32: the reference's f32 read."""
     B = x.shape[0]
     hd = cfg.head_dim
     pos = cache["pos"]
@@ -219,13 +248,24 @@ def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
     W = cache["k"].shape[2]
     rows = torch.arange(B, device=x.device)
     slot = (pos % W).long()
-    cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+    new = dict(cache, pos=pos + 1)
+    q = q[:, 0].contiguous()
+    if cfg.kv_cache_dtype == "int8":
+        for name, t in (("k", k), ("v", v)):
+            vals, scale = _quantize_kv(t[:, 0])    # (B,KV,hd), (B,KV,1)
+            cache[name][rows, :, slot] = vals
+            cache[name + "_scale"][rows, :, slot] = scale
+        k_read = _dequantize_kv(cache["k"], cache["k_scale"], torch.float32)
+        v_read = _dequantize_kv(cache["v"], cache["v_scale"], torch.float32)
+        q = q.float()
+    else:
+        cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+        k_read, v_read = cache["k"], cache["v"]
     length = torch.clamp(pos + 1, max=W).to(torch.int32)
-    out = kernel_ops.flash_decode(q[:, 0].contiguous(), cache["k"],
-                                  cache["v"], length)
+    out = kernel_ops.flash_decode(q, k_read, v_read, length)
     out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
-    return out, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    return out, new
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Shared neural-net layers: norms, rotary positions, MLPs.
+"""Shared neural-net layers: norms, rotary and sinusoidal positions, MLPs.
 
 Port of ``repro/models/layers.py``.  Params are plain dicts of tensors with
 the reference's keys and its ``(in, out)`` weight layout, so ``x @ w``
@@ -57,6 +57,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int
+                         ) -> torch.Tensor:
+    """Classic transformer sinusoidal table, f32: positions (...,) ->
+    (..., d_model), ``[sin | cos]`` halves.  The caller casts it to the
+    model dtype."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,

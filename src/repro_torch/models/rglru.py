@@ -13,8 +13,9 @@ RG-LRU, all diagonal / elementwise:
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 The prompt's recurrence is a Python loop over time, as the reference's
-``lax.scan`` is sequential (the reference's ``use_assoc_scan`` is not
-ported).  States carry a leading batch (slot) axis: ``h`` (B, rd) f32,
+``lax.scan`` is sequential, or, with ``use_assoc_scan`` (the reference's
+``lax.associative_scan``), a log-depth prefix scan over the (a, b) pairs:
+ceil(log2 S) vectorised steps.  States carry a leading batch (slot) axis: ``h`` (B, rd) f32,
 ``conv`` (B, conv1d_width - 1, rd) f32 and ``pos`` (B,) int32.
 """
 from __future__ import annotations
@@ -99,18 +100,38 @@ def _conv1d(p: dict, u: torch.Tensor) -> torch.Tensor:
     return out + p["conv_b"]
 
 
-def rglru_scan(p: dict, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+def _prefix_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """All h_t of h_t = a_t h_{t-1} + b_t (h_{-1} = 0) over axis 1 by
+    recursive doubling: after the step at distance d each (a_t, b_t)
+    holds the combine of the pairs t - 2d + 1 .. t, with the reference's
+    combine (a_l a_r, b_l a_r + b_r) of an earlier pair l and a later r."""
+    S, d = a.shape[1], 1
+    while d < S:
+        b = torch.cat([b[:, :d], torch.addcmul(b[:, d:], b[:, :-d],
+                                               a[:, d:])], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
+def rglru_scan(p: dict, cfg, x: torch.Tensor, *,
+               use_assoc_scan: bool = False) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> ((B, S, d), final state).  The conv runs in the
-    model dtype and the recurrence in f32, as in the reference."""
+    model dtype and the recurrence in f32, as in the reference; the
+    recurrence is the time loop, or with ``use_assoc_scan`` the log-depth
+    prefix scan."""
     gate = _gelu(x @ p["w_gate_in"])
     u_raw = (x @ p["w_in"]).float()
     u = _conv1d(p, u_raw.to(x.dtype)).float()
     a, b = _gates(p, u)
     B, S, rd = u.shape
-    hs = torch.empty((B, S, rd), dtype=torch.float32, device=x.device)
-    h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)
-    for t in range(S):                 # h_t = a_t * h_{t-1} + b_t
-        h = torch.addcmul(b[:, t], a[:, t], h, out=hs[:, t])
+    if use_assoc_scan:
+        hs = _prefix_scan(a, b)
+    else:
+        hs = torch.empty((B, S, rd), dtype=torch.float32, device=x.device)
+        h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)
+        for t in range(S):             # h_t = a_t * h_{t-1} + b_t
+            h = torch.addcmul(b[:, t], a[:, t], h, out=hs[:, t])
     out = hs.to(x.dtype) * gate
     Wc = p["conv_w"].shape[0]
     conv_hist = F.pad(u_raw, (0, 0, Wc - 1, 0))[:, S:S + Wc - 1]

@@ -12,23 +12,24 @@ batch (slot) axis and a per-row ``pos`` (B,) int32.
 
 Forward modes: ``train`` (forward only: hidden states, no loss and no
 backward), ``prefill``, ``decode``, ``paged_prefill`` and
-``paged_decode``.  MoE, sinusoidal positions and the multimodal inputs
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+``paged_decode``.  The modality front ends are stubs, as in the
+reference: audio configs (``num_codebooks``) take K codebook token
+streams (B, K, S), sum their embeddings and have one head per codebook;
+vision configs take patch embeddings (B, P, vision_dim) through the
+projector, placed in front of the text.  MoE raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import attention, rglru, xlstm
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
-                                       init_rmsnorm, rmsnorm)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
+                                       init_rmsnorm, rmsnorm,
+                                       sinusoidal_positions)
 
 
 _MIXERS = ("attn", "rglru", "mlstm", "slstm")
@@ -38,7 +39,9 @@ def _check_block(blk) -> None:
     if blk.mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {blk.mixer!r}; options {_MIXERS}")
     if blk.ffn not in ("dense", "none"):
-        raise _not_ported(f"the {blk.ffn} feed-forward", "A7")
+        raise NotImplementedError(f"the {blk.ffn} feed-forward is not "
+                                  f"ported to repro_torch yet (ROADMAP.md "
+                                  f"A7)")
 
 
 # ---------------------------------------------------------------------------
@@ -65,18 +68,31 @@ def _init_block(generator, cfg, blk, dtype, device) -> dict:
 
 def init_params(cfg, generator: torch.Generator,
                 device: torch.device) -> dict:
-    """Random params drawn from ``generator`` (a generator on ``device``)."""
-    if cfg.num_codebooks or cfg.vision_patches:
-        raise _not_ported("multimodal embeddings", "A6")
+    """Random params drawn from ``generator`` (a generator on ``device``).
+    Audio configs stack one embedding (K, V, d) and one head (K, d, V) per
+    codebook; vision configs add the projector {w_proj (vision_dim, d),
+    w_up (d, d)}."""
     dtype = getattr(torch, cfg.dtype)
+
+    def table(in_dim, out_dim):
+        if not cfg.num_codebooks:
+            return dense_init(generator, in_dim, out_dim, dtype, device)
+        return torch.stack([dense_init(generator, in_dim, out_dim, dtype,
+                                       device)
+                            for _ in range(cfg.num_codebooks)])
+
     params: Dict[str, Any] = {
-        "embed": {"embed": dense_init(generator, cfg.vocab_size, cfg.d_model,
-                                      dtype, device)},
+        "embed": {"embed": table(cfg.vocab_size, cfg.d_model)},
         "final_norm": init_rmsnorm(cfg.d_model, dtype, device),
     }
+    if cfg.vision_patches:
+        params["projector"] = {
+            "w_proj": dense_init(generator, cfg.vision_dim, cfg.d_model,
+                                 dtype, device),
+            "w_up": dense_init(generator, cfg.d_model, cfg.d_model, dtype,
+                               device)}
     if not cfg.tie_embeddings:
-        params["head"] = {"head": dense_init(generator, cfg.d_model,
-                                             cfg.vocab_size, dtype, device)}
+        params["head"] = {"head": table(cfg.d_model, cfg.vocab_size)}
     params["layers"] = [_init_block(generator, cfg, blk, dtype, device)
                         for blk in cfg.layer_pattern()]
     return params
@@ -139,6 +155,9 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
         step, scan = _RECURRENT[blk.mixer]
         if mode == "decode":
             mix, new_state = step(p["mixer"], cfg, h, state)
+        elif blk.mixer == "rglru":
+            mix, new_state = scan(p["mixer"], cfg, h,
+                                  use_assoc_scan=cfg.use_assoc_scan)
         else:
             mix, new_state = scan(p["mixer"], cfg, h)
     elif mode == "train":
@@ -168,20 +187,42 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg, inputs: dict) -> torch.Tensor:
-    """Token embedding lookup: tokens (B, S) -> (B, S, d)."""
-    if cfg.num_codebooks or "patches" in inputs:
-        raise _not_ported("multimodal embeddings", "A6")
+def embed_inputs(params, cfg, inputs: dict, pos_offset) -> torch.Tensor:
+    """tokens (B, S) or (B, K, S) codebook streams -> (B, S', d).
+
+    Codebook embeddings are summed in codebook order; vision patches
+    (B, P, vision_dim) go through ``gelu(patches @ w_proj) @ w_up`` in
+    f32 (the reference promotes f32 patches times model-dtype weights to
+    f32) and are put in front of the text, S' = P + S.  Without RoPE the
+    f32 sinusoidal table of positions ``pos_offset + arange(S')`` is
+    added in the model dtype; ``pos_offset`` is an int or (B, 1)."""
+    emb = params["embed"]["embed"]
+    toks = inputs["tokens"].long()
+    if cfg.num_codebooks:
+        x = emb[0][toks[:, 0]]
+        for k in range(1, cfg.num_codebooks):
+            x = x + emb[k][toks[:, k]]
+    else:
+        x = emb[toks]
+    if cfg.vision_patches and inputs.get("patches") is not None:
+        pr = params["projector"]
+        pe = F.gelu(inputs["patches"].float() @ pr["w_proj"].float(),
+                    approximate="tanh") @ pr["w_up"].float()
+        x = torch.cat([pe.to(x.dtype), x], dim=1)
     if not cfg.use_rope:
-        raise _not_ported("sinusoidal positions", "A3")
-    return params["embed"]["embed"][inputs["tokens"].long()]
+        pos = pos_offset + torch.arange(x.shape[1], device=x.device)
+        pe = sinusoidal_positions(pos, cfg.d_model)
+        x = x + pe.to(x.dtype)
+    return x
 
 
 def apply_head(params, cfg, x) -> torch.Tensor:
-    """x (B, S, d) -> logits (B, S, V)."""
+    """x (B, S, d) -> logits (B, S, V), or (B, S, K, V) for codebooks."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"]["embed"].T
+    if cfg.num_codebooks:
+        return torch.einsum("bsd,kdv->bskv", x, params["head"]["head"])
     return x @ params["head"]["head"]
 
 
@@ -199,8 +240,10 @@ def forward(params, cfg, inputs: dict, mode: str,
             max_len: Optional[int] = None) -> dict:
     """Run the model.
 
-    train         : inputs {tokens (B,S)}        -> {hidden}
-    prefill       : inputs {tokens (B,S)}        -> {last_logits, states}
+    train         : inputs {tokens (B,S)[, patches]}
+                                                 -> {hidden}
+    prefill       : inputs {tokens (B,S)[, patches]}
+                                                 -> {last_logits, states}
     decode        : inputs {tokens (B,1)} + states (each row at its own
                     ``pos``)                     -> {logits, states}
     paged_prefill : inputs {tokens (1,C), start int, block_table (W,)}
@@ -208,19 +251,26 @@ def forward(params, cfg, inputs: dict, mode: str,
     paged_decode  : inputs {tokens (B,1), block_tables (B,W) int32,
                     lengths (B,) int32} + states -> {logits, states}
 
-    ``max_len`` sizes prefill's caches.  Decode writes the dense K/V
-    caches in place, and the paged modes the pools.
+    Audio configs take tokens (B, K, S) and give logits (..., K, V).
+    ``max_len`` sizes prefill's caches (patches included).  Decode writes
+    the dense K/V caches in place, and the paged modes the pools.
     """
     if mode not in MODES:
         raise ValueError(f"unknown forward mode {mode!r}; options {MODES}")
     paged = None
+    pos_offset = 0
     if mode == "paged_prefill":
         paged = {"block_table": inputs["block_table"],
                  "start": int(inputs["start"])}
+        pos_offset = paged["start"]
     elif mode == "paged_decode":
         paged = {"block_tables": inputs["block_tables"],
                  "lengths": inputs["lengths"]}
-    x = embed_inputs(params, cfg, inputs)
+        pos_offset = inputs["lengths"][:, None]
+    elif mode == "decode":
+        # each row's own position, where the reference vmaps a scalar
+        pos_offset = states[0]["pos"][:, None]
+    x = embed_inputs(params, cfg, inputs, pos_offset)
     positions = None
     if mode in ("train", "prefill"):
         positions = torch.arange(x.shape[1], device=x.device)

@@ -108,10 +108,17 @@ def warmup(engines: Sequence[ServeEngine], prompt_len: int,
            gen_tokens: int = 2) -> None:
     """Run one short request through every engine before timed serving
     (builds the CUDA kernels, wakes the libraries and the allocator), then
-    reset it."""
+    reset it.  Audio configs get a (1, K, S) prompt and vision configs
+    (1, P, vision_dim) patches, drawn from a seeded numpy generator."""
     rng = np.random.default_rng(1)
     for e in engines:
-        warm = rng.integers(0, e.cfg.vocab_size, (1, prompt_len),
-                            dtype=np.int32)
-        e.generate(warm, max(gen_tokens, 2))
+        cfg = e.cfg
+        shape = ((1, cfg.num_codebooks, prompt_len) if cfg.num_codebooks
+                 else (1, prompt_len))
+        warm = rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
+        patches = None
+        if cfg.vision_patches:
+            patches = rng.standard_normal(
+                (1, cfg.vision_patches, cfg.vision_dim), dtype=np.float32)
+        e.generate(warm, max(gen_tokens, 2), patches=patches)
         e.reset()

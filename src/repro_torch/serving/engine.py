@@ -4,12 +4,16 @@ page pool.
 Port of ``repro/serving/engine.py``.  One engine wraps one model replica
 on one device and serves admitted requests with one of two memory models:
 
-**Dense slot pool** (recurrent and windowed configs).  A fixed pool of
-``kv_slots`` per-request states (K/V rings ``max_len`` deep, or at most
-the window, and RG-LRU states).  Each step runs one batch-1 prefill per
-joining request, then one batched decode round over every slot, each
-slot at its own position; free slots ride along and their outputs are
-dropped.
+**Dense slot pool** (recurrent, windowed, int8-cache and vision
+configs).  A fixed pool of ``kv_slots`` per-request states (K/V rings
+``max_len`` deep, or at most the window, and RG-LRU or xLSTM states).
+Each step runs one batch-1 prefill per joining request (a vision
+request's patches go in front of its prompt), then one batched decode
+round over every slot, each slot at its own position; free slots ride
+along and their outputs are dropped.
+
+Audio configs (``num_codebooks`` K) take (1, K, S) prompts and emit one
+(1, K) token row per step.
 
 **Paged page pool** (all-attention configs; picked by
 ``paged_supported``).  KV memory is a shared pool of fixed-size pages per
@@ -48,6 +52,7 @@ from repro_torch.faults.policy import Health
 from repro_torch.serving import compiled
 from repro_torch.serving.paged_kv import (BlockTable, PagePool, PrefixCache,
                                           cdiv, paged_supported)
+from repro_torch.train.steps import pick_tokens
 from repro_torch.workload.capability import (EngineCapability,
                                              cold_token_seconds)
 from repro_torch.workload.queueing import EDFQueue
@@ -129,8 +134,9 @@ class ServeEngine:
         self._clock = clock
         self._queue = EDFQueue()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._zero_tok = torch.zeros((1,), dtype=torch.int32,
-                                     device=self.device)
+        self._zero_tok = torch.zeros(
+            (1, cfg.num_codebooks) if cfg.num_codebooks else (1,),
+            dtype=torch.int32, device=self.device)
         self._ewma_tok_s = 0.0         # measured seconds per decode token
         self._next_rid = 0
         self.peak_inflight = 0
@@ -197,6 +203,11 @@ class ServeEngine:
                                f"request {req.rid}")
         req.t_enqueue = self._clock()
         req.engine_id = getattr(self, "engine_id", None)
+        if req.patches is not None:     # onto the device at admission
+            req.patches = (
+                req.patches.to(self.device, non_blocking=True)
+                if isinstance(req.patches, torch.Tensor)
+                else self._to_device(np.asarray(req.patches, np.float32)))
         self._queue.append(req)
 
     def step(self) -> List[Request]:
@@ -280,8 +291,10 @@ class ServeEngine:
             req = self._queue.popleft()
             i = free.pop(0)
             req.t_prefill_start = self._clock()
-            logits, st = self._prefill(
-                self.params, {"tokens": self._to_device(req.prompt)})
+            batch = {"tokens": self._to_device(req.prompt)}
+            if req.patches is not None:
+                batch["patches"] = req.patches
+            logits, st = self._prefill(self.params, batch)
             self.prefills += 1
             tok = self._pick(logits)               # on the device
             pos = len(req.tokens)
@@ -302,10 +315,11 @@ class ServeEngine:
         active = [i for i, r in enumerate(self._slots) if r is not None]
         if active:
             toks = torch.stack([t if t is not None else self._zero_tok
-                                for t in self._last_tok])   # (slots, 1)
+                                for t in self._last_tok])   # (slots, 1[, K])
             self._round_t0 = self._clock()
             tok_all, self._pool_states = self._pool_decode(
-                self.params, toks, self._pool_states, self._gen)
+                self.params, self._decode_tokens(toks), self._pool_states,
+                self._gen)
             self.decode_rounds += 1
             entries = []
             for i in active:
@@ -432,7 +446,7 @@ class ServeEngine:
             self._round_t0 = self._clock()
             _, tok_all, self._paged_states = self._paged_decode(
                 self.params,
-                {"tokens": torch.stack(rows),           # (L, 1)
+                {"tokens": self._decode_tokens(torch.stack(rows)),
                  "block_tables": self._to_device(tables),
                  "lengths": self._to_device(lengths)},
                 self._paged_states, self._gen)
@@ -590,16 +604,18 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # blocking compatibility API
     # ------------------------------------------------------------------
-    def generate(self, prompts: np.ndarray, num_tokens: int
-                 ) -> RequestResult:
-        """prompts (B, S) int -> per-step (B,) tokens plus measured
-        timing (admit all, drain)."""
+    def generate(self, prompts: np.ndarray, num_tokens: int,
+                 patches=None) -> RequestResult:
+        """prompts (B, S) [or (B, K, S) audio] int, with patches
+        (B, P, vision_dim) for vision configs -> per-step (B,) [or
+        (B, K)] tokens plus measured timing (admit all, drain)."""
         prompts = np.asarray(prompts, np.int32)
         reqs = []
         for b in range(prompts.shape[0]):
-            reqs.append(Request(rid=self._next_rid,
-                                prompt=prompts[b:b + 1],
-                                max_new_tokens=max(num_tokens, 1)))
+            reqs.append(Request(
+                rid=self._next_rid, prompt=prompts[b:b + 1],
+                max_new_tokens=max(num_tokens, 1),
+                patches=None if patches is None else patches[b:b + 1]))
             self._next_rid += 1
             self.admit(reqs[-1])
         self.run_to_completion()
@@ -617,13 +633,14 @@ class ServeEngine:
     # internals
     # ------------------------------------------------------------------
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
-        """(1, V) logits -> (1,) int32 token, on the device."""
-        if self.sample:
-            probs = torch.softmax(logits.float(), dim=-1)
-            tok = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
-        else:
-            tok = torch.argmax(logits, dim=-1)
-        return tok.to(torch.int32)
+        """(1, V) [or (1, K, V)] logits -> (1,) [or (1, K)] int32 tokens,
+        on the device."""
+        return pick_tokens(logits, self.sample, 1.0, self._gen)
+
+    def _decode_tokens(self, toks: torch.Tensor) -> torch.Tensor:
+        """Stacked last tokens (B, 1) [or (B, 1, K)] -> the decode step's
+        (B, 1) [or (B, K, 1)]."""
+        return toks.transpose(1, 2) if self.cfg.num_codebooks else toks
 
     @staticmethod
     def _prompt_len(req: Request) -> int:

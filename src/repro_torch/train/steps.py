@@ -14,13 +14,16 @@ import torch
 from repro_torch.models.transformer import forward
 
 
-def _pick(logits: torch.Tensor, sample: bool, temperature: float,
+def pick_tokens(logits: torch.Tensor, sample: bool, temperature: float,
           generator: Optional[torch.Generator]) -> torch.Tensor:
     """Greedy argmax, or a draw with ``torch.multinomial`` from
-    ``generator`` (the engine's); (B, V) -> (B,) int32."""
+    ``generator`` (the engine's), over the last axis: (B, V) -> (B,) or,
+    for codebooks, (B, K, V) -> (B, K), int32."""
     if sample:
         probs = torch.softmax(logits.float() / temperature, dim=-1)
-        tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        tok = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                                generator=generator)
+        tok = tok.reshape(logits.shape[:-1])
     else:
         tok = torch.argmax(logits, dim=-1)
     return tok.to(torch.int32)
@@ -29,8 +32,8 @@ def _pick(logits: torch.Tensor, sample: bool, temperature: float,
 def make_prefill_step(cfg, max_len: Optional[int] = None):
     """Prompt prefill into fresh dense states.
 
-    batch = {tokens (B, S)}; returns (last_logits (B, V), states whose
-    caches are ``max_len`` deep)."""
+    batch = {tokens (B, S)[, patches (B, P, vision_dim)]}; returns
+    (last_logits (B, V), states whose caches are ``max_len`` deep)."""
     def prefill_step(params, batch):
         out = forward(params, cfg, batch, mode="prefill", max_len=max_len)
         return out["last_logits"], out["states"]
@@ -48,7 +51,7 @@ def make_decode_step(cfg, sample: bool = False, temperature: float = 1.0):
                     generator: Optional[torch.Generator] = None):
         out = forward(params, cfg, batch, mode="decode", states=states)
         logits = out["logits"]
-        return (logits, _pick(logits, sample, temperature, generator),
+        return (logits, pick_tokens(logits, sample, temperature, generator),
                 out["states"])
 
     return decode_step
@@ -79,7 +82,7 @@ def make_paged_decode_step(cfg, sample: bool = False,
                           generator: Optional[torch.Generator] = None):
         out = forward(params, cfg, batch, mode="paged_decode", states=states)
         logits = out["logits"]
-        return (logits, _pick(logits, sample, temperature, generator),
+        return (logits, pick_tokens(logits, sample, temperature, generator),
                 out["states"])
 
     return paged_decode_step

@@ -98,6 +98,35 @@ def test_rglru_scan_and_step_match(S):
     assert tst["pos"].tolist() == [S + 3] * 2
 
 
+@pytest.mark.parametrize("S", [1, 11, 128])
+def test_rglru_assoc_scan_matches_reference_and_loop(S):
+    """``use_assoc_scan=True``: the log-depth prefix scan against the
+    reference's ``lax.associative_scan`` and against the port's own time
+    loop, outputs and final state within 1e-5; then the model's prefill
+    with ``cfg.use_assoc_scan`` against the reference's."""
+    jcfg, tcfg = _rg()
+    jp = jax_rglru.init_rglru(jax.random.key(2), jcfg, jnp.float32)
+    tp = {k: _t(v) for k, v in jp.items()}
+    x = np.random.default_rng(S).standard_normal(
+        (2, S, tcfg.d_model)).astype(np.float32)
+    jout, jst = jax_rglru.rglru_scan(jp, jcfg, jnp.asarray(x),
+                                     use_assoc_scan=True)
+    tout, tst = rglru.rglru_scan(tp, tcfg, _t(x), use_assoc_scan=True)
+    lout, lst = rglru.rglru_scan(tp, tcfg, _t(x))
+    for got, want in ((tout, jout), (tout, lout), (tst["h"], jst["h"]),
+                      (tst["h"], lst["h"]), (tst["conv"], jst["conv"])):
+        _close(got, want, tol=1e-5)
+    jcfg, tcfg = _rg(use_assoc_scan=True)
+    jparams, tparams = params_pair(jcfg, tcfg, seed=8)
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab_size, (1, S),
+                                             dtype=np.int32)
+    jout = jax_forward(jparams, cfg=jcfg, inputs={"tokens": toks},
+                       mode="prefill", max_len=S + 2)
+    tout = forward(tparams, tcfg, {"tokens": _t(toks)}, mode="prefill",
+                   max_len=S + 2)
+    _close(tout["last_logits"], jout["last_logits"], tol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # dense attention: prefill into a ring and decode past its wrap
 # ---------------------------------------------------------------------------

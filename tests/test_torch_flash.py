@@ -240,6 +240,10 @@ ATTN_CUDA_CASES = {
     "qwen2-closedloop-chunk": (1, 12, 2, 16, 144, 128, None, 48),
     "starcoder2-chunk": (1, 24, 2, 16, 144, 128, None, 48),
     "ragged": (2, 4, 4, 37, 37, 64, 5, 0),
+    # the dense prefills of llava-next-mistral-7b (576 patches + a
+    # 64-token prompt) and musicgen-large (MHA at hd 64, 128 tokens)
+    "llava-prefill": (1, 32, 8, 640, 640, 128, None, 0),
+    "musicgen-prefill": (1, 32, 32, 128, 128, 64, None, 0),
 }
 for _hd in (64, 128, 256):
     for _G in (1, 6, 16):
@@ -292,11 +296,14 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
 
 
 # (H, KV, S, hd): recurrentgemma's dense round and its full 2048 ring,
-# qwen2's G = 6 at hd 128, G = 1 at hd 64
+# qwen2's G = 6 at hd 128, G = 1 at hd 64, and the dense rounds of
+# llava-next-mistral-7b (a 672-slot ring) and musicgen-large (160 slots)
 DECODE_CUDA_CASES = {"rg_round": (16, 1, 160, 256),
                      "rg_ring_2048": (16, 1, 2048, 256),
                      "g6_hd128": (12, 2, 256, 128),
-                     "g1_hd64": (4, 4, 96, 64)}
+                     "g1_hd64": (4, 4, 96, 64),
+                     "llava_round": (32, 8, 672, 128),
+                     "musicgen_round": (32, 32, 160, 64)}
 
 
 @pytest.mark.cuda

@@ -193,17 +193,15 @@ def test_apply_head_matches(tied):
 
 
 def test_forward_modes_outside_the_slice_raise():
-    """Every forward mode is ported; what stays outside the port (int8 KV
-    caches, sinusoidal positions) raises naming its ROADMAP item, and an
-    unknown mode is refused."""
+    """Every forward mode is ported; what stays outside the port (the MoE
+    feed-forward) raises naming its ROADMAP item, and an unknown mode is
+    refused."""
     jcfg, tcfg = configs(num_layers=1)
     _, tparams = params_pair(jcfg, tcfg)
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(tparams, dataclasses.replace(tcfg, kv_cache_dtype="int8"),
-                toks, mode="prefill")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward(tparams, dataclasses.replace(tcfg, use_rope=False),
-                toks, mode="train")
+    moe = dataclasses.replace(tcfg, pattern=(("attn", "moe"),))
+    for mode in ("train", "prefill"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+            forward(tparams, moe, toks, mode=mode)
     with pytest.raises(ValueError, match="unknown forward mode"):
         forward(tparams, tcfg, toks, mode="generate")
