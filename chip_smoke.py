@@ -13,7 +13,9 @@ Phases, in order; the script exits non-zero at the first that fails:
 2. ``paged_flash_decode`` against its plain PyTorch version at the serve
    path's shapes, at 8 lanes of 2048 tokens and at the closed loop's
    rounds of its two paged archs (page 8, an 18-page table: qwen2-1.5b,
-   and starcoder2-3b's 24 query heads over 2 KV heads), in bf16 and f32,
+   and starcoder2-3b's 24 query heads over 2 KV heads), at phase 16's
+   crash drill (page 16, a 7-page table) and at phases 18 and 19's rounds
+   (page 16, a 7-page table over 11 pages, both archs), in bf16 and f32,
    with its time, its bound, the plain version's time and one library call's time;
    each call is two kernels, split and merge, and a profiler trace of one
    call shows both, with the grids its split plan gives;
@@ -29,8 +31,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    no KV leak, and the kernel launched once per layer per decode round;
    4b: where a decode round's time goes (``torch.profiler``);
 5. ``ladn_denoise`` against its plain version at the LAD-TS path's
-   shapes (acting, update terms, live placement; phase 8's and phase
-   13's, on its 11-wide QoS observation) and one shape above 32 wide, f32, with its time, its bound, the launch floor (the library's
+   shapes (acting, update terms, live placement; phase 8's, phase 13's
+   on its 11-wide QoS observation and phase 17's on the 6-wide
+   availability observation) and one shape above 32 wide, f32, with its
+   time, its bound, the launch floor (the library's
    empty kernel in a CUDA graph) and the plain version's time; a
    profiler trace of one call per shape must show the instantiation,
    grid and shared memory ``ladn_denoise.plan`` gives; the compiler's
@@ -53,7 +57,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    last chunk of a 64-token prompt at qwen2-1.5b's and starcoder2-3b's
    heads) and phase 15's dense prefills (llava-next-mistral-7b's 640
    tokens at 32 heads over 8, musicgen-large's 128 at hd 64 and a group
-   of 1), bf16 and f32, with
+   of 1), phase 16's f32 prefills (the paged qwen2 16-token chunk
+   against a 7 x 16-token table, recurrentgemma's 64- and 16-token dense
+   prompts) and phases 18 and 19's 8-token chunks (both paged archs),
+   bf16 and f32, with
    its time, its bound, the plain version's and SDPA's; a profiler trace
    of one call per shape must show one kernel with the grid its tile
    plan gives; the compiler's registers and spills per instantiation;
@@ -61,7 +68,8 @@ Phases, in order; the script exits non-zero at the first that fails:
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
    per-slot lengths, and a wrapped 2048-slot ring) and phase 15's rounds
    (llava's 672-slot rings in bf16, musicgen's 160-slot rings in f32, as
-   its dequantised int8 rings reach it), likewise, its split and merge
+   its dequantised int8 rings reach it) and phase 16's f32 76-slot ring,
+   likewise, its split and merge
    launches traced as in phase 2;
 11. decode against teacher-forced forward on the card: full-width
    recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
@@ -97,11 +105,35 @@ Phases, in order; the script exits non-zero at the first that fails:
    prefill and ``flash_decode`` once per attention layer per decode round
    (warm-up included); 15b: where a musicgen decode round's time goes,
    with the share of dequantising its int8 rings;
+16. crash invariants on the card (f32, published width): qwen2-1.5b with
+   2 layers (paged, prefix cache on) and recurrentgemma-9b with 3 layers
+   (dense, one local-attention layer) each crash with a dispatched round
+   pending, mid-prefill and mid-decode: the orphans are exactly the
+   unfinished requests, no KV is held (paged: the pool's references equal
+   the prefix cache's size), the retried requests give the uncrashed
+   engine's greedy tokens, a stall and a slowdown gate ``dispatch`` as
+   the reference does, and the launches are the dispatched passes';
+17. ``serve.main`` under ``--chaos`` at qwen2-1.5b's published width and
+   depth in bf16 (2 engines, 16 requests, LAD-TS trained in the
+   fault-enabled simulator): every request terminal, completion rate 1,
+   the injector exhausted, nothing quarantined, no KV held, launches as
+   the run implies (``ladn_denoise`` one per placement + the warm-up);
+18. ``bench_chaos(full_scale=True)``: qwen2-1.5b and starcoder2-3b at
+   published width and depth through one crash under four schedulers,
+   completion rate 1, retries within the cap, no KV held, nothing
+   quarantined, launches exact; the fault-enabled simulator's
+   failure-aware picks no DOWN station;
+19. ``bench_stress(full_scale=True)`` on phase 13's fleet with its ladder
+   cut (JSQ; 8, 32 and 128 req/s; the overlap A/B at 32): every run
+   terminal, none failed, no KV held, nothing quarantined, launches
+   exact; the saturation rate, goodput per stage and overlap speedup;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is read from its main path's run, with the
-counts set to 0 just before it.  It needs nothing but the checkout:
+counts set to 0 just before it.  Phases 16-19 fail if the cluster
+quarantined an engine: a kernel or card fault must fail the run, not be
+absorbed.  It needs nothing but the checkout:
 weights are random, drawn from seeds.
 """
 from __future__ import annotations
@@ -139,6 +171,14 @@ PAGED_SHAPES = {
                          (1, 120, 37, 16, 17, 64, 2, 88)),
     "starcoder2_3b": (8, 24, 2, 128, 8, 31, 18,
                       (1, 120, 37, 16, 17, 64, 2, 88)),
+    # phase 16's paged crash drill (run in f32): 8 lanes, page 16, max_len
+    # 64 + 12 = 76 -> 1 + 4 * 5 pages and a 5 + 1 + 1 wide table
+    "crash_qwen2": (8, H, KV, HD, 16, 21, 7, (65, 76, 70, 64, 17, 40, 1, 1)),
+    # phases 18 and 19's paged engines (bf16): 8 lanes, page 16, max_len
+    # 3 * (16 + 6) = 66 -> 1 + 2 * 5 pages and a 5 + 1 + 1 wide table, at
+    # qwen2-1.5b's heads and at starcoder2-3b's
+    "chaos_qwen2": (8, H, KV, HD, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
+    "chaos_sc2": (8, 24, 2, 128, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
 }
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
               "--scheduler", "jsq", "--requests", "8", "--prompt-len", "128",
@@ -156,7 +196,13 @@ LADN_SHAPES = {"act": (20, 1, 5, 20, 22, 20),
                "live": (1, 1, 3, 2, 4, 20),
                "cl_act": (4, 1, 3, 4, 11, 20),
                "cl_update": (4, 64, 3, 4, 11, 20),
-               "cl_live": (1, 1, 3, 4, 11, 20)}
+               "cl_live": (1, 1, 3, 4, 11, 20),
+               # phase 17's, on the availability observation of 2 edges
+               # (S = 2 + 2 * 2, I = 3): acting and the update in the
+               # fault-enabled simulator, one live placement
+               "chaos_act": (2, 1, 3, 2, 6, 20),
+               "chaos_update": (2, 64, 3, 2, 6, 20),
+               "chaos_live": (1, 1, 3, 2, 6, 20)}
 # and one shape above 32 wide, for the shared-memory instantiation (no
 # main path reaches it; T 33 leaves the last block ragged)
 LADN_WIDE = {"wide": (4, 33, 7, 40, 70, 64)}
@@ -191,6 +237,17 @@ ATTN_SHAPES = {
     # prompt (MHA, hd 64)
     "llava_prefill": (1, 32, 8, 640, 640, 128, None, 0, "bfloat16"),
     "musicgen_prefill": (1, 32, 32, 128, 128, 64, None, 0, "bfloat16"),
+    # phase 16's crash drills (f32): the paged qwen2 chunk (16 queries at
+    # offset 48 against the 7 x 16-token table) and recurrentgemma's dense
+    # prefills of the 64-token prompts and of the 16-token gated one
+    "crash_qwen2_chunk_f32": (1, 12, 2, 16, 112, 128, None, 48, "float32"),
+    "crash_rg_prefill_f32": (1, 16, 1, 64, 64, 256, 2048, 0, "float32"),
+    "crash_rg_gate_f32": (1, 16, 1, 16, 16, 256, 2048, 0, "float32"),
+    # phases 18 and 19's paged engines: an 8-token chunk at offset 8
+    # against the 7 x 16-token table, at qwen2-1.5b's heads and at
+    # starcoder2-3b's
+    "chaos_qwen2_chunk": (1, 12, 2, 8, 112, 128, None, 8, "bfloat16"),
+    "chaos_sc2_chunk": (1, 24, 2, 8, 112, 128, None, 8, "bfloat16"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
 # decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
@@ -205,6 +262,9 @@ DECODE_SHAPES = {
     "llava_round": (4, 32, 8, 672, 128, (641, 655, 672, 645), "bfloat16"),
     "musicgen_round_f32": (4, 32, 32, 160, 64, (129, 145, 160, 131),
                            "float32"),
+    # phase 16's dense crash drill: recurrentgemma-9b's 4 slots of a
+    # 64 + 12 = 76-slot ring, f32
+    "crash_rg_ring_f32": (4, 16, 1, 76, 256, (65, 76, 70, 17), "float32"),
 }
 
 
@@ -1327,8 +1387,8 @@ def phase_flash_decode() -> dict:
             f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
             f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
             f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
-    log("phase 10 ok: flash_decode matches decode_ref at the dense decode "
-        "round's and the wrapped ring's shapes")
+    log(f"phase 10 ok: flash_decode matches decode_ref at "
+        f"{', '.join(DECODE_SHAPES)}")
     return result
 
 
@@ -1831,6 +1891,407 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: crash invariants on the card
+# ---------------------------------------------------------------------------
+
+CRASH_PLEN, CRASH_NEW = 64, 12
+# steps after a retry before the mid-decode crash: the paged engine's four
+# 16-token chunks, then decode rounds (the dense engine prefills at once)
+CRASH_DECODE_STEPS = 6
+
+
+class _ManualClock:
+    """An engine clock the phase sets; reading it does not advance it."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _crash_drill(label: str, cfg, params, n_attn: int, **engine_kw):
+    """Crash drill on one engine (see ``phase_crash_drill``); returns its
+    kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.request import Request
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda")
+    clock = _ManualClock()
+    eng = ServeEngine(cfg, params, clock=clock, device=dev, **engine_kw)
+    rng = np.random.default_rng(16)
+    # four prompts sharing their first 3/4
+    prompts = rng.integers(0, cfg.vocab_size, (4, CRASH_PLEN), dtype=np.int32)
+    prompts[:, :3 * CRASH_PLEN // 4] = prompts[0, :3 * CRASH_PLEN // 4]
+
+    def requests():
+        return [Request(rid=i, prompt=prompts[i:i + 1],
+                        max_new_tokens=CRASH_NEW) for i in range(4)]
+
+    clean = requests()
+    for r in clean:
+        eng.admit(r)
+    eng.run_to_completion()
+    eng.reset()                     # raises on a page leak
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    live = requests()
+    for r in live:
+        eng.admit(r)
+    notes = []
+    for when, steps in (("mid-prefill", 0),
+                        ("mid-decode", CRASH_DECODE_STEPS)):
+        for _ in range(steps):
+            eng.step()
+        if not eng.dispatch():
+            fail(f"{label}: nothing to dispatch before the {when} crash")
+        unfinished = sorted(r.rid for r in live if r.status != "ok")
+        if eng.paged:
+            lanes = [ln for ln in eng._lanes if ln is not None]
+            prefilling = sum(not ln.decoding for ln in lanes)
+            if (when == "mid-prefill") != (prefilling > 0):
+                fail(f"{label}: {prefilling} lanes prefilling at the {when}"
+                     f" crash")
+        orphans = eng.fail(f"drill {when}")
+        torch.cuda.synchronize()
+        rids = [r.rid for r in orphans]
+        if sorted(rids) != unfinished or len(set(rids)) != len(rids):
+            fail(f"{label} {when}: orphans {rids}, unfinished {unfinished}")
+        if eng.kv_leak:
+            fail(f"{label} {when}: {eng.kv_leak} KV references held after "
+                 f"the crash")
+        refs = (eng._pool.total_refs, eng.prefix_cached_pages) \
+            if eng.paged else None
+        if refs and refs[0] != refs[1]:
+            fail(f"{label} {when}: pool references {refs[0]} != prefix "
+                 f"cache size {refs[1]}")
+        held = f", pool refs = cached pages = {refs[0]}" if refs else ""
+        notes.append(f"{when}: {len(orphans)} orphans, kv_leak 0{held}")
+        eng.recover()
+        for r in orphans:
+            r.reset_for_retry()
+            eng.admit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    for a, b in zip(clean, live):
+        ta = np.stack([np.asarray(t).ravel() for t in a.tokens])
+        tb = np.stack([np.asarray(t).ravel() for t in b.tokens])
+        if b.status != "ok" or not np.array_equal(ta, tb):
+            fail(f"{label}: request {b.rid} after two crashes gave "
+                 f"{tb.ravel().tolist()} ({b.status}), the uncrashed "
+                 f"engine {ta.ravel().tolist()}")
+    # a stall freezes dispatch until its window ends; a slowdown of 3
+    # lets one dispatch in three through until recover
+    gate = Request(rid=9, prompt=prompts[:1, :16], max_new_tokens=24)
+    eng.admit(gate)
+    eng.degrade(stall_s=1.0)
+    stalled = [eng.dispatch() for _ in range(4)]
+    clock.t += 2.0
+    healed = eng.dispatch()
+    eng.collect()
+    eng.degrade(slow_every=3)
+    slowed = []
+    for _ in range(9):
+        slowed.append(eng.dispatch())
+        eng.collect()
+    eng.recover()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    if any(stalled) or not healed or slowed != [False, False, True] * 3:
+        fail(f"{label}: dispatch gating stalled {stalled}, after the "
+             f"window {healed}, slowed {slowed}")
+    if gate.status != "ok" or eng.kv_leak:
+        fail(f"{label}: the gated request ended {gate.status}, kv_leak "
+             f"{eng.kv_leak}")
+    launches = dict(ops.launches)
+    attn, dec = (("flash_attention", "paged_flash_decode") if eng.paged
+                 else ("flash_attention", "flash_decode"))
+    want = {k: 0 for k in launches}
+    want[attn] = n_attn * eng.prefills
+    want[dec] = n_attn * eng.decode_rounds
+    if launches != want:
+        fail(f"{label}: launches {launches}, the dispatched passes imply "
+             f"{want} ({eng.prefills} prefill passes, {eng.decode_rounds} "
+             f"decode rounds, dropped ones included)")
+    log(f"  {label}: {'; '.join(notes)}; retried tokens equal the "
+        f"uncrashed engine's; gating stall {stalled} -> {healed}, slowed "
+        f"{slowed}; launches {launches} = {n_attn} attention layers x "
+        f"{eng.prefills} prefill passes / {eng.decode_rounds} decode rounds")
+    del eng
+    return launches
+
+
+def phase_crash_drill() -> dict:
+    """16. Crash invariants on the card, f32 at published width: qwen2-1.5b
+    with 2 layers (paged, prefix cache on, page 16, chunk 16) and
+    recurrentgemma-9b with 3 layers (dense, 4 slots, one local-attention
+    layer), each serving 4 requests whose 64-token prompts share their
+    first 48.  Per engine: a clean run; then ``fail()`` with a dispatched
+    round not yet collected, once mid-prefill and once mid-decode: the
+    orphans are exactly the unfinished requests, ``kv_leak == 0`` and (paged)
+    the pool's references equal the prefix cache's size; after
+    ``recover`` and ``reset_for_retry`` the requests drain to the clean
+    run's greedy tokens; ``degrade(stall_s=)`` and
+    ``degrade(slow_every=3)`` gate ``dispatch`` as the reference does; the
+    launches are the dispatched passes' (dropped rounds included).
+    Returns the summed launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    dev = torch.device("cuda")
+    total = {}
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(16),
+                         dev)
+    got = _crash_drill("phase 16 qwen2 paged", cfg, params, 2,
+                       max_len=CRASH_PLEN + CRASH_NEW, kv_slots=4,
+                       page_size=16, prefill_chunk=16, prefix_cache=True)
+    total = {k: total.get(k, 0) + v for k, v in got.items()}
+    del params
+    _free_card()
+    cfg = dataclasses.replace(get_config(RG), num_layers=3, dtype="float32")
+    if [b.mixer for b in cfg.layer_pattern()] != ["rglru", "rglru", "attn"]:
+        fail(f"phase 16: unexpected layers {cfg.layer_pattern()}")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(17),
+                         dev)
+    got = _crash_drill("phase 16 recurrentgemma dense", cfg, params, 1,
+                       max_len=CRASH_PLEN + CRASH_NEW, kv_slots=4)
+    total = {k: total.get(k, 0) + v for k, v in got.items()}
+    del params
+    log(f"phase 16 ok: crashes mid-prefill and mid-decode with a round "
+        f"pending orphan exactly the unfinished requests and hold no KV; "
+        f"retries give the uncrashed tokens; launches {total}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 17: serve.main under --chaos
+# ---------------------------------------------------------------------------
+
+CHAOS_REQUESTS = 16
+CHAOS_SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
+                    "--scheduler", "lad-ts", "--chaos", "--fault-seed", "0",
+                    "--requests", str(CHAOS_REQUESTS), "--prompt-len", "128",
+                    "--tokens", "32", "--rate", "8", "--device", "cuda"]
+
+
+def _terminal(st: dict, n: int, label: str) -> None:
+    """Every request ended ok, failed or abandoned, none failed for want
+    of retries, and nothing was quarantined."""
+    ended = st["count"] + st["failed"] + st["abandoned"]
+    if ended != n or st["unfinished"] or st["completion_rate"] != 1.0:
+        fail(f"{label}: {st['count']} ok + {st['failed']} failed + "
+             f"{st['abandoned']} abandoned of {n}, completion rate "
+             f"{st['completion_rate']}")
+
+
+def _paged_launches(engines: list) -> dict:
+    """The launches a live run implies: per paged engine, its layers x
+    its decode rounds and x its prefill chunks."""
+    paged = [e for e in engines if e["paged"]]
+    return {"paged_flash_decode": sum(e["layers"] * e["decode_rounds"]
+                                      for e in paged),
+            "flash_attention": sum(e["layers"] * e["prefills"]
+                                   for e in paged),
+            "ladn_denoise": 0, "flash_decode": 0}
+
+
+def phase_chaos_serve() -> dict:
+    """17. ``serve.main`` under ``--chaos`` at qwen2-1.5b's published width
+    and depth (28 layers, bf16): 2 paged engines, 16 requests at 8 req/s,
+    prompt 128, 32 new tokens, LAD-TS trained in the fault-enabled
+    simulator (S = 6) placing on the availability observation, one crash
+    and one slowdown from ``--fault-seed 0``.  Every request terminal with
+    completion rate 1, the injector exhausted, nothing quarantined, no KV
+    held; launches: 28 x decode rounds and x prefill chunks dispatched,
+    ``ladn_denoise`` one per placement (first tries and retries) + the
+    warm-up.  Returns the launches."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st = serve.main(CHAOS_SERVE_ARGS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    fs, sched = st["fault_stats"], st["fault_schedule"]
+    for ev in sched:
+        log(f"  phase 17 schedule: t={ev['t_s']:.3f} s engine "
+            f"{ev['engine']} {ev['kind']} duration {ev['duration_s']} "
+            f"factor {ev['factor']}")
+    _terminal(st, CHAOS_REQUESTS, "phase 17")
+    if fs["injected"] != len(sched) or fs["quarantined"]:
+        fail(f"phase 17: {fs['injected']} of {len(sched)} events fired, "
+             f"{fs['quarantined']} engines quarantined")
+    if [e["kv_leak"] for e in st["engines"]] != [0, 0] or \
+            [e["layers"] for e in st["engines"]] != [28, 28]:
+        fail(f"phase 17: engines {st['engines']}")
+    want = _paged_launches(st["engines"])
+    want["ladn_denoise"] = st["placements"] + 1
+    if st["launches"] != want:
+        fail(f"phase 17: launches {st['launches']}, the run implies {want}"
+             f" ({st['placements']} placements + the warm-up)")
+    if fs["orphaned"] == 0:
+        log("  phase 17: the crash found its engine idle (no orphans); "
+            "phase 16 is the phase that proves orphans")
+    log(f"phase 17 ok: lad-ts under --chaos: {st['count']} ok, "
+        f"{st['failed']} failed, {st['abandoned']} abandoned of "
+        f"{CHAOS_REQUESTS}; {fs['orphaned']} orphans, {st['retries']} "
+        f"retries, {st['placements']} placements; kv_leak [0, 0]; launches "
+        f"{st['launches']}; service mean {st['mean_s'] * 1e3:.1f} ms p95 "
+        f"{st['p95_s'] * 1e3:.1f} ms; training {st['train_s']:.2f} s, "
+        f"serving {st['wall_s']:.2f} s ({total:.1f} s in all)")
+    return st["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the chaos bench on the published-width fleet
+# ---------------------------------------------------------------------------
+
+CHAOS_DEPTHS = {"qwen2-1.5b": 28, "starcoder2-3b": 30}
+
+
+def phase_chaos_bench() -> dict:
+    """18. ``bench_chaos(full_scale=True)``: qwen2-1.5b and starcoder2-3b
+    at published width and depth in bf16 (paged, 2 slots, chunk 8); 16
+    requests at 48 req/s, prompt 16, 6 new tokens; a calibration pass,
+    then one crash at 0.3 x its makespan for 0.35 x it under
+    failure-aware (QoS), deadline, JSQ and round-robin.  Each run: every
+    request terminal with completion rate 1, retries <= 2 x requests,
+    kv_leak [0, 0], nothing quarantined, launches as the engines'
+    dispatched passes imply; the simulator twin's failure-aware picks no
+    DOWN station.  Returns the live runs' summed launches."""
+    import torch
+    from repro_torch.bench.serving import bench_chaos
+    from repro_torch.faults import RetryPolicy
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, records = bench_chaos(device="cuda", full_scale=True,
+                             log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    live = [r for r in records if r["bench"] == "chaos_live"]
+    sim = {r["scheduler"]: r for r in records if r["bench"] == "chaos_sim"}
+    cap = (RetryPolicy().max_attempts - 1) * 16
+    sums = dict.fromkeys(ops.launches, 0)
+    for r in live:
+        name = r["scheduler"]
+        if {e["arch"]: e["layers"] for e in r["engines"]} != CHAOS_DEPTHS:
+            fail(f"phase 18: {name}: fleet {r['engines']}")
+        _terminal(r, 16, f"phase 18 {name}")
+        if r["retries"] > cap or r["kv_leak"] != [0, 0] or \
+                r["quarantined"]:
+            fail(f"phase 18: {name}: retries {r['retries']} (cap {cap}), "
+                 f"kv_leak {r['kv_leak']}, quarantined {r['quarantined']}")
+        want = _paged_launches(r["engines"])
+        if r["launches"] != want:
+            fail(f"phase 18: {name}: launches {r['launches']}, the run "
+                 f"implies {want}")
+        for k, v in r["launches"].items():
+            sums[k] += v
+        log(f"  live {name}: cr {r['completion_rate']:.3f}, "
+            f"{r['completed']} ok / {r['failed']} failed / "
+            f"{r['abandoned']} abandoned, {r['orphaned']} orphans, "
+            f"{r['retries']} retries, orphan recovery "
+            f"{r['orphan_recovery_mean_s'] * 1e3:.1f} ms, goodput "
+            f"{r['goodput_rps']:.2f} req/s, weighted goodput "
+            f"{r.get('weighted_goodput', 0.0):.3f}, mean service "
+            f"{r['mean_s'] * 1e3:.1f} ms, wall {r['wall_s']:.2f} s "
+            f"(calibration makespan {r['makespan_calib_s']:.3f} s); "
+            f"launches {r['launches']}; peak {r['peak_mem_gib']:.2f} GiB")
+    if [r["scheduler"] for r in live] != ["failure-aware", "deadline", "jsq",
+                                          "round-robin"]:
+        fail(f"phase 18: live schedulers {[r['scheduler'] for r in live]}")
+    if sim["failure-aware"]["wrong_choice_rate"] != 0.0:
+        fail(f"phase 18: failure-aware's wrong-choice rate in the sim is "
+             f"{sim['failure-aware']['wrong_choice_rate']}")
+    log(f"phase 18 ok: 4 schedulers x 16 requests through one crash on the "
+        f"published-width fleet, completion rate 1, no KV leak, nothing "
+        f"quarantined; sim wrong-choice rates "
+        f"{ {k: round(v['wrong_choice_rate'], 3) for k, v in sim.items()} };"
+        f" live launches {sums}; {total:.1f} s")
+    return sums
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the stress bench on the published-width closed-loop fleet
+# ---------------------------------------------------------------------------
+
+STRESS_RATES = (8.0, 32.0, 128.0)
+STRESS_WINDOW_S = 0.35
+
+
+def phase_stress() -> dict:
+    """19. ``bench_stress(full_scale=True)`` on the closed loop's fleet
+    (qwen2-1.5b, starcoder2-3b, xlstm-350m, qwen2-1.5b; bf16), its ladder
+    cut to fit this script's time: JSQ only, offered rates 8, 32 and 128
+    req/s over a 0.35 s window (stages of 3, 11 and 45 requests; the
+    reference's quick ladder runs 8 to 2048 req/s for JSQ and
+    round-robin), and the overlap A/B at 32 req/s (best of two each).
+    Every run: each request terminal, none failed (no faults are
+    injected), kv_leak 0, nothing quarantined, launches as the engines'
+    passes imply.  Records the saturation rate, goodput per stage and the
+    overlap speedup.  Returns the summed launches."""
+    import torch
+    from repro_torch.bench.stress import bench_stress
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    _, records = bench_stress(rates=STRESS_RATES, schedulers=("jsq",),
+                              window_s=STRESS_WINDOW_S, device="cuda",
+                              full_scale=True,
+                              log=lambda m: log(f"  {m}"))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    stages = [r for r in records if r["bench"] == "stress_stage"]
+    (summary,) = [r for r in records if r["bench"] == "stress_summary"]
+    (ab,) = [r for r in records if r["bench"] == "stress_ab"]
+    sums = dict.fromkeys(ops.launches, 0)
+    ab_n = round(ab["offered_rate"] * STRESS_WINDOW_S)
+    for st in stages + ab["runs"]:
+        label = (f"phase 19 {st['offered_rate']:g} req/s"
+                 f"{'' if 'stage' in st else ' (A/B)'}")
+        depths = {e["arch"]: e["layers"] for e in st["engines"]}
+        if depths != CL_DEPTHS:
+            fail(f"{label}: fleet {st['engines']}")
+        n = st.get("num_requests", ab_n)
+        if st["failed"] or st["completed"] + st["abandoned"] != n:
+            fail(f"{label}: {st['completed']} ok, {st['abandoned']} "
+                 f"abandoned, {st['failed']} failed of {n}")
+        if any(e["kv_leak"] for e in st["engines"]) or st["quarantined"]:
+            fail(f"{label}: kv_leak {[e['kv_leak'] for e in st['engines']]}"
+                 f", quarantined {st['quarantined']}")
+        want = _paged_launches(st["engines"])
+        if st["launches"] != want:
+            fail(f"{label}: launches {st['launches']}, the run implies "
+                 f"{want}")
+        for k, v in st["launches"].items():
+            sums[k] += v
+    for st in stages:
+        log(f"  stage {st['stage']}: {st['offered_rate']:g} req/s, "
+            f"{st['num_requests']} requests: throughput "
+            f"{st['throughput_rps']:.2f} req/s, goodput "
+            f"{st['goodput_rps']:.2f} req/s, p50/p95/p99 "
+            f"{st['p50_s']:.3f}/{st['p95_s']:.3f}/{st['p99_s']:.3f} s, "
+            f"miss {st['deadline_miss_rate']:.3f}, shed {st['abandoned']},"
+            f" wall {st['wall_s']:.2f} s")
+    log(f"phase 19 ok: saturation at {summary['saturation_rate']:g} req/s "
+        f"(peak goodput {summary['peak_goodput_rps']:.2f} req/s); overlap "
+        f"A/B at {ab['offered_rate']:g} req/s: serial "
+        f"{ab['serial_wall_s']:.3f} s, overlapped {ab['overlap_wall_s']:.3f}"
+        f" s, speedup {ab['overlap_speedup']:.3f}x; every run terminal, "
+        f"none failed, no KV leak, nothing quarantined; launches {sums}; "
+        f"{total:.1f} s")
+    return sums
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -1868,6 +2329,22 @@ def main() -> None:
         _free_card()
     phase_dense_round_breakdown("phase 15b", MUSICGEN, 128)
     _free_card()
+    chaos = {"16": phase_crash_drill()}
+    _free_card()
+    chaos["17"] = phase_chaos_serve()
+    _free_card()
+    chaos["18"] = phase_chaos_bench()
+    _free_card()
+    chaos["19"] = phase_stress()
+    _free_card()
+    for k in ("paged_flash_decode", "flash_attention", "flash_decode",
+              "ladn_denoise"):
+        if not any(v[k] for v in chaos.values()):
+            fail(f"{k} never launched in phases 16-19")
+
+    def by_phase(name):
+        return {ph: v[name] for ph, v in chaos.items()}
+
     bf = checks["serve"]["bfloat16"]
     act = ladn["act"]
     ladn_shapes = {k: v for k, v in ladn.items()
@@ -1881,6 +2358,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/decode_attention.py:132",
         "launches": launches,
         "launches_closedloop": closed["paged_flash_decode"],
+        "launches_chaos": by_phase("paged_flash_decode"),
         "kernel_launches_per_call": bf["kernel_launches_per_call"],
         "max_abs_err": max(c["bfloat16"]["max_abs_err"]
                            for c in checks.values()),
@@ -1896,6 +2374,7 @@ def main() -> None:
         "launches": ladn_launches,
         "launches_eval": eval_launches, "launches_live": live_launches,
         "launches_closedloop": closed["ladn_denoise"],
+        "launches_chaos": by_phase("ladn_denoise"),
         "max_abs_err": max(v["max_abs_err"] for v in ladn_shapes.values()),
         "ms": act["ms"], "eager_ms": act["eager_ms"],
         "plain_ms": act["plain_ms"], "bound_ms": act["bound_ms"],
@@ -1913,6 +2392,7 @@ def main() -> None:
         "launches": attn_launches,
         "launches_paged_prefill": paged_attn_launches,
         "launches_closedloop": closed["flash_attention"],
+        "launches_chaos": by_phase("flash_attention"),
         # phase 15's serve runs (warm-up included) and phase 14's engines
         "launches_multimodal": {a: v["flash_attention"]
                                 for a, v in mm.items()},
@@ -1920,7 +2400,8 @@ def main() -> None:
                                     for a, v in mm_forced.items()},
         "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
-        "max_abs_err_f32": attn["rg_prefill_f32"]["max_abs_err"],
+        "max_abs_err_f32": max(v["max_abs_err"] for k, v in shapes.items()
+                               if v["shape"]["dtype"] == "float32"),
         **({"ptxas": attn["ptxas"]} if "ptxas" in attn else {}),
         "ms": pre["ms"], "eager_ms": pre["eager_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
@@ -1931,6 +2412,7 @@ def main() -> None:
         "replaces": "src/repro/kernels/decode_attention.py:48",
         "launches": dec_launches,
         "launches_multimodal": {a: v["flash_decode"] for a, v in mm.items()},
+        "launches_chaos": by_phase("flash_decode"),
         "launches_teacher_forced": {a: v["flash_decode"]
                                     for a, v in mm_forced.items()},
         "kernel_launches_per_call": rnd["kernel_launches_per_call"],

@@ -1,13 +1,17 @@
 """Bench runner of the port: prints ``name,us_per_call,derived`` CSV.
 
   PYTHONPATH=src python -m repro_torch.bench closedloop --device cpu
+  PYTHONPATH=src python -m repro_torch.bench chaos --device cpu
+  PYTHONPATH=src python -m repro_torch.bench stress --device cpu
   PYTHONPATH=src python -m repro_torch.bench closedloop --full-scale \\
       --out closedloop.json
 
-``closedloop`` mirrors ``python -m benchmarks.run --only closedloop``; it
-runs on ``cuda`` unless ``--device cpu`` is given.  ``--out`` writes the
-records as JSON (``{"bench", "full_scale", "records"}``); nothing is written
-otherwise.
+``closedloop``, ``chaos`` and ``stress`` mirror ``python -m
+benchmarks.run --only closedloop|chaos|stress`` at the reference's quick
+scale; they run on ``cuda`` unless ``--device cpu`` is given.  ``--out``
+writes the records as JSON (``{"bench", "full_scale", "records"}``, the
+records shaped as the reference's ``BENCH_<name>.json`` records);
+nothing is written otherwise.
 """
 from __future__ import annotations
 
@@ -17,7 +21,16 @@ import sys
 import time
 from typing import List, Optional
 
-BENCHES = ("closedloop",)
+BENCHES = ("closedloop", "chaos", "stress")
+
+
+def _bench(name: str):
+    if name == "stress":
+        from repro_torch.bench import stress
+        return stress.bench_stress
+    from repro_torch.bench import serving
+    return {"closedloop": serving.bench_closed_loop,
+            "chaos": serving.bench_chaos}[name]
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -30,10 +43,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="write the JSON records to this path")
     args = ap.parse_args(argv)
 
-    from repro_torch.bench.serving import bench_closed_loop
     t0 = time.time()
-    rows, records = bench_closed_loop(device=args.device,
-                                      full_scale=args.full_scale)
+    rows, records = _bench(args.bench)(device=args.device,
+                                       full_scale=args.full_scale)
     print("name,us_per_call,derived")
     for r in rows:
         print(r)

@@ -1,15 +1,26 @@
-"""Closed-loop serving bench of the port.
+"""Serving benches of the port on the cluster API.
 
-Port of ``bench_qos_mix`` and ``bench_closed_loop`` from
-``benchmarks/serving.py``: train LAD-TS in the QoS-enabled simulator,
-then replay one mixed-QoS Poisson trace through a heterogeneous live
-fleet (``FLEET_ARCHS`` cycled over the edge servers: attention models on
-the paged KV pool, xLSTM on a dense slot pool) under the paper policy and
-each baseline, and evaluate the same schedulers in the simulator on the
-same extended Eqn-6 observation.  The CSV rows and record keys are the
-reference's; each live record also carries the run's kernel launches,
-per-engine counters, generated tokens per second and, on the card, peak
-device memory.
+Port of ``bench_qos_mix``, ``bench_closed_loop`` and ``bench_chaos`` from
+``benchmarks/serving.py``:
+
+``bench_closed_loop``  train LAD-TS in the QoS-enabled simulator, then
+                       replay one mixed-QoS Poisson trace through a
+                       heterogeneous live fleet (``FLEET_ARCHS`` cycled
+                       over the edge servers: attention models on the
+                       paged KV pool, xLSTM on a dense slot pool) under
+                       the paper policy and each baseline, and evaluate
+                       the same schedulers in the simulator on the same
+                       extended Eqn-6 observation;
+``bench_chaos``        the same kind of trace per scheduler while one
+                       engine crashes mid-trace and recovers: completion
+                       rate, retries, orphan-recovery latency, goodput
+                       and the KV-accounting invariant, plus the
+                       fault-enabled simulator's wrong-choice rate.
+
+The CSV rows and record keys are the reference's; each live record also
+carries the port's ``PORT_KEYS``: the run's kernel launches, per-engine
+counters, generated tokens per second and, on the card, peak device
+memory.
 
 ``full_scale=True`` builds the fleet at published widths, depth and
 dtype (qwen2-1.5b 28 layers, starcoder2-3b 30, xlstm-350m 24, bf16);
@@ -21,6 +32,7 @@ from __future__ import annotations
 import time
 from typing import List
 
+import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
@@ -31,6 +43,7 @@ from repro_torch.core.agents import AgentConfig
 from repro_torch.core.diffusion import DiffusionPolicyConfig
 from repro_torch.core.env import EnvParams
 from repro_torch.core.trainer import train_method
+from repro_torch.faults import FaultParams, RetryPolicy, single_crash
 from repro_torch.kernels import ops
 from repro_torch.serving.builders import build_fleet, warmup
 from repro_torch.workload import BEST_EFFORT, INTERACTIVE, STANDARD, scaled
@@ -38,6 +51,50 @@ from repro_torch.workload import BEST_EFFORT, INTERACTIVE, STANDARD, scaled
 # two arch families (attention -> paged KV pool, xLSTM -> dense slot pool)
 # at different parameter scales, cycled over the edge servers
 FLEET_ARCHS = ("qwen2-1.5b", "starcoder2-3b", "xlstm-350m")
+# the keys a live record carries beside the reference's
+PORT_KEYS = ("device", "tok_s", "launches", "engines", "peak_mem_gib")
+
+
+def bench_fleet(n_edge: int, max_len: int, kv_slots: int,
+                prefill_chunk: int, dev, full_scale: bool, **kw):
+    """``FLEET_ARCHS`` cycled over ``n_edge`` engines (reduced configs at
+    depths 2/3 alternating, or published ones), warmed up by the caller;
+    returns the engines and the one vocabulary every engine tokenizes."""
+    archs = [FLEET_ARCHS[i % len(FLEET_ARCHS)] for i in range(n_edge)]
+    engines = build_fleet(archs, max_len,
+                          depths=(None if full_scale else
+                                  [2 + (i % 2) for i in range(n_edge)]),
+                          seed0=1, kv_slots=kv_slots,
+                          prefill_chunk=prefill_chunk,
+                          max_lanes=4 * kv_slots, device=dev,
+                          full_scale=full_scale, **kw)
+    return engines, min(e.cfg.vocab_size for e in engines)
+
+
+def start_run(dev) -> dict:
+    """Launch counts before a live run (and the card's peak reset)."""
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    return dict(ops.launches)
+
+
+def run_extras(dev, engines, done, wall: float, launches0: dict) -> dict:
+    """The port's ``PORT_KEYS`` of one live run: what it launched and
+    what each engine did."""
+    return {
+        "device": str(dev),
+        "tok_s": sum(len(r.tokens) for r in done) / max(wall, 1e-9),
+        "launches": {k: v - launches0[k] for k, v in ops.launches.items()},
+        "engines": [{"arch": e.arch_id, "layers": e.cfg.num_layers,
+                     "paged": bool(e.paged),
+                     "requests": sum(r.engine_id == i for r in done),
+                     "prefills": e.prefills,
+                     "decode_rounds": e.decode_rounds,
+                     "token_ms": e.est_token_seconds * 1e3,
+                     "kv_leak": e.kv_leak}
+                    for i, e in enumerate(engines)],
+        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                         if dev.type == "cuda" else None)}
 
 
 def bench_qos_mix(gen_tokens: int, prompt_len: int = 0):
@@ -130,21 +187,13 @@ def bench_closed_loop(n_edge: int = 4, num_requests: int = 24,
             log(rows[-1])
 
     # --- and against the live heterogeneous fleet --------------------------
-    archs = [FLEET_ARCHS[i % len(FLEET_ARCHS)] for i in range(n_edge)]
     # engines are provisioned for requests up to max_len; batch-class
     # requests generate up to 3 * gen_tokens
     max_len = 3 * (prompt_len + gen_tokens)
     t0 = time.monotonic()
-    engines = build_fleet(archs, max_len,
-                          depths=(None if full_scale else
-                                  [2 + (i % 2) for i in range(n_edge)]),
-                          seed0=1, kv_slots=kv_slots,
-                          prefill_chunk=prefill_chunk,
-                          page_size=page_size,
-                          max_lanes=4 * kv_slots, device=dev,
-                          full_scale=full_scale)
     # one trace must tokenize for every engine in the mixed fleet
-    vocab = min(e.cfg.vocab_size for e in engines)
+    engines, vocab = bench_fleet(n_edge, max_len, kv_slots, prefill_chunk,
+                                 dev, full_scale, page_size=page_size)
     warmup(engines, prompt_len)
     if log:
         fleet = [(e.arch_id, e.cfg.num_layers, e.cfg.dtype) for e in engines]
@@ -162,9 +211,7 @@ def bench_closed_loop(n_edge: int = 4, num_requests: int = 24,
                               num_origins=n_edge, seed=seed + 1,
                               qos_mix=mix, prefix_len=prefix_len,
                               prefix_frac=prefix_frac)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        launches0 = dict(ops.launches)
+        launches0 = start_run(dev)
         t0 = time.monotonic()
         done = cluster.run(trace)
         wall = time.monotonic() - t0
@@ -200,21 +247,119 @@ def bench_closed_loop(n_edge: int = 4, num_requests: int = 24,
             "prefix_evictions": int(sum(e.prefix_evictions
                                         for e in engines)),
             **stats,
-            # the port's additions: what the run launched and did
-            "device": str(dev),
-            "tok_s": sum(len(r.tokens) for r in done) / max(wall, 1e-9),
-            "launches": {k: v - launches0[k]
-                         for k, v in ops.launches.items()},
-            "engines": [{"arch": e.arch_id, "layers": e.cfg.num_layers,
-                         "paged": bool(e.paged),
-                         "requests": sum(r.engine_id == i for r in done),
-                         "prefills": e.prefills,
-                         "decode_rounds": e.decode_rounds,
-                         "token_ms": e.est_token_seconds * 1e3,
-                         "kv_leak": e.kv_leak}
-                        for i, e in enumerate(engines)],
-            "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                             if dev.type == "cuda" else None)})
+            **run_extras(dev, engines, done, wall, launches0)})
+        if log:
+            log(rows[-1])
+    return rows, records
+
+
+def bench_chaos(n_edge: int = 2, num_requests: int = 16, rate: float = 48.0,
+                prompt_len: int = 16, gen_tokens: int = 6, seed: int = 0,
+                kv_slots: int = 2, prefill_chunk: int = 8,
+                fault_seed: int = 0, device: DeviceLike = None,
+                full_scale: bool = False, log=None):
+    """Chaos run on ``device``: one hard mid-trace crash and recovery, per
+    scheduler.
+
+    A calibration pass (JSQ, fault-free) measures the trace's makespan;
+    the chaos passes then crash one engine (drawn from ``fault_seed``) at
+    0.3x that makespan and recover it 0.35x later, so every scheduler
+    faces the same schedule.  Acceptance, as in the reference: every
+    non-abandoned request completes (completion_rate == 1.0), retries
+    stay within the policy's cap, and each engine's KV accounting returns
+    to zero.  Returns (csv_rows, json_records)."""
+    dev = resolve_device(device)
+    mix = bench_qos_mix(gen_tokens, prompt_len=prompt_len)
+    E = n_edge
+    max_len = 3 * (prompt_len + gen_tokens)
+    t0 = time.monotonic()
+    engines, vocab = bench_fleet(E, max_len, kv_slots, prefill_chunk, dev,
+                                 full_scale)
+    warmup(engines, prompt_len)
+    if log:
+        fleet = [(e.arch_id, e.cfg.num_layers, e.cfg.dtype) for e in engines]
+        log(f"fleet {fleet} built and warmed in "
+            f"{time.monotonic() - t0:.2f} s")
+
+    def trace():
+        return poisson_trace(num_requests, rate=rate,
+                             prompt_len=prompt_len,
+                             max_new_tokens=gen_tokens, vocab_size=vocab,
+                             num_origins=E, seed=seed + 1, qos_mix=mix)
+
+    # --- calibration: the fault-free makespan anchors the schedule -------
+    for e in engines:
+        e.reset()
+    t0 = time.monotonic()
+    EdgeCluster(engines, make_scheduler("jsq", E), seed=seed).run(trace())
+    makespan = time.monotonic() - t0
+    crash_t = 0.3 * makespan
+    downtime = 0.35 * makespan
+    victim = int(np.random.default_rng(fault_seed).integers(E))
+    if log:
+        log(f"calibration makespan {makespan:.3f} s: engine {victim} "
+            f"crashes at {crash_t:.3f} s for {downtime:.3f} s")
+
+    rows: List[str] = []
+    records: List[dict] = []
+    scheds = {
+        "failure-aware": make_scheduler("failure-aware", E, qos=True),
+        "deadline": make_scheduler("deadline", E),
+        "jsq": make_scheduler("jsq", E),
+        "round-robin": make_scheduler("round-robin", E),
+    }
+    for name, s in scheds.items():
+        for e in engines:
+            e.reset()
+        inj = single_crash(engine=victim, t_s=crash_t,
+                           downtime_s=downtime, num_engines=E)
+        cluster = EdgeCluster(engines, s, seed=seed, faults=inj,
+                              retry=RetryPolicy())
+        launches0 = start_run(dev)
+        t0 = time.monotonic()
+        done = cluster.run(trace())
+        wall = time.monotonic() - t0
+        stats = summarize(done)
+        fs = cluster.fault_stats
+        rec_s = fs["orphan_recovery_s"]
+        leak = [int(e.kv_leak) for e in engines]
+        rows.append(
+            f"chaos_live/{name},{wall/max(num_requests,1)*1e6:.0f},"
+            f"cr={stats['completion_rate']:.3f};"
+            f"completed={stats['completed']};failed={stats['failed']};"
+            f"abandoned={stats['abandoned']};retries={stats['retries']};"
+            f"orphans={fs['orphaned']};"
+            f"goodput={stats.get('weighted_goodput', 0.0):.2f};"
+            f"kv_leak={sum(leak)}")
+        records.append({
+            "bench": "chaos_live", "scheduler": name, "wall_s": wall,
+            "makespan_calib_s": makespan,
+            "goodput_rps": stats["completed"] / max(wall, 1e-9),
+            "fault_schedule": inj.describe(), "fault_seed": fault_seed,
+            "orphan_recovery_mean_s": (float(np.mean(rec_s))
+                                       if rec_s else 0.0),
+            "kv_leak": leak,
+            **{k: v for k, v in fs.items() if k != "orphan_recovery_s"},
+            **stats,
+            **run_extras(dev, engines, done, wall, launches0)})
+        if log:
+            log(rows[-1])
+
+    # --- the fault-enabled simulator twin: wrong-choice rate -------------
+    p = EnvParams(num_bs=E, num_slots=8, max_tasks=5,
+                  fault=FaultParams(p_down=0.15, p_up=0.5))
+    for name in ("failure-aware", "jsq", "round-robin"):
+        s = make_scheduler(name, E)
+        t0 = time.monotonic()
+        r = evaluate_scheduler(s, p, episodes=2, seed=seed, device=dev)
+        r.pop("carry", None)
+        wall = time.monotonic() - t0
+        rows.append(f"chaos_sim/{name},{wall/max(r['count'],1)*1e6:.0f},"
+                    f"mean={r['mean_s']:.3f}s;"
+                    f"wrong={r['wrong_choice_rate']:.3f}")
+        records.append({"bench": "chaos_sim", "scheduler": name,
+                        "wall_s": wall, "p_down": p.fault.p_down,
+                        "p_up": p.fault.p_up, **r})
         if log:
             log(rows[-1])
     return rows, records

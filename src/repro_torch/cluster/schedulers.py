@@ -11,9 +11,8 @@ caller, where the reference takes a JAX key.
 
 ``PolicyScheduler`` wraps trained LAD-TS / D2SAC-TS / SAC-TS / DQN-TS
 agent states from ``repro_torch.core.trainer``; the rest are the
-non-learned baselines, the deadline-aware and prefix-affinity ones on the
-QoS- and prefix-extended rows.  The failure-aware baseline comes with the
-fault slice (ROADMAP.md A4).
+non-learned baselines, the deadline-aware, failure-aware and
+prefix-affinity ones on the QoS-, availability- and prefix-extended rows.
 """
 from __future__ import annotations
 
@@ -131,6 +130,42 @@ class DeadlineAwareScheduler(Scheduler):
                             dim=-1), carry
 
 
+class FailureAwareScheduler(Scheduler):
+    """Availability-masked least-work placement on a fault-extended row.
+
+    The row's trailing ``E`` columns are the per-engine availability
+    features (1 healthy / 0.5 degraded / 0 down) that
+    ``EdgeCluster.observe`` and the fault-enabled ``core.env`` append.
+    Placement is JSQ over the available engines, plus this task's
+    expected compute there with ``qos=True``; DOWN engines are masked,
+    so it never pays the simulator's wrong-choice penalty, and a
+    DEGRADED engine's cost is doubled."""
+
+    name = "failure-aware"
+
+    def __init__(self, num_engines: int, qos: bool = False):
+        super().__init__(num_engines)
+        self.qos = bool(qos)
+        base = 3 + 2 * num_engines if qos else 2 + num_engines
+        self.state_dim = base + num_engines
+
+    def select(self, carry, s, n, generator):
+        E = self.num_engines
+        cost = s[:, 2:2 + E]
+        if self.qos:
+            cost = cost + s[:, 3 + E:3 + 2 * E]
+        return torch.argmin(_mask_down(cost, s[:, -E:]), dim=-1), carry
+
+
+def _mask_down(cost: torch.Tensor, avail: torch.Tensor) -> torch.Tensor:
+    """Scale each cost by 1 / availability (at least 0.5) and mask DOWN
+    engines to +inf.  An all-down row's argmin is 0; the live cluster
+    never reaches it (``submit`` refuses on a total outage)."""
+    cost = cost / torch.clamp(avail, min=0.5)
+    return torch.where(avail > 0.25, cost,
+                       torch.full_like(cost, float("inf")))
+
+
 class PrefixAffinityScheduler(Scheduler):
     """Cache-aware placement: route where the prompt's KV already lives.
 
@@ -141,30 +176,29 @@ class PrefixAffinityScheduler(Scheduler):
 
         cost_e = q_e [+ c_e with qos=True] - hit_weight * hit_e
 
-    ``fault=True`` (the availability columns before the hit block) comes
-    with the fault slice (ROADMAP.md A4)."""
+    With ``fault=True`` the availability columns (just before the hit
+    block) mask DOWN engines as ``failure-aware`` does."""
 
     name = "prefix-affinity"
     prefix_obs = True
 
     def __init__(self, num_engines: int, qos: bool = False,
                  fault: bool = False, hit_weight: float = 0.5):
-        if fault:
-            raise NotImplementedError(
-                "prefix-affinity with fault=True reads the availability "
-                "columns, which are not ported to repro_torch yet "
-                "(ROADMAP.md A4)")
         super().__init__(num_engines)
         self.qos = bool(qos)
+        self.fault = bool(fault)
         self.hit_weight = float(hit_weight)
-        self.state_dim = (3 + 2 * num_engines if self.qos
-                          else 2 + num_engines) + num_engines
+        base = 3 + 2 * num_engines if self.qos else 2 + num_engines
+        self.state_dim = (base + (num_engines if self.fault else 0)
+                          + num_engines)
 
     def select(self, carry, s, n, generator):
         E = self.num_engines
         cost = s[:, 2:2 + E]
         if self.qos:
             cost = cost + s[:, 3 + E:3 + 2 * E]
+        if self.fault:
+            cost = _mask_down(cost, s[:, -2 * E:-E])
         return torch.argmin(cost - self.hit_weight * s[:, -E:],
                             dim=-1), carry
 
@@ -233,15 +267,15 @@ class PolicyScheduler(Scheduler):
 
 
 BASELINES = ("round-robin", "jsq", "random", "local", "deadline",
-             "prefix-affinity")
-_LATER = {"failure-aware": "A4"}
+             "failure-aware", "prefix-affinity")
 
 
 def make_scheduler(name: str, num_engines: int,
                    **policy_kwargs) -> Scheduler:
     """Factory: a baseline by name, or a learned method given
-    ``cfg``, ``states`` and ``n_max``.  ``prefix-affinity`` accepts
-    ``qos=``, ``fault=`` and ``hit_weight=`` (cache-credit strength)."""
+    ``cfg``, ``states`` and ``n_max``.  ``failure-aware`` accepts
+    ``qos=``; ``prefix-affinity`` accepts ``qos=``, ``fault=`` and
+    ``hit_weight=`` (cache-credit strength)."""
     if name == "round-robin":
         return RoundRobinScheduler(num_engines)
     if name == "jsq":
@@ -252,6 +286,9 @@ def make_scheduler(name: str, num_engines: int,
         return LocalOnlyScheduler(num_engines)
     if name == "deadline":
         return DeadlineAwareScheduler(num_engines)
+    if name == "failure-aware":
+        return FailureAwareScheduler(num_engines,
+                                     qos=policy_kwargs.pop("qos", False))
     if name == "prefix-affinity":
         return PrefixAffinityScheduler(
             num_engines, qos=policy_kwargs.pop("qos", False),
@@ -260,9 +297,5 @@ def make_scheduler(name: str, num_engines: int,
     if name in LEARNED:
         return PolicyScheduler(name, num_engines=num_engines,
                                **policy_kwargs)
-    if name in _LATER:
-        raise NotImplementedError(
-            f"scheduler {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP.md {_LATER[name]})")
     raise ValueError(f"unknown scheduler {name!r}; options: "
                      f"{BASELINES + LEARNED}")

@@ -30,7 +30,16 @@ interactive / standard / batch classes (``DEFAULT_MIX``), engines drain
 in priority/EDF order, learned policies train on the QoS-extended
 observation, ``--scheduler deadline`` becomes available, and the summary
 adds the deadline-miss rate, priority-weighted goodput and a line per
-class.  ``--chaos`` (the fault layer) is not ported yet.
+class.
+
+``--chaos`` switches on the fault layer (``repro_torch.faults``): a
+schedule drawn from ``--fault-seed`` (one crash and one slowdown over the
+trace's expected span plus 2 s) crashes and slows engines mid-trace,
+orphaned requests are retried with backoff, learned policies train in
+the fault-enabled simulator (availability observation and wrong-choice
+penalty), ``--scheduler failure-aware`` masks DOWN engines, and the
+summary adds the terminal-status breakdown (completion rate, retries,
+failed, abandoned, orphans).
 """
 from __future__ import annotations
 
@@ -50,30 +59,38 @@ from repro_torch.core.agents import AgentConfig
 from repro_torch.core.diffusion import DiffusionPolicyConfig
 from repro_torch.core.env import EnvParams
 from repro_torch.core.trainer import LEARNED, train_method
+from repro_torch.faults import (FaultInjector, FaultParams, FaultSpec,
+                                RetryPolicy)
 from repro_torch.kernels import ops
 from repro_torch.serving.builders import build_engines, warmup
 from repro_torch.workload import DEFAULT_MIX
 
 
 def build_scheduler(name: str, n_edge: int, train_episodes: int, seed: int,
-                    device: DeviceLike = None, qos: bool = False):
+                    device: DeviceLike = None, qos: bool = False,
+                    chaos: bool = False):
     """A baseline by name, or a learned policy trained in the simulator on
     ``device`` first (``n_edge`` stations, 8 slots of up to 6 tasks, a
-    3-step chain, and ``DEFAULT_MIX`` with ``qos``), as the reference's
-    launcher trains it."""
+    3-step chain, ``DEFAULT_MIX`` with ``qos`` and the default
+    ``FaultParams`` with ``chaos``), as the reference's launcher trains
+    it."""
     if name == "deadline" and not qos:
         raise SystemExit("--scheduler deadline needs the QoS-extended "
                          "observation; pass --qos")
-    if name == "prefix-affinity":
+    if name == "failure-aware":
         return make_scheduler(name, n_edge, qos=qos)
+    if name == "prefix-affinity":
+        return make_scheduler(name, n_edge, qos=qos, fault=chaos)
     if name not in LEARNED:
         return make_scheduler(name, n_edge)
     p = EnvParams(num_bs=n_edge, num_slots=8, max_tasks=6,
-                  qos_mix=DEFAULT_MIX if qos else ())
+                  qos_mix=DEFAULT_MIX if qos else (),
+                  fault=FaultParams() if chaos else None)
     acfg = AgentConfig(train_after=40, replay_capacity=200,
                        diffusion=DiffusionPolicyConfig(num_steps=3))
     print(f"[serve] training {name} in-sim for {train_episodes} episodes "
-          f"({n_edge} edge servers)...")
+          f"({n_edge} edge servers"
+          f"{', fault-enabled' if chaos else ''})...")
     _, states = train_method(name, p, acfg, episodes=train_episodes,
                              seed=seed, device=device)
     return PolicyScheduler(name, acfg, states, num_engines=n_edge,
@@ -97,7 +114,11 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--qos", action="store_true",
                     help="mixed interactive/standard/batch QoS trace + "
                          "extended scheduler observation")
-    ap.add_argument("--chaos", action="store_true", help="not yet ported")
+    ap.add_argument("--chaos", action="store_true",
+                    help="inject a deterministic fault schedule (one "
+                         "crash + one slowdown) and retry orphans")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the --chaos fault schedule")
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="share a seeded system-prompt prefix of this many "
                          "tokens across --prefix-frac of the trace")
@@ -118,23 +139,20 @@ def main(argv: Optional[List[str]] = None) -> dict:
     """Serve one trace; prints per-request lines and a summary line and
     returns ``summarize()``'s dict, plus ``engines`` (per-engine layers,
     memory model, prefill passes, decode rounds, measured ms per decode
-    token and KV leak),
+    token and KV leak), ``fault_stats`` and ``fault_schedule`` (the
+    cluster's fault counters and the injector's schedule; empty without
+    ``--chaos``), ``placements`` (the scheduler's decisions: first tries
+    and retries),
     ``launches`` (kernel launches of the serving run, the cluster's
     scheduler warm-up included), ``train_s`` (seconds spent building the
     scheduler: a learned one's in-sim training), ``wall_s`` and ``tok_s``
     (generated tokens per second of the run)."""
     args = _parser().parse_args(argv)
-    if args.chaos:
-        raise SystemExit("--chaos is not yet ported to repro_torch "
-                         "(ROADMAP.md A4)")
     t0 = time.perf_counter()
-    try:
-        scheduler = build_scheduler(args.scheduler, args.edges,
-                                    args.train_episodes, args.seed,
-                                    device=args.device, qos=args.qos)
-    except NotImplementedError as exc:
-        raise SystemExit(f"--scheduler {args.scheduler}: not yet ported "
-                         f"({exc})") from exc
+    scheduler = build_scheduler(args.scheduler, args.edges,
+                                args.train_episodes, args.seed,
+                                device=args.device, qos=args.qos,
+                                chaos=args.chaos)
     train_s = time.perf_counter() - t0
 
     max_tokens = (max(args.tokens, *(c.z_range[1] for c, _ in DEFAULT_MIX))
@@ -152,8 +170,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
     warmup(engines, args.prompt_len)
     launches0 = dict(ops.launches)
 
+    injector = retry = None
+    if args.chaos:
+        # horizon = expected trace span + service tail headroom
+        horizon = args.requests / max(args.rate, 1e-9) + 2.0
+        injector = FaultInjector.from_spec(
+            FaultSpec(crashes=1, slowdowns=1), args.edges,
+            horizon_s=horizon, seed=args.fault_seed)
+        retry = RetryPolicy()
+        for ev in injector.describe():
+            print(f"[serve] fault @{ev['t_s']:.2f}s engine={ev['engine']} "
+                  f"{ev['kind']}")
     cluster = EdgeCluster(engines, scheduler, seed=args.seed,
-                          qos_obs=args.qos)
+                          qos_obs=args.qos, faults=injector, retry=retry)
     trace = poisson_trace(args.requests, rate=args.rate,
                           prompt_len=args.prompt_len,
                           max_new_tokens=args.tokens,
@@ -175,13 +204,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     done = cluster.run(trace)
     wall = time.perf_counter() - t0
     for r in sorted(done, key=lambda r: r.rid):
+        if not r.done:          # failed / abandoned: no timestamps
+            print(f"[serve] req {r.rid}: {r.status} ({r.fail_reason})")
+            continue
         tps = (f"tok/s={len(r.tokens)/r.decode_s:.1f}"
                if r.decode_s > 0 else "tok/s=n/a")
+        retried = f" attempts={r.attempts}" if r.attempts > 1 else ""
         print(f"[serve] req {r.rid}: engine={r.engine_id} "
               f"queue={r.queue_s*1e3:.1f}ms "
               f"prefill={r.prefill_s*1e3:.1f}ms "
               f"decode={r.decode_s*1e3:.1f}ms "
-              f"service={r.service_s*1e3:.1f}ms {tps}")
+              f"service={r.service_s*1e3:.1f}ms {tps}{retried}")
     st = summarize(done)
     line = (f"[serve] {scheduler.name}: n={st['count']} "
             f"mean={st['mean_s']*1e3:.1f}ms p95={st['p95_s']*1e3:.1f}ms "
@@ -189,6 +222,12 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if st["prefill_tokens_saved"]:
         line += (f" prefix_saved={st['prefill_tokens_saved']}tok"
                  f" hit={st['prefix_hit_rate']:.2f}")
+    if args.chaos:
+        fs = cluster.fault_stats
+        line += (f" cr={st['completion_rate']:.3f}"
+                 f" retries={st['retries']}"
+                 f" failed={st['failed']} abandoned={st['abandoned']}"
+                 f" orphans={fs['orphaned']}")
     if args.qos:
         line += (f" miss={st['deadline_miss_rate']:.2f}"
                  f" goodput={st['weighted_goodput']:.2f}")
@@ -203,6 +242,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                       "decode_rounds": e.decode_rounds,
                       "token_ms": e.est_token_seconds * 1e3,
                       "kv_leak": e.kv_leak} for e in engines]
+    st["fault_stats"] = dict(cluster.fault_stats)
+    st["fault_schedule"] = injector.describe() if injector else []
+    st["placements"] = sum(r.attempts for r in done)
     st["launches"] = {k: v - launches0[k] for k, v in ops.launches.items()}
     st["train_s"] = train_s
     st["wall_s"] = wall

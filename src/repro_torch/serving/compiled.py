@@ -10,7 +10,7 @@ with ROADMAP.md A7.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -20,12 +20,27 @@ from repro_torch.train.steps import (make_decode_step,
                                      make_prefill_step)
 
 _CACHE: Dict[Tuple, Callable] = {}
+_STATS = {"hits": 0, "misses": 0}
 
 
 def _get(key: Tuple, build: Callable[[], Callable]) -> Callable:
-    if key not in _CACHE:
-        _CACHE[key] = build()
-    return _CACHE[key]
+    fn = _CACHE.get(key)
+    if fn is None:
+        _STATS["misses"] += 1
+        fn = _CACHE[key] = build()
+    else:
+        _STATS["hits"] += 1
+    return fn
+
+
+def cache_info() -> Dict[str, Any]:
+    """Snapshot for tests and diagnostics: entry keys and hit counts."""
+    return {"size": len(_CACHE), "keys": list(_CACHE), **_STATS}
+
+
+def clear_cache() -> None:
+    _CACHE.clear()
+    _STATS["hits"] = _STATS["misses"] = 0
 
 
 def _no_mesh(mesh) -> None:

@@ -34,8 +34,16 @@ Dispatch moves host data to the device through pinned buffers with
 ``non_blocking=True``, so it never waits for queued device work; tokens
 that feed the next round stay on the device.
 
-Fault transitions (``fail``/``degrade``) come with the fault slice
-(ROADMAP.md A4).
+Health (``repro_torch.faults``): :meth:`fail` crashes the engine (DOWN:
+queued and in-flight requests are orphaned, an uncollected dispatch is
+dropped, every page reference or slot is reclaimed), :meth:`degrade`
+stalls it for a window on the engine's clock (self-healing) or lets it
+serve one step out of ``slow_every`` until :meth:`recover`, and
+:meth:`shed` hands the cluster's watchdog the queued requests it
+abandons.  A dropped round's kernels have already been enqueued: its
+launches stay counted (``decode_rounds``, ``prefills`` count at
+dispatch), and everything runs on one stream, so pages it freed and a
+later prefill reuses are written after the dropped round's writes.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.cluster.request import Request
-from repro_torch.faults.policy import Health
+from repro_torch.faults.policy import AVAILABILITY, Health
 from repro_torch.serving import compiled
 from repro_torch.serving.paged_kv import (BlockTable, PagePool, PrefixCache,
                                           cdiv, paged_supported)
@@ -147,6 +155,10 @@ class ServeEngine:
         self._pending: Optional[_Pending] = None
         self._round_t0 = 0.0
         self.health = Health.HEALTHY
+        self.fail_reason: Optional[str] = None
+        self._stall_until = 0.0        # stalled until this engine-clock time
+        self._slow_every = 1           # slowed: serve one step out of this
+        self._step_seq = 0             # gated dispatches while slowed
         self.prefill_tokens_saved = 0
         self.prefix_hits = 0
         self.prefix_lookups = 0
@@ -198,9 +210,11 @@ class ServeEngine:
         """Enqueue a request; it joins the decode batch when capacity (a
         dense slot, or a lane and enough free pages) opens up."""
         if self.health is Health.DOWN:
-            raise RuntimeError(f"engine {getattr(self, 'engine_id', '?')} "
-                               f"({self.arch_id}) is DOWN; cannot admit "
-                               f"request {req.rid}")
+            raise RuntimeError(
+                f"engine {getattr(self, 'engine_id', '?')} "
+                f"({self.arch_id}) is DOWN"
+                f"{f' ({self.fail_reason})' if self.fail_reason else ''}; "
+                f"cannot admit request {req.rid}")
         req.t_enqueue = self._clock()
         req.engine_id = getattr(self, "engine_id", None)
         if req.patches is not None:     # onto the device at admission
@@ -219,12 +233,27 @@ class ServeEngine:
     def dispatch(self) -> bool:
         """Enqueue one step's device work without waiting for the device.
 
-        Returns False when the engine is DOWN or idle."""
+        Returns False when the engine is gated off this step (DOWN,
+        stalled, or slowdown-skipped) or idle.  A DEGRADED engine is
+        either stalled (frozen until ``_stall_until``, then it recovers
+        by itself) or slowed (serving one step out of ``_slow_every``
+        until :meth:`recover`)."""
         if self._pending is not None:
             raise RuntimeError("dispatch() with an uncollected step in "
                                "flight; call collect() first")
         if self.health is Health.DOWN:
             return False
+        if self.health is Health.DEGRADED:
+            now = self._clock()
+            if now < self._stall_until:
+                return False
+            if self._stall_until and self._slow_every <= 1:
+                self.recover()          # stall window elapsed
+            else:
+                self._stall_until = 0.0
+                self._step_seq += 1
+                if self._step_seq % self._slow_every:
+                    return False
         if not self._queue and not self._inflight_requests():
             return False
         self._pending = (self._dispatch_paged() if self.paged
@@ -490,6 +519,10 @@ class ServeEngine:
         self.prefills = 0
         self._pending = None
         self.health = Health.HEALTHY
+        self.fail_reason = None
+        self._stall_until = 0.0
+        self._slow_every = 1
+        self._step_seq = 0
         self.prefill_tokens_saved = 0
         self.prefix_hits = 0
         self.prefix_lookups = 0
@@ -511,10 +544,75 @@ class ServeEngine:
                 f"lanes and the prefix cache")
         self._pool.reset()
 
+    # ------------------------------------------------------------------
+    # health transitions (repro_torch.faults)
+    # ------------------------------------------------------------------
+    def fail(self, reason: str = "injected crash") -> List[Request]:
+        """Hard crash: mark DOWN, drain queued and in-flight requests and
+        reclaim every KV page reference or dense slot they held.
+
+        Returns the orphans (queued first, then those finished inside a
+        dropped dispatch, then in-flight) so the cluster can re-offload
+        them; their per-attempt state is not reset here.  An uncollected
+        dispatch is dropped: its device tokens are never read."""
+        orphans: List[Request] = list(self._queue)
+        self._queue.clear()
+        if self._pending is not None:
+            pend, self._pending = self._pending, None
+            orphans += [req for req, _, _, fin in pend.prefill if fin]
+            if pend.decode is not None:
+                orphans += [req for _, req, _, fin in pend.decode[1] if fin]
+        if self.paged:
+            for i, lane in enumerate(self._lanes):
+                if lane is not None:
+                    orphans.append(lane.req)
+                    self._free_lane(i)
+        else:
+            for i, req in enumerate(self._slots):
+                if req is not None:
+                    orphans.append(req)
+                    self._slots[i] = None
+                    self._last_tok[i] = None
+        self.health = Health.DOWN
+        self.fail_reason = str(reason)
+        return orphans
+
+    def recover(self) -> None:
+        """Return to HEALTHY after a crash, stall, or slowdown window."""
+        self.health = Health.HEALTHY
+        self.fail_reason = None
+        self._stall_until = 0.0
+        self._slow_every = 1
+
+    def degrade(self, *, stall_s: float = 0.0, slow_every: int = 1,
+                reason: str = "injected degradation") -> None:
+        """Soft fault: freeze for ``stall_s`` seconds of the engine's clock
+        (a transient straggler, self-healing) and/or serve only one step
+        out of ``slow_every`` (a sustained slowdown, until
+        :meth:`recover`)."""
+        if self.health is Health.DOWN:
+            raise RuntimeError("cannot degrade a DOWN engine; recover it "
+                               "first")
+        self.health = Health.DEGRADED
+        self.fail_reason = str(reason)
+        if stall_s > 0:
+            self._stall_until = self._clock() + stall_s
+        self._slow_every = max(int(slow_every), 1)
+
     @property
     def available(self) -> bool:
         """Placement-eligible (DEGRADED still serves, DOWN does not)."""
         return self.health is not Health.DOWN
+
+    @property
+    def availability(self) -> float:
+        """Observation feature: 1 healthy, 0.5 degraded, 0 down."""
+        return AVAILABILITY[self.health]
+
+    def shed(self, pred) -> List[Request]:
+        """Remove queued (not yet running) requests matching ``pred``: the
+        cluster watchdog's shedding hook."""
+        return self._queue.drain(pred)
 
     @property
     def kv_leak(self) -> int:

@@ -19,6 +19,7 @@ from repro_torch.cluster import (EdgeCluster, PolicyScheduler, Request,
                                  summarize)
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.faults import RetryPolicy
 from repro_torch.launch import serve
 from repro_torch.serving.builders import build_engines
 from repro_torch.serving.engine import ServeEngine
@@ -140,12 +141,43 @@ def test_serve_main_on_cpu_completes_every_request(capsys):
     assert out.count("[serve] req ") == 5 and "[serve] jsq: n=5" in out
 
 
+def _reference_serve_lines(monkeypatch, capsys, argv):
+    """The reference launcher's printed lines for ``argv``."""
+    import sys
+    from repro.launch import serve as jax_serve
+    monkeypatch.setattr(sys, "argv", ["serve", *argv])
+    capsys.readouterr()
+    jax_serve.main()
+    return capsys.readouterr().out.splitlines()
+
+
 @pytest.mark.parametrize("flag", [["--chaos"],
                                   ["--scheduler", "failure-aware"],
-                                  ["--qos", "--chaos"]])
-def test_serve_main_refuses_what_is_not_ported(flag):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--arch", "qwen2-1.5b", "--device", "cpu", *flag])
+                                  ["--qos", "--chaos"]],
+                         ids=["chaos", "failure-aware", "qos-chaos"])
+def test_serve_main_runs_the_fault_layer(flag, capsys, monkeypatch):
+    """``--chaos``, ``--scheduler failure-aware`` and both with ``--qos``
+    serve every request to a terminal state on the CPU; under
+    ``--chaos`` the schedule lines equal the reference launcher's and
+    the injector has run out."""
+    argv = ["--arch", "qwen2-1.5b", "--edges", "2", "--requests", "4",
+            "--tokens", "3", "--prompt-len", "8", "--rate", "8", *flag]
+    st = serve.main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert st["count"] + st["failed"] + st["abandoned"] == 4
+    assert st["completion_rate"] == 1.0 and st["unfinished"] == 0
+    assert [e["kv_leak"] for e in st["engines"]] == [0, 0]
+    assert st["fault_stats"]["quarantined"] == 0
+    chaos = "--chaos" in flag
+    assert len(st["fault_schedule"]) == (4 if chaos else 0)
+    assert st["fault_stats"]["injected"] == len(st["fault_schedule"])
+    summary = out[-1] if "--qos" not in flag else [
+        line for line in out if line.startswith("[serve] jsq:")][0]
+    assert (" cr=1.000 retries=" in summary) == chaos
+    if flag == ["--chaos"]:
+        want = _reference_serve_lines(monkeypatch, capsys, argv)
+        assert [line for line in out if line.startswith("[serve] fault")] \
+            == [line for line in want if line.startswith("[serve] fault")]
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):
@@ -455,18 +487,27 @@ def test_width_mismatch_errors_match_reference(qos, prefix):
     assert errors[0] == errors[1]
 
 
-def test_fault_observation_and_fault_layout_raise_naming_a4():
-    """The availability block is not ported: a width only it explains,
-    ``faults=``, ``retry=``, ``fault_obs=True`` and a fault-aware
-    prefix-affinity scheduler raise naming ROADMAP A4."""
+def test_fault_observation_and_fault_layout_are_accepted():
+    """The availability block is ported: a width only it explains turns
+    fault observation on; ``faults=``, ``retry=``, ``fault_obs=True``, a
+    fault-aware prefix-affinity scheduler and ``failure-aware`` build,
+    with the reference's layouts."""
+    from repro.cluster import Scheduler as JScheduler
     engines = [_Engine2(), _Engine2()]
     for dim in (2 + 2 + 2, 3 + 4 + 2):    # base + E, QoS + E
-        with pytest.raises(NotImplementedError, match="A4"):
-            EdgeCluster(engines, _fixed(Scheduler, dim, False))
-    for kw in ({"faults": []}, {"retry": object()}, {"fault_obs": True}):
-        with pytest.raises(NotImplementedError, match="A4"):
-            EdgeCluster(engines, make_scheduler("jsq", 2), **kw)
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_scheduler("prefix-affinity", 2, fault=True)
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_scheduler("failure-aware", 2)
+        got = EdgeCluster(engines, _fixed(Scheduler, dim, False))
+        want = JEdgeCluster(engines, _fixed(JScheduler, dim, False))
+        assert (got.fault_obs, got.qos_obs, got.obs_dim) == \
+            (want.fault_obs, want.qos_obs, want.obs_dim) == \
+            (True, dim == 9, dim)
+    for kw in ({"faults": []}, {"retry": RetryPolicy()},
+               {"fault_obs": True}):
+        c = EdgeCluster(engines, make_scheduler("jsq", 2), **kw)
+        assert c.obs_dim == 4 + 2 * (c.fault_obs)
+        assert c._watchdog == ("fault_obs" not in kw)
+    for name, kw, dim in (("prefix-affinity", {"fault": True}, 8),
+                          ("failure-aware", {}, 6),
+                          ("failure-aware", {"qos": True}, 9)):
+        sched = make_scheduler(name, 2, **kw)
+        assert sched.state_dim == dim
+        assert EdgeCluster(engines, sched).fault_obs

@@ -244,6 +244,14 @@ ATTN_CUDA_CASES = {
     # 64-token prompt) and musicgen-large (MHA at hd 64, 128 tokens)
     "llava-prefill": (1, 32, 8, 640, 640, 128, None, 0),
     "musicgen-prefill": (1, 32, 32, 128, 128, 64, None, 0),
+    # the crash drill's paged qwen2 chunk against a 7 x 16-token table and
+    # recurrentgemma's dense 64- and 16-token prompts; the chaos and
+    # stress benches' 8-token chunks at qwen2's and starcoder2-3b's heads
+    "qwen2-crash-chunk": (1, 12, 2, 16, 112, 128, None, 48),
+    "rg-crash-prefill": (1, 16, 1, 64, 64, 256, 2048, 0),
+    "rg-crash-gate": (1, 16, 1, 16, 16, 256, 2048, 0),
+    "qwen2-chaos-chunk": (1, 12, 2, 8, 112, 128, None, 8),
+    "starcoder2-chaos-chunk": (1, 24, 2, 8, 112, 128, None, 8),
 }
 for _hd in (64, 128, 256):
     for _G in (1, 6, 16):
@@ -297,8 +305,10 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
 
 # (H, KV, S, hd): recurrentgemma's dense round and its full 2048 ring,
 # qwen2's G = 6 at hd 128, G = 1 at hd 64, and the dense rounds of
-# llava-next-mistral-7b (a 672-slot ring) and musicgen-large (160 slots)
+# llava-next-mistral-7b (a 672-slot ring) and musicgen-large (160 slots),
+# and the crash drill's 76-slot recurrentgemma ring
 DECODE_CUDA_CASES = {"rg_round": (16, 1, 160, 256),
+                     "rg_crash_ring": (16, 1, 76, 256),
                      "rg_ring_2048": (16, 1, 2048, 256),
                      "g6_hd128": (12, 2, 256, 128),
                      "g1_hd64": (4, 4, 96, 64),

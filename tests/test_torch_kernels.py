@@ -160,12 +160,15 @@ def test_split_merge_mirror_matches_paged_decode_ref(case, plan):
 # (KV, H, hd, ps, npages): qwen2-1.5b's heads at the serve path's table
 # width and at 2048 tokens, G = 1 at hd 64, recurrentgemma's G = 16 at
 # hd 256, and the closed loop's 18 x 8-token table at qwen2-1.5b's heads
-# and at starcoder2-3b's G = 12
+# and at starcoder2-3b's G = 12, and the crash drill's and the chaos and
+# stress benches' 7 x 16-token table at both archs' heads
 CUDA_CASES = {"qwen2": (2, 12, 128, 16, 15), "g1_hd64": (4, 4, 64, 8, 6),
               "g16_hd256": (1, 16, 256, 16, 10),
               "qwen2_2048": (2, 12, 128, 16, 128),
               "qwen2_closedloop": (2, 12, 128, 8, 18),
-              "starcoder2_3b": (2, 24, 128, 8, 18)}
+              "starcoder2_3b": (2, 24, 128, 8, 18),
+              "qwen2_chaos": (2, 12, 128, 16, 7),
+              "starcoder2_3b_chaos": (2, 24, 128, 16, 7)}
 
 
 @pytest.mark.cuda

@@ -36,12 +36,19 @@ SHAPES = {"act": (20, 1, 5, 20, 22, 20), "update": (20, 64, 5, 20, 22, 20),
 CLOSED_LOOP_SHAPES = {"cl_act": (4, 1, 3, 4, 11, 20),
                       "cl_update": (4, 64, 3, 4, 11, 20),
                       "cl_live": (1, 1, 3, 4, 11, 20)}
+# the fault layer's (``serve --chaos``): 2 edges, the availability
+# observation S = 2 + 2 * 2, I = 3; acting and the update in the
+# fault-enabled simulator, one live placement
+CHAOS_SHAPES = {"chaos_act": (2, 1, 3, 2, 6, 20),
+                "chaos_update": (2, 64, 3, 2, 6, 20),
+                "chaos_live": (1, 1, 3, 2, 6, 20)}
 # the width class each shape takes on the card: the phase-5 shapes, and
 # one shape for each class no phase-5 shape reaches
 CUDA_WIDTHS = {"act": 24, "update": 24, "live": 24, "wide": 128,
                "cl_act": 24, "cl_update": 24, "cl_live": 24,
+               "chaos_act": 24, "chaos_update": 24, "chaos_live": 24,
                "width32": 32, "width64": 64}
-CUDA_SHAPES = {**SHAPES, **CLOSED_LOOP_SHAPES,
+CUDA_SHAPES = {**SHAPES, **CLOSED_LOOP_SHAPES, **CHAOS_SHAPES,
                "width32": (3, 5, 4, 30, 32, 28),
                "width64": (2, 9, 5, 40, 60, 64)}
 
