@@ -14,8 +14,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    path's shapes, at 8 lanes of 2048 tokens and at the closed loop's
    rounds of its two paged archs (page 8, an 18-page table: qwen2-1.5b,
    and starcoder2-3b's 24 query heads over 2 KV heads), at phase 16's
-   crash drill (page 16, a 7-page table) and at phases 18 and 19's rounds
-   (page 16, a 7-page table over 11 pages, both archs), in bf16 and f32,
+   crash drill (page 16, a 7-page table), at phases 18 and 19's rounds
+   (page 16, a 7-page table over 11 pages, both archs) and at phase 20c's
+   dbrx-132b round (H 48 over KV 8, page 16, a 14-page table), in bf16
+   and f32,
    with its time, its bound, the plain version's time and one library call's time;
    each call is two kernels, split and merge, and a profiler trace of one
    call shows both, with the grids its split plan gives;
@@ -59,7 +61,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    tokens at 32 heads over 8, musicgen-large's 128 at hd 64 and a group
    of 1), phase 16's f32 prefills (the paged qwen2 16-token chunk
    against a 7 x 16-token table, recurrentgemma's 64- and 16-token dense
-   prompts) and phases 18 and 19's 8-token chunks (both paged archs),
+   prompts), phases 18 and 19's 8-token chunks (both paged archs) and
+   phase 20's (H 48 over KV 8: mixtral-8x22b's 128-token prefill in its
+   4096 window, dbrx-132b's 64-token chunk at offset 64 against 224
+   keys, and the f32 pass's 4 x 143-token train-mode forwards),
    bf16 and f32, with
    its time, its bound, the plain version's and SDPA's; a profiler trace
    of one call per shape must show one kernel with the grid its tile
@@ -68,8 +73,9 @@ Phases, in order; the script exits non-zero at the first that fails:
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
    per-slot lengths, and a wrapped 2048-slot ring) and phase 15's rounds
    (llava's 672-slot rings in bf16, musicgen's 160-slot rings in f32, as
-   its dequantised int8 rings reach it) and phase 16's f32 76-slot ring,
-   likewise, its split and merge
+   its dequantised int8 rings reach it), phase 16's f32 76-slot ring and
+   phase 20b's mixtral-8x22b round (4 slots of a 144-slot ring, H 48 over
+   KV 8, bf16 and f32), likewise, its split and merge
    launches traced as in phase 2;
 11. decode against teacher-forced forward on the card: full-width
    recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
@@ -127,6 +133,21 @@ Phases, in order; the script exits non-zero at the first that fails:
    cut (JSQ; 8, 32 and 128 req/s; the overlap A/B at 32): every run
    terminal, none failed, no KV held, nothing quarantined, launches
    exact; the saturation rate, goodput per stage and overlap speedup;
+20. MoE serving on the 1 x 1 NCCL smoke mesh (``launch.mesh``), at
+   published width: 20a one MoE layer of mixtral-8x22b (d 6144, f 16384,
+   E 8, K 2) and of dbrx-132b (f 10752, E 16, K 4) in bf16 at a 128-token
+   prefill, 4 decode rows and the engine's round: the local, sharded and
+   weights-stationary paths agree within 2e-2 of max |out|, the mesh
+   paths issue their collectives, each path's time beside the experts'
+   streaming bound; 20b mixtral-8x22b cut to 4 of 56 layers (bf16,
+   dense slot pool) and 20c dbrx-132b cut to 4 of 40 layers (bf16, paged
+   pool) each serve 8 requests (prompt 128, 16 new tokens, 4 slots)
+   through ``ServeEngine(mesh=...)``: every request ``ok``, no KV held,
+   the attention kernels launched layers x passes with the warm-up,
+   prefill logits with and without the mesh within 2e-2, a decode
+   round's breakdown; then 2 layers in f32: greedy tokens with the mesh
+   equal those without, and at capacity factor E / K greedy decode equals
+   the train-mode argmax;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -179,6 +200,11 @@ PAGED_SHAPES = {
     # qwen2-1.5b's heads and at starcoder2-3b's
     "chaos_qwen2": (8, H, KV, HD, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
     "chaos_sc2": (8, 24, 2, 128, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
+    # phase 20c's paged dbrx-132b engine (H 48 over KV 8): 8 lanes, page
+    # 16, max_len 128 + 16 = 144 -> 1 + 4 * 9 pages and a 9 + 4 + 1 wide
+    # table; the pages admit 4 requests at a time, so 4 lanes idle
+    "dbrx_round": (8, 48, 8, 128, 16, 37, 14,
+                   (129, 137, 144, 130, 0, 0, 0, 0)),
 }
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
               "--scheduler", "jsq", "--requests", "8", "--prompt-len", "128",
@@ -248,6 +274,16 @@ ATTN_SHAPES = {
     # starcoder2-3b's
     "chaos_qwen2_chunk": (1, 12, 2, 8, 112, 128, None, 8, "bfloat16"),
     "chaos_sc2_chunk": (1, 24, 2, 8, 112, 128, None, 8, "bfloat16"),
+    # phase 20 (H 48 over KV 8, hd 128): mixtral-8x22b's dense 128-token
+    # prefill (window 4096) and dbrx-132b's second 64-token chunk against
+    # the 14 x 16-token table, in bf16 and in the f32 pass, and the f32
+    # pass's train-mode forwards over 4 x (128 + 15) tokens
+    "mixtral_prefill": (1, 48, 8, 128, 128, 128, 4096, 0, "bfloat16"),
+    "dbrx_chunk": (1, 48, 8, 64, 224, 128, None, 64, "bfloat16"),
+    "mixtral_prefill_f32": (1, 48, 8, 128, 128, 128, 4096, 0, "float32"),
+    "dbrx_chunk_f32": (1, 48, 8, 64, 224, 128, None, 64, "float32"),
+    "mixtral_forced_f32": (4, 48, 8, 143, 143, 128, 4096, 0, "float32"),
+    "dbrx_forced_f32": (4, 48, 8, 143, 143, 128, None, 0, "float32"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
 # decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
@@ -265,6 +301,11 @@ DECODE_SHAPES = {
     # phase 16's dense crash drill: recurrentgemma-9b's 4 slots of a
     # 64 + 12 = 76-slot ring, f32
     "crash_rg_ring_f32": (4, 16, 1, 76, 256, (65, 76, 70, 17), "float32"),
+    # phase 20b's dense mixtral-8x22b round: 4 slots of a 144-slot ring
+    # (max_len 128 + 16, under the 4096 window), bf16 and f32
+    "mixtral_round": (4, 48, 8, 144, 128, (129, 137, 144, 130), "bfloat16"),
+    "mixtral_round_f32": (4, 48, 8, 144, 128, (129, 137, 144, 130),
+                          "float32"),
 }
 
 
@@ -500,10 +541,16 @@ def phase_kernel() -> dict:
                                                       lens)
             torch.cuda.synchronize()
             want = ref.paged_decode_ref(q, kp, vp, tables, lens)
-            err = (got.float() - want.float()).abs().max().item()
+            # an idle lane (length 0) gives zeros, as the reference's
+            # kernel does; the plain version gives the mean of V there
+            live = lens > 0
+            err = (got[live].float() - want[live].float()).abs().max().item()
             if not err <= TOL[name]:
                 fail(f"paged_flash_decode {shape} {name}: max abs err "
                      f"{err:.3e} > {TOL[name]:.0e}")
+            if got[~live].count_nonzero().item():
+                fail(f"paged_flash_decode {shape} {name}: idle lanes not "
+                     f"zero")
             # a zero-length lane gives zeros
             z = decode_attention.paged_flash_decode(q, kp, vp, tables,
                                                     torch.zeros_like(lens))
@@ -2292,6 +2339,440 @@ def phase_stress() -> dict:
     return sums
 
 
+# ---------------------------------------------------------------------------
+# phase 20: MoE serving on the smoke mesh
+# ---------------------------------------------------------------------------
+
+MIXTRAL, DBRX = "mixtral-8x22b", "dbrx-132b"
+MOE_LAYERS = 4           # of mixtral's 56 and dbrx's 40: the bf16 serve
+MOE_F32_LAYERS = 2       # the f32 mesh and teacher-forcing pass
+MOE_PLEN, MOE_NEW = 128, 16
+MOE_SLOTS = 4
+MOE_REL = 2e-2           # bf16: max |a - b| over max |b|
+# one MoE layer's token batches as (rows T, routing groups): a 128-token
+# prefill, 4 decode rows, and the engine's decode round (mixtral: 4 dense
+# slots, one group each; dbrx: 8 paged lanes in one batch)
+MOE_LAYER_CASES = {MIXTRAL: {"prefill": (128, 1), "decode": (4, 1),
+                             "round": (4, 4)},
+                   DBRX: {"prefill": (128, 1), "decode": (4, 1),
+                          "round": (8, 1)}}
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def _moe_pairs(p, cfg, x, groups: int) -> int:
+    """(token, expert) pairs this batch computes: per group and expert,
+    the assigned tokens up to the capacity."""
+    import torch
+    from repro_torch.models import moe
+    xf = x.reshape(-1, x.shape[-1])
+    w, _ = moe._route(p["router"], cfg, xf, groups)
+    assigned = (w > 0).view(groups, -1, w.shape[-1]).sum(1)
+    C = moe._capacity(cfg, xf.shape[0] // groups)
+    return int(torch.clamp(assigned, max=C).sum().item())
+
+
+def _device_ms(fn, calls: int = 3):
+    """Device ms per ``fn()`` call from a ``torch.profiler`` trace (the
+    summed kernel time; spin kernels first, as in ``_profile_prefill``),
+    and the trace's kernels by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(100_000)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = _by_kernel(prof)
+    return (sum(by_kernel.values()) / 1e3 / calls if by_kernel else None,
+            by_kernel)
+
+
+def phase_moe_layer(arch: str) -> dict:
+    """20a. One MoE layer of ``arch`` at published width in bf16: the local
+    path, and the sharded and weights-stationary paths on the 1 x 1 NCCL
+    mesh with the rank's ``place_params`` block, at each of
+    ``MOE_LAYER_CASES``.  The mesh paths agree with the local one within
+    ``MOE_REL``, each issues its collectives (counted by
+    ``moe.collectives``; their NCCL kernels are read from the profiler
+    traces), and each path's time, as called from Python and on the
+    device, stands beside the expert weights' streaming bound."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    E = cfg.moe.num_experts
+    gen = torch.Generator(device=dev).manual_seed(20)
+    p = moe.init_moe(gen, cfg, torch.bfloat16, dev)
+    mesh = make_smoke_mesh(dev)
+    ctx = sharding.ShardingContext(mesh)
+    mine = sharding.place_params(mesh, {"layers": [{"ffn": p}]},
+                                 cfg)["layers"][0]["ffn"]
+    if mine["we_up"].shape != (1, E, cfg.d_model, cfg.d_ff):
+        fail(f"phase 20a {arch}: the rank's block is "
+             f"{tuple(mine['we_up'].shape)}")
+    wbytes = sum(p[k].numel() * p[k].element_size()
+                 for k in ("we_up", "we_down", "we_gate"))
+    cfgs = {"local": cfg,
+            "sharded": dataclasses.replace(cfg, moe_stationary_serve=False),
+            "stationary": dataclasses.replace(cfg, moe_stationary_serve=True)}
+    # collectives per call: the output over 'model' and the aux mean over
+    # both axes; stationary: also the row gather, and 2 pre-activations
+    # per expert over 'data' and the output over both axes
+    want_coll = {"local": {"all_reduce": 0, "all_gather": 0},
+                 "sharded": {"all_reduce": 3, "all_gather": 1},
+                 "stationary": {"all_reduce": 2 * E + 4, "all_gather": 1}}
+    result = {"weight_bytes": wbytes}
+    nccl = set()
+    for case, (T, groups) in MOE_LAYER_CASES[arch].items():
+        x = torch.randn((groups, T // groups, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+
+        def run(path, x=x, groups=groups):
+            if path == "local":
+                return moe.apply_moe(p, cfg, x, groups)[0]
+            with sharding.use(ctx):
+                return moe.apply_moe(mine, cfgs[path], x, groups)[0]
+
+        outs = {}
+        for path in cfgs:
+            moe.reset_collectives()
+            outs[path] = run(path).float()
+            torch.cuda.synchronize()
+            if moe.collectives != want_coll[path]:
+                fail(f"phase 20a {arch} {case} {path}: collectives "
+                     f"{moe.collectives}, expected {want_coll[path]}")
+        if not torch.isfinite(outs["local"]).all():
+            fail(f"phase 20a {arch} {case}: local output not finite")
+        scale = outs["local"].abs().max().item()
+        errs = {path: (outs[path] - outs["local"]).abs().max().item() / scale
+                for path in ("sharded", "stationary")}
+        for path, rel in errs.items():
+            if not rel <= MOE_REL:
+                fail(f"phase 20a {arch} {case}: {path} differs from local "
+                     f"by {rel:.3e} of max |out| > {MOE_REL:.0e}")
+        ms = {path: eager_ms(lambda path=path: run(path), iters=30)
+              for path in cfgs}
+        graph_ms = time_ms(lambda: run("local"), iters=5, reps=3)
+        dev_ms = {}
+        for path in cfgs:
+            dev_ms[path], by_kernel = _device_ms(lambda path=path: run(path))
+            nccl.update(k for k in by_kernel if "nccl" in k.lower())
+        pairs = _moe_pairs(p, cfg, x, groups)
+        nbytes = wbytes + p["router"].numel() * 4 + 2 * x.numel() * 2
+        flops = pairs * 3 * 2 * cfg.d_model * cfg.d_ff
+        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        result[case] = {"T": T, "groups": groups, "rel_err": errs,
+                        "ms": ms, "local_graph_ms": graph_ms,
+                        "device_ms": dev_ms,
+                        "pairs": pairs, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+        log(f"  20a {arch} {case} (T={T}, {groups} group(s), {pairs} "
+            f"token-expert pairs): sharded {errs['sharded']:.2e}, "
+            f"stationary {errs['stationary']:.2e} of max |out| from local;"
+            f" eager ms local {ms['local']:.3f} (graph {graph_ms:.3f}), "
+            f"sharded {ms['sharded']:.3f}, stationary "
+            f"{ms['stationary']:.3f}; device ms "
+            + ", ".join(f"{k} not measured" if v is None else
+                        f"{k} {v:.3f}" for k, v in dev_ms.items())
+            + f"; bound {bound_ms:.3f} ms ({bound_by}:"
+            f" {wbytes / 1e9:.2f} GB of experts at "
+            f"{HBM_BYTES_S / 1e12:.2f} TB/s)")
+    result["nccl_kernels"] = sorted(nccl)
+    log(f"phase 20a ok: {arch} one layer (d {cfg.d_model}, f {cfg.d_ff}, E "
+        f"{E}, K {cfg.moe.top_k}, bf16): the three paths agree within "
+        f"{MOE_REL:.0e}; NCCL kernels in the mesh paths' traces: "
+        f"{sorted(nccl) or 'none seen'}")
+    del p, mine
+    _free_card()
+    return result
+
+
+def _prefill_mesh_vs_none(cfg, params, placed, mesh, prompt, max_len):
+    """Prefill last logits through the mesh (``placed``, the rank's
+    params) and without it (``params``): the largest difference over the
+    largest |logit|, and the (token, layer) routing decisions whose top-k
+    sets differ between the two runs.  The stationary path sums a token's
+    experts in f32 and the local path in the model dtype, so in bf16 a
+    later layer's top-k can flip on a near tie, and a flipped token takes
+    other experts (and may push another past an expert's capacity)."""
+    import torch
+    from repro_torch.launch import sharding
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import forward
+    routes = {"mesh": [], "none": []}
+    route = moe._route
+
+    def recording(key):
+        def spy(router_w, c, xf, groups=1):
+            w, aux = route(router_w, c, xf, groups)
+            idx = torch.topk(w, c.moe.top_k, dim=-1).indices
+            routes[key].append(idx.sort(-1).values)
+            return w, aux
+        return spy
+
+    try:
+        moe._route = recording("mesh")
+        with sharding.use(sharding.ShardingContext(mesh)):
+            a = forward(placed, cfg, {"tokens": prompt}, mode="prefill",
+                        max_len=max_len)["last_logits"].float()
+        moe._route = recording("none")
+        b = forward(params, cfg, {"tokens": prompt}, mode="prefill",
+                    max_len=max_len)["last_logits"].float()
+    finally:
+        moe._route = route
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"prefill logits not finite ({cfg.name}, {cfg.dtype})")
+    flips = sum(int((x != y).any(-1).sum().item())
+                for x, y in zip(routes["mesh"], routes["none"]))
+    rel = (a - b).abs().max().item() / b.abs().max().item()
+    return rel, flips
+
+
+def _moe_round_breakdown(eng, prompts, rounds: int = 4) -> dict:
+    """Where a MoE engine's decode round goes: host enqueue of
+    ``dispatch``, wall time to results, device time by kernel class from
+    ``torch.profiler``, and the idle share, with every slot decoding."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.cluster.request import Request
+    for rid, pr in enumerate(prompts):
+        eng.admit(Request(rid=rid, max_new_tokens=MOE_NEW, prompt=pr))
+    for _ in range(4):                 # admission, prefills, warm rounds
+        eng.step()
+    torch.cuda.synchronize()
+
+    def timed_round():
+        t0 = time.perf_counter()
+        eng.dispatch()
+        t1 = time.perf_counter()
+        eng.collect()
+        return t1 - t0, time.perf_counter() - t0
+
+    host = [timed_round() for _ in range(rounds)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            eng.step()
+        torch.cuda.synchronize()
+    eng.run_to_completion()
+    by_kernel = _by_kernel(prof)
+    enqueue_ms = 1e3 * sum(h[0] for h in host) / rounds
+    wall_ms = 1e3 * sum(h[1] for h in host) / rounds
+    busy_ms = sum(by_kernel.values()) / 1e3 / rounds
+
+    def kind(name):
+        low = name.lower()
+        if "nccl" in low:
+            return "nccl"
+        if "decode" in low and ("split" in low or "merge" in low):
+            return "attention"
+        if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet",
+                                  "cublas")):
+            return "matmul"
+        return "other"
+
+    kinds = {}
+    for name, us in by_kernel.items():
+        kinds[kind(name)] = kinds.get(kind(name), 0.0) + us / 1e3 / rounds
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
+    return {"enqueue_ms": enqueue_ms, "wall_ms": wall_ms,
+            "busy_ms": busy_ms if by_kernel else None,
+            "idle_share": 1 - busy_ms / wall_ms if by_kernel else None,
+            "by_kind_ms": kinds,
+            "top": [(name[:90], us / 1e3 / rounds) for name, us in top]}
+
+
+def phase_moe_serve(arch: str) -> dict:
+    """20b / 20c. ``arch`` at published width cut to ``MOE_LAYERS`` layers
+    in bf16, served by ``ServeEngine(mesh=make_smoke_mesh("cuda"))`` (the
+    engine ``build_sharded_engine`` builds): 8 requests of 128 prompt
+    tokens and 16 new ones over 4 slots (mixtral: the dense pool; dbrx:
+    the paged pool, 8 lanes, page 16, 64-token chunks), every request
+    ``ok``, no KV held, launches = layers x passes with the warm-up; the
+    prefill logits with and without the mesh within ``MOE_REL``; a decode
+    round's breakdown.  Then ``MOE_F32_LAYERS`` layers in f32: the mesh
+    engine's greedy tokens equal the unsharded engine's, and at capacity
+    factor E / K (no token dropped) greedy decode equals the train-mode
+    argmax.  Returns the bf16 serve's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.request import Request
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (apply_head, forward,
+                                                init_params)
+    from repro_torch.serving.engine import ServeEngine
+    label = "phase 20b" if arch == MIXTRAL else "phase 20c"
+    dev = torch.device("cuda")
+    mesh = make_smoke_mesh(dev)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    max_len = MOE_PLEN + MOE_NEW
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layer_gb = _tree_bytes(params["layers"][0]) / 1e9
+    rest_gb = _tree_bytes(params) / 1e9 - MOE_LAYERS * layer_gb
+    log(f"{label}: {arch} at published width cut to {MOE_LAYERS} of "
+        f"{full.num_layers} layers: {layer_gb:.2f} GB a layer in bf16, "
+        f"{MOE_LAYERS * layer_gb + rest_gb:.1f} GB with embed and head "
+        f"({full.num_layers * layer_gb + rest_gb:.0f} GB at full depth); "
+        f"drawn in {init_s:.1f} s")
+    eng = ServeEngine(cfg, params, max_len=max_len, kv_slots=MOE_SLOTS,
+                      mesh=mesh, device=dev, arch_id=arch)
+    if eng.paged != (arch == DBRX):
+        fail(f"{label}: {arch} got a {'paged' if eng.paged else 'dense'} "
+             f"engine")
+    rng = np.random.default_rng(20)
+    V = cfg.vocab_size
+    ops.reset_launches()
+    moe.reset_collectives()
+    eng.generate(rng.integers(0, V, (1, MOE_PLEN), dtype=np.int32), 2)
+    warm = (eng.prefills, eng.decode_rounds)
+    eng.reset()
+    reqs = [Request(rid=i, max_new_tokens=MOE_NEW,
+                    prompt=rng.integers(0, V, (1, MOE_PLEN), dtype=np.int32))
+            for i in range(N_REQUESTS)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.admit(r)
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    if any(r.status != "ok" or len(r.tokens) != MOE_NEW for r in reqs):
+        fail(f"{label}: statuses {[r.status for r in reqs]}")
+    if eng.kv_leak:
+        fail(f"{label}: the engine holds {eng.kv_leak} slots or pages idle")
+    prefills, rounds = eng.prefills + warm[0], eng.decode_rounds + warm[1]
+    n = MOE_LAYERS
+    decode_kernel = "paged_flash_decode" if eng.paged else "flash_decode"
+    want = {"flash_attention": n * prefills, decode_kernel: n * rounds}
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            fail(f"{label}: launches {launches}, expected {want} ({n} "
+                 f"layers x {prefills} prefill passes, {rounds} decode "
+                 f"rounds, warm-up included)")
+    if moe.collectives["all_reduce"] == 0:
+        fail(f"{label}: the MoE layers issued no collective on the mesh")
+    toks = sum(len(r.tokens) for r in reqs)
+    log(f"{label}: {N_REQUESTS}/{N_REQUESTS} ok on a "
+        f"{'paged' if eng.paged else 'dense'} {n}-layer bf16 engine, "
+        f"kv_leak 0; flash_attention {launches['flash_attention']} = {n} x "
+        f"{prefills} prefill passes, {decode_kernel} "
+        f"{launches[decode_kernel]} = {n} x {rounds} decode rounds (warm-up"
+        f" included); MoE collectives {dict(moe.collectives)}; {toks} "
+        f"tokens in {wall:.2f} s ({toks / wall:.1f} tok/s)")
+    # prefill logits with and without the mesh: within MOE_REL unless a
+    # routing decision flipped (the f32 pass below holds them to 1e-4)
+    prompt = torch.from_numpy(reqs[0].prompt).to(dev)
+    rel, flips = _prefill_mesh_vs_none(cfg, params, eng.params, mesh, prompt,
+                                       max_len)
+    if rel > MOE_REL and not flips:
+        fail(f"{label}: prefill logits with the mesh differ from those "
+             f"without by {rel:.3e} of max |logit| > {MOE_REL:.0e}, with "
+             f"every routing decision equal")
+    eng.reset()
+    rb = _moe_round_breakdown(eng, [r.prompt for r in reqs[:MOE_SLOTS]])
+    stream_ms = _tree_bytes(eng.params) / HBM_BYTES_S * 1e3
+    busy = ("device busy not measured (the profiler saw no device time)"
+            if rb["busy_ms"] is None else
+            f"device busy {rb['busy_ms']:.2f} ms (idle share "
+            f"{rb['idle_share']:.3f}) by kind "
+            + ", ".join(f"{k} {v:.3f}" for k, v in
+                        sorted(rb["by_kind_ms"].items())))
+    log(f"{label}: decode round ({MOE_SLOTS} requests decoding, {n} layers,"
+        f" bf16, mesh): enqueue {rb['enqueue_ms']:.2f} ms, wall "
+        f"{rb['wall_ms']:.2f} ms, {busy}; every weight read once: "
+        f"{stream_ms:.3f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s; prefill "
+        f"logits mesh vs none {rel:.2e} of max |logit| with {flips} "
+        f"routing decisions flipped; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    for name, ms in rb["top"]:
+        log(f"  device {ms:8.3f} ms/round  {name}")
+    del eng, params
+    _free_card()
+
+    # f32 at MOE_F32_LAYERS layers: mesh against no mesh, teacher forcing
+    cfg32 = dataclasses.replace(full, num_layers=MOE_F32_LAYERS,
+                                dtype="float32")
+    params32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                           dev)
+    gb32 = _tree_bytes(params32) / 1e9
+    prompts = rng.integers(0, V, (MOE_SLOTS, MOE_PLEN), dtype=np.int32)
+    rel32, flips32 = _prefill_mesh_vs_none(
+        cfg32, params32, sharding.place_params(mesh, params32, cfg32), mesh,
+        torch.from_numpy(prompts[:1]).to(dev), max_len)
+    if not rel32 <= TOL["float32"]:
+        fail(f"{label} f32: prefill logits with the mesh differ from those "
+             f"without by {rel32:.3e} of max |logit| ({flips32} routing "
+             f"decisions flipped)")
+
+    def greedy(c, m):
+        e = ServeEngine(c, params32, max_len=max_len, kv_slots=MOE_SLOTS,
+                        mesh=m, device=dev, arch_id=arch)
+        out = np.stack([np.asarray(t) for t in
+                        e.generate(prompts, MOE_NEW).tokens])
+        if e.kv_leak:
+            fail(f"{label} f32: the engine holds {e.kv_leak} when idle")
+        return out                              # (MOE_NEW, MOE_SLOTS)
+
+    with_mesh, without = greedy(cfg32, mesh), greedy(cfg32, None)
+    if not np.array_equal(with_mesh, without):
+        bad = np.argwhere(with_mesh != without)
+        fail(f"{label} f32: greedy tokens with the mesh differ from "
+             f"those without at (step, request) {bad[:4].tolist()}")
+    m = full.moe
+    cfg_nodrop = dataclasses.replace(cfg32, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))
+    toks = greedy(cfg_nodrop, mesh)
+    seq = np.concatenate([prompts, toks[:-1].T], axis=1)
+    hidden = forward(params32, cfg_nodrop,
+                     {"tokens": torch.from_numpy(seq).to(dev)},
+                     mode="train")["hidden"]
+    logits = apply_head(params32, cfg_nodrop,
+                        hidden[:, MOE_PLEN - 1:]).float()
+    if not torch.isfinite(logits).all():
+        fail(f"{label} f32: teacher-forced logits are not finite")
+    pred = logits.argmax(-1).cpu().numpy()            # (slots, MOE_NEW)
+    if not np.array_equal(pred, toks.T):
+        r, i = np.argwhere(pred != toks.T)[0]
+        top2 = torch.topk(logits[r, i], 2).values
+        fail(f"{label} f32: request {r} decode step {i} gave {toks[i, r]}"
+             f" but the teacher-forced argmax is {pred[r, i]} (top-2 gap "
+             f"{(top2[0] - top2[1]).item():.3e})")
+    log(f"{label} ok: f32 at {MOE_F32_LAYERS} layers ({gb32:.1f} GB): "
+        f"prefill logits mesh vs none {rel32:.2e} of max |logit| ({flips32}"
+        f" flips); {MOE_SLOTS} x {MOE_NEW} greedy tokens with the mesh = "
+        f"without; at"
+        f" capacity factor {m.num_experts / m.top_k:g} greedy decode = the "
+        f"train-mode argmax")
+    del params32, hidden, logits
+    _free_card()
+    return {"launches": launches, "wall_s": wall, "round": rb,
+            "prefill_rel": rel, "prefill_flips": flips,
+            "prefill_rel_f32": rel32, "prefill_flips_f32": flips32}
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -2341,6 +2822,14 @@ def main() -> None:
               "ladn_denoise"):
         if not any(v[k] for v in chaos.values()):
             fail(f"{k} never launched in phases 16-19")
+    moe_layer = {arch: phase_moe_layer(arch) for arch in (MIXTRAL, DBRX)}
+    moe_serve = {}
+    for arch in (MIXTRAL, DBRX):
+        moe_serve[arch] = phase_moe_serve(arch)
+        _free_card()
+
+    def by_moe_arch(name):
+        return {a: v["launches"][name] for a, v in moe_serve.items()}
 
     def by_phase(name):
         return {ph: v[name] for ph, v in chaos.items()}
@@ -2359,6 +2848,7 @@ def main() -> None:
         "launches": launches,
         "launches_closedloop": closed["paged_flash_decode"],
         "launches_chaos": by_phase("paged_flash_decode"),
+        "launches_moe": by_moe_arch("paged_flash_decode"),
         "kernel_launches_per_call": bf["kernel_launches_per_call"],
         "max_abs_err": max(c["bfloat16"]["max_abs_err"]
                            for c in checks.values()),
@@ -2393,6 +2883,7 @@ def main() -> None:
         "launches_paged_prefill": paged_attn_launches,
         "launches_closedloop": closed["flash_attention"],
         "launches_chaos": by_phase("flash_attention"),
+        "launches_moe": by_moe_arch("flash_attention"),
         # phase 15's serve runs (warm-up included) and phase 14's engines
         "launches_multimodal": {a: v["flash_attention"]
                                 for a, v in mm.items()},
@@ -2413,6 +2904,7 @@ def main() -> None:
         "launches": dec_launches,
         "launches_multimodal": {a: v["flash_decode"] for a, v in mm.items()},
         "launches_chaos": by_phase("flash_decode"),
+        "launches_moe": by_moe_arch("flash_decode"),
         "launches_teacher_forced": {a: v["flash_decode"]
                                     for a, v in mm_forced.items()},
         "kernel_launches_per_call": rnd["kernel_launches_per_call"],
@@ -2424,6 +2916,11 @@ def main() -> None:
         "plain_ms": rnd["plain_ms"], "bound_ms": rnd["bound_ms"],
         "bound_by": rnd["bound_by"], "library_ms": rnd["library_ms"],
         "shapes": dec, "check": "ok"}]
+    log("phase 20: " + json.dumps({"moe_layer": moe_layer, "moe_serve": {
+        a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
+                              "prefill_flips", "prefill_rel_f32")}
+        for a, v in moe_serve.items()}}))
+    torch.distributed.destroy_process_group()      # the smoke mesh's
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

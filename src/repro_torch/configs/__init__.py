@@ -1,7 +1,6 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the archs the port serves so far are copied from ``repro.configs``;
-the rest join with their slice (ROADMAP.md, queue A).
+Every arch of ``repro.configs`` is copied here.
 """
 from __future__ import annotations
 
@@ -11,9 +10,11 @@ from typing import Dict, List
 from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
 
 _ARCH_MODULES: Dict[str, str] = {
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "starcoder2-7b": "repro_torch.configs.starcoder2_7b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",

@@ -10,7 +10,8 @@ layouts:
   gives), and
 * ``{"scan": [stacked, ...], "rem": [layer, ...]}`` (every full config):
   ``scan[j]`` holds the layers ``g * P + j`` stacked on a leading axis,
-  with ``P = len(cfg.pattern)``; the ``rem`` layers follow them.
+  with ``P = len(cfg.pattern)``; the ``rem`` layers follow them.  A MoE
+  layer's stacked (G, E, d, f) expert leaves unstack like any other.
 
 ``agent_states_from_jax`` takes the reference's stacked agent state (the
 vmapped ``LadtsState`` / ``SacState`` / ``DqnState`` of

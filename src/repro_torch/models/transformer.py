@@ -1,9 +1,9 @@
-"""Unified decoder: attention, RG-LRU and xLSTM blocks, dense and paged
-modes.
+"""Unified decoder: attention, RG-LRU and xLSTM blocks, dense or MoE
+feed-forwards, dense and paged modes.
 
 Port of ``repro/models/transformer.py`` for stacks of attention, RG-LRU,
-mLSTM or sLSTM mixers with dense MLPs or none (``ffn="none"``: xLSTM
-blocks carry their own projections).  Params keep the reference's keys
+mLSTM or sLSTM mixers with dense MLPs, MoE FFNs or none (``ffn="none"``:
+xLSTM blocks carry their own projections).  Params keep the reference's keys
 and ``(in, out)`` layout, except that layers are one flat list
 (``params["layers"][i]``) where the reference may stack them for
 ``lax.scan``; ``repro_torch.convert.params_from_jax`` unstacks.  Layer
@@ -16,8 +16,11 @@ backward), ``prefill``, ``decode``, ``paged_prefill`` and
 reference: audio configs (``num_codebooks``) take K codebook token
 streams (B, K, S), sum their embeddings and have one head per codebook;
 vision configs take patch embeddings (B, P, vision_dim) through the
-projector, placed in front of the text.  MoE raises
-``NotImplementedError`` naming its ROADMAP.md item.
+projector, placed in front of the text.  MoE blocks (``ffn="moe"``,
+``repro_torch.models.moe``) route each token to its top-k experts; every
+mode returns the summed load-balance ``aux`` term (0 without MoE).  In
+``decode`` mode each row is its own MoE routing group, as each slot is
+its own batch-1 decode under the reference's ``vmap``.
 """
 from __future__ import annotations
 
@@ -26,22 +29,22 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import attention, rglru, xlstm
+from repro_torch.models import attention, moe, rglru, xlstm
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
                                        init_rmsnorm, rmsnorm,
                                        sinusoidal_positions)
 
 
 _MIXERS = ("attn", "rglru", "mlstm", "slstm")
+_FFNS = ("dense", "moe", "none")
 
 
 def _check_block(blk) -> None:
     if blk.mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {blk.mixer!r}; options {_MIXERS}")
-    if blk.ffn not in ("dense", "none"):
-        raise NotImplementedError(f"the {blk.ffn} feed-forward is not "
-                                  f"ported to repro_torch yet (ROADMAP.md "
-                                  f"A7)")
+    if blk.ffn not in _FFNS:
+        raise ValueError(f"unknown feed-forward {blk.ffn!r}; options "
+                         f"{_FFNS}")
 
 
 # ---------------------------------------------------------------------------
@@ -54,8 +57,8 @@ _INIT_MIXER = {"attn": attention.init_attention, "rglru": rglru.init_rglru,
 
 
 def _init_block(generator, cfg, blk, dtype, device) -> dict:
-    """norm1 and the mixer, then norm2 and the MLP unless ``ffn="none"``
-    (the reference leaves both out there too)."""
+    """norm1 and the mixer, then norm2 and the MLP or the MoE unless
+    ``ffn="none"`` (the reference leaves both out there too)."""
     _check_block(blk)
     p = {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
          "mixer": _INIT_MIXER[blk.mixer](generator, cfg, dtype, device)}
@@ -63,6 +66,9 @@ def _init_block(generator, cfg, blk, dtype, device) -> dict:
         p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
         p["ffn"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.gated_ffn,
                             dtype, device)
+    elif blk.ffn == "moe":
+        p["norm2"] = init_rmsnorm(cfg.d_model, dtype, device)
+        p["ffn"] = moe.init_moe(generator, cfg, dtype, device)
     return p
 
 
@@ -144,7 +150,8 @@ _RECURRENT = {"rglru": (rglru.rglru_step, rglru.rglru_scan),
 
 def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
                  paged=None):
-    """Returns (x_out, new_state); ``new_state`` is None in train mode."""
+    """Returns (x_out, new_state, aux); ``new_state`` is None in train
+    mode and ``aux`` is None unless the block is MoE."""
     _check_block(blk)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     new_state = None
@@ -177,9 +184,14 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
             paged["lengths"])
     x = x + mix
     if blk.ffn == "none":
-        return x, new_state
+        return x, new_state, None
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
-    return x + apply_mlp(p["ffn"], h2), new_state
+    if blk.ffn == "dense":
+        return x + apply_mlp(p["ffn"], h2), new_state, None
+    # a decode row is one slot's batch-1 decode in the reference
+    y, aux = moe.apply_moe(p["ffn"], cfg, h2,
+                           groups=x.shape[0] if mode == "decode" else 1)
+    return x + y, new_state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -241,17 +253,22 @@ def forward(params, cfg, inputs: dict, mode: str,
     """Run the model.
 
     train         : inputs {tokens (B,S)[, patches]}
-                                                 -> {hidden}
+                                                 -> {hidden, aux}
     prefill       : inputs {tokens (B,S)[, patches]}
-                                                 -> {last_logits, states}
+                                                 -> {last_logits, states,
+                                                     aux}
     decode        : inputs {tokens (B,1)} + states (each row at its own
-                    ``pos``)                     -> {logits, states}
+                    ``pos``)                     -> {logits, states, aux}
     paged_prefill : inputs {tokens (1,C), start int, block_table (W,)}
-                    + paged states               -> {chunk_logits, states}
+                    + paged states               -> {chunk_logits, states,
+                                                     aux}
     paged_decode  : inputs {tokens (B,1), block_tables (B,W) int32,
-                    lengths (B,) int32} + states -> {logits, states}
+                    lengths (B,) int32} + states -> {logits, states, aux}
 
-    Audio configs take tokens (B, K, S) and give logits (..., K, V).
+    ``aux`` is the f32 sum of the MoE layers' load-balance terms (0
+    without MoE; in decode mode each layer's term is the mean of its
+    rows').  Audio configs take tokens (B, K, S) and give logits
+    (..., K, V).
     ``max_len`` sizes prefill's caches (patches included).  Decode writes
     the dense K/V caches in place, and the paged modes the pools.
     """
@@ -275,17 +292,21 @@ def forward(params, cfg, inputs: dict, mode: str,
     if mode in ("train", "prefill"):
         positions = torch.arange(x.shape[1], device=x.device)
     new_states = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (blk, p) in enumerate(zip(cfg.layer_pattern(), params["layers"])):
         st = states[i] if states is not None else None
-        x, ns = _apply_block(cfg, blk, p, x, positions, st, mode,
-                             max_len=max_len, paged=paged)
+        x, ns, a = _apply_block(cfg, blk, p, x, positions, st, mode,
+                                max_len=max_len, paged=paged)
         new_states.append(ns)
+        if a is not None:
+            aux = aux + a
     if mode == "train":
-        return {"hidden": x}
+        return {"hidden": x, "aux": aux}
     if mode == "prefill":
         return {"last_logits": apply_head(params, cfg, x[:, -1:])[:, 0],
-                "states": new_states}
+                "states": new_states, "aux": aux}
     if mode == "paged_prefill":
         return {"chunk_logits": apply_head(params, cfg, x),
-                "states": new_states}
-    return {"logits": apply_head(params, cfg, x)[:, 0], "states": new_states}
+                "states": new_states, "aux": aux}
+    return {"logits": apply_head(params, cfg, x)[:, 0], "states": new_states,
+            "aux": aux}

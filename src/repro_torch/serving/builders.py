@@ -1,8 +1,11 @@
 """Engine-cluster construction and warm-up for the launcher.
 
-Port of ``build_engines``, ``build_fleet`` and ``warmup`` from
-``repro/serving/builders.py``.  ``build_sharded_engine`` comes with
-ROADMAP.md A7.
+Port of ``repro/serving/builders.py``.  :func:`build_sharded_engine`
+builds one big-model engine (``mixtral-8x22b``, ``dbrx-132b``) on a mesh:
+each rank holds its slice of the MoE experts and every step runs inside
+the mesh's ShardingContext (``ServeEngine(mesh=...)``), on the 1 x 1
+smoke mesh by default.  ``build_engines`` / ``build_fleet`` take the
+same ``mesh=`` for every engine they build.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs import get_config, reduced
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import ServeEngine
 
@@ -41,7 +45,7 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
                   prefill_chunk: int = 64,
                   prefix_cache: Optional[bool] = None,
                   device: DeviceLike = None,
-                  full_scale: bool = False) -> List[ServeEngine]:
+                  full_scale: bool = False, mesh=None) -> List[ServeEngine]:
     """n_edge replicas of ``arch`` on ``device`` (``cuda`` by default).
 
     ``full_scale=False`` serves ``reduced()`` configs at ``depths``
@@ -64,7 +68,7 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
                     seed0, device, max_len, kv_slots=kv_slots,
                     sample=sample, paged=paged, page_size=page_size,
                     max_lanes=max_lanes, prefill_chunk=prefill_chunk,
-                    prefix_cache=prefix_cache)
+                    prefix_cache=prefix_cache, mesh=mesh)
             for i in range(n_edge)]
 
 
@@ -76,7 +80,7 @@ def build_fleet(archs: Sequence[str], max_len: int, *,
                 prefill_chunk: int = 64,
                 prefix_cache: Optional[bool] = None,
                 device: DeviceLike = None,
-                full_scale: bool = False) -> List[ServeEngine]:
+                full_scale: bool = False, mesh=None) -> List[ServeEngine]:
     """Heterogeneous fleet: one engine per entry of ``archs``, tagged with
     its arch id.  Mixed families mean mixed memory models behind one
     cluster interface: paged attention pools next to dense RG-LRU or
@@ -100,8 +104,37 @@ def build_fleet(archs: Sequence[str], max_len: int, *,
                     i, seed0, device, max_len, kv_slots=kv_slots,
                     sample=sample, paged=paged, page_size=page_size,
                     max_lanes=max_lanes, prefill_chunk=prefill_chunk,
-                    prefix_cache=prefix_cache)
+                    prefix_cache=prefix_cache, mesh=mesh)
             for i, (arch, base) in enumerate(zip(archs, bases))]
+
+
+def build_sharded_engine(arch: str, max_len: int, *, mesh=None,
+                         full_scale: bool = False, num_layers: int = 2,
+                         kv_slots: int = 4, sample: bool = False,
+                         paged: Optional[bool] = None, page_size: int = 16,
+                         max_lanes: Optional[int] = None,
+                         prefill_chunk: int = 64,
+                         prefix_cache: Optional[bool] = None,
+                         seed: int = 0,
+                         device: DeviceLike = None) -> ServeEngine:
+    """One big-model engine of ``arch`` on ``mesh`` (the 1 x 1 smoke mesh
+    on ``device`` when None; ``make_production_mesh()`` on every rank of
+    a multi-card job).
+
+    ``full_scale=False`` serves the reduced config at ``num_layers``, as
+    the reference does; ``full_scale=True`` keeps the published config
+    whole.  Weights are random, drawn on the device from a generator
+    seeded ``seed`` (the same on every rank)."""
+    device = resolve_device(device)
+    if mesh is None:
+        mesh = make_smoke_mesh(device)
+    cfg = get_config(arch)
+    if not full_scale:
+        cfg = dataclasses.replace(reduced(cfg), num_layers=num_layers)
+    return _engine(arch, cfg, 0, seed, device, max_len, kv_slots=kv_slots,
+                   sample=sample, paged=paged, page_size=page_size,
+                   max_lanes=max_lanes, prefill_chunk=prefill_chunk,
+                   prefix_cache=prefix_cache, mesh=mesh)
 
 
 def warmup(engines: Sequence[ServeEngine], prompt_len: int,

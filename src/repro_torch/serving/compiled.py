@@ -5,8 +5,9 @@ keys ``(kind, cfg, max_len / kv_slots / num_pages + page_size, sample,
 temperature, mesh)``.  PyTorch runs eagerly, so the entries are plain
 callables rather than jitted executables; same-config engines in a fleet
 still share one.  The reference donates the slot pool and the page pools
-to each step; here every step writes them in place.  Sharded meshes come
-with ROADMAP.md A7.
+to each step; here every step writes them in place.  ``mesh`` joins every
+key, and a step built for a mesh runs inside that mesh's
+``ShardingContext``, where the MoE layers take their sharded paths.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.launch import sharding
 from repro_torch.train.steps import (make_decode_step,
                                      make_paged_decode_step,
                                      make_paged_prefill_step,
@@ -43,10 +45,18 @@ def clear_cache() -> None:
     _STATS["hits"] = _STATS["misses"] = 0
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("sharded engines are not ported to "
-                                  "repro_torch yet (ROADMAP.md A7)")
+def _on(mesh, fn: Callable) -> Callable:
+    """``fn`` run inside ``mesh``'s ShardingContext (``fn`` itself
+    without a mesh)."""
+    if mesh is None:
+        return fn
+    ctx = sharding.ShardingContext(mesh)
+
+    def step(*args, **kw):
+        with sharding.use(ctx):
+            return fn(*args, **kw)
+
+    return step
 
 
 # ---------------------------------------------------------------------------
@@ -57,9 +67,8 @@ def _no_mesh(mesh) -> None:
 def prefill_step(cfg, max_len: int, mesh=None) -> Callable:
     """Batch-1 prefill: (params, {tokens (1, S)}) -> (last_logits (1, V),
     fresh per-request states whose caches are ``max_len`` deep)."""
-    _no_mesh(mesh)
     return _get(("prefill", cfg, max_len, mesh),
-                lambda: make_prefill_step(cfg, max_len=max_len))
+                lambda: _on(mesh, make_prefill_step(cfg, max_len=max_len)))
 
 
 def pool_insert() -> Callable:
@@ -93,10 +102,9 @@ def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
     The reference vmaps a batch-1 decode over the slots, each slot with
     its own scalar position; here the slot axis is the batch axis and the
     states' ``pos`` is (slots,), which computes the same round (a
-    ``ctypes`` kernel cannot sit under ``torch.func.vmap``).  K/V caches
-    are written in place."""
-    _no_mesh(mesh)
-
+    ``ctypes`` kernel cannot sit under ``torch.func.vmap``); the MoE
+    layers keep the vmap's semantics by routing each slot as its own
+    group.  K/V caches are written in place."""
     def build():
         dec = make_decode_step(cfg, sample=sample, temperature=temperature)
 
@@ -106,7 +114,7 @@ def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
                                      generator)
             return tok, new_states
 
-        return pool_step
+        return _on(mesh, pool_step)
 
     return _get(("pool_decode", cfg, kv_slots, sample, temperature, mesh),
                 build)
@@ -120,20 +128,18 @@ def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
 def paged_prefill_step(cfg, num_pages: int, page_size: int,
                        mesh=None) -> Callable:
     """One-chunk paged prefill; writes the shared page pools in place."""
-    _no_mesh(mesh)
     return _get(("paged_prefill", cfg, num_pages, page_size, mesh),
-                lambda: make_paged_prefill_step(cfg))
+                lambda: _on(mesh, make_paged_prefill_step(cfg)))
 
 
 def paged_decode_step(cfg, num_pages: int, page_size: int, sample: bool,
                       temperature: float, mesh=None) -> Callable:
     """Paged decode round; writes the page pools in place."""
-    _no_mesh(mesh)
     return _get(
         ("paged_decode", cfg, num_pages, page_size, sample, temperature,
          mesh),
-        lambda: make_paged_decode_step(cfg, sample=sample,
-                                       temperature=temperature))
+        lambda: _on(mesh, make_paged_decode_step(cfg, sample=sample,
+                                                 temperature=temperature)))
 
 
 def page_copy_step(cfg, num_pages: int, page_size: int,
@@ -143,8 +149,6 @@ def page_copy_step(cfg, num_pages: int, page_size: int,
     diverges mid-block from a cached prefix: the matched head of the
     cached page is duplicated so the lane can overwrite its private tail
     without touching the shared original."""
-    _no_mesh(mesh)
-
     def build():
         def copy(states: List[dict], src: int, dst: int) -> List[dict]:
             for layer in states:

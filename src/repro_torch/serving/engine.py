@@ -34,6 +34,15 @@ Dispatch moves host data to the device through pinned buffers with
 ``non_blocking=True``, so it never waits for queued device work; tokens
 that feed the next round stay on the device.
 
+**Sharded engines.**  With ``mesh=`` (``launch.mesh.make_smoke_mesh()``
+for one card, ``make_production_mesh()`` with one process per rank) the
+engine holds this rank's slice of the MoE expert weights
+(``launch.sharding.place_params``) and runs every step inside the mesh's
+``ShardingContext``, so the MoE layers combine their experts over the
+mesh's process groups.  Every rank runs the same engine on the same
+requests; other weights, the KV caches and the activations are whole on
+every rank (ROADMAP.md A7b).
+
 Health (``repro_torch.faults``): :meth:`fail` crashes the engine (DOWN:
 queued and in-flight requests are orphaned, an uncollected dispatch is
 dropped, every page reference or slot is reclaimed), :meth:`degrade`
@@ -57,6 +66,7 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.cluster.request import Request
 from repro_torch.faults.policy import AVAILABILITY, Health
+from repro_torch.launch import sharding
 from repro_torch.serving import compiled
 from repro_torch.serving.paged_kv import (BlockTable, PagePool, PrefixCache,
                                           cdiv, paged_supported)
@@ -127,14 +137,19 @@ class ServeEngine:
                  prefill_chunk: int = 64,
                  prefix_cache: Optional[bool] = None,
                  arch_id: Optional[str] = None,
-                 device: DeviceLike = None, seed: int = 0):
+                 device: DeviceLike = None, seed: int = 0, mesh=None):
         self.device = resolve_device(device)
         wdev = params["embed"]["embed"].device
         if wdev.type != self.device.type:
             raise ValueError(f"params live on {wdev}, engine device is "
                              f"{self.device}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, engine device is "
+                             f"{self.device}")
         self.cfg = cfg
-        self.params = params
+        self.mesh = mesh
+        self.params = (params if mesh is None
+                       else sharding.place_params(mesh, params, cfg))
         self.max_len = max_len
         self.kv_slots = kv_slots
         self.sample = sample
@@ -183,24 +198,24 @@ class ServeEngine:
             self._lanes: List[Optional[_Lane]] = [None] * self.max_lanes
             self._paged_states = None  # built lazily on first admission
             self._paged_prefill = compiled.paged_prefill_step(
-                cfg, num_pages, page_size)
+                cfg, num_pages, page_size, mesh=mesh)
             self._paged_decode = compiled.paged_decode_step(
-                cfg, num_pages, page_size, sample, temperature)
+                cfg, num_pages, page_size, sample, temperature, mesh=mesh)
             if prefix_cache is None or prefix_cache:
                 self._prefix = PrefixCache(self._pool)
-                self._page_copy = compiled.page_copy_step(cfg, num_pages,
-                                                          page_size)
+                self._page_copy = compiled.page_copy_step(
+                    cfg, num_pages, page_size, mesh=mesh)
             else:
                 self._page_copy = None
         else:
             self.page_size = 0
-            self._prefill = compiled.prefill_step(cfg, max_len)
+            self._prefill = compiled.prefill_step(cfg, max_len, mesh=mesh)
             self._slots: List[Optional[Request]] = [None] * kv_slots
             # each slot's last token, on the device: (1,) int32
             self._last_tok: List[Optional[torch.Tensor]] = [None] * kv_slots
             self._pool_states = None   # per-layer states, slot axis first
             self._pool_decode = compiled.pool_decode_step(
-                cfg, kv_slots, sample, temperature)
+                cfg, kv_slots, sample, temperature, mesh=mesh)
             self._insert = compiled.pool_insert()
 
     # ------------------------------------------------------------------

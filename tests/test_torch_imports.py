@@ -27,7 +27,8 @@ def _imports(path: Path):
 def test_the_scan_sees_the_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "decode_attention.py", "serve.py", "injector.py",
-            "live.py", "stress.py", "chip_smoke.py"} <= names
+            "live.py", "stress.py", "moe.py", "mesh.py", "sharding.py",
+            "mixtral_8x22b.py", "dbrx_132b.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -117,6 +117,7 @@ def _drive_paged(jcfg, tcfg, jparams, tparams, decode_steps=3):
             n = len(part)
             _close(tout["chunk_logits"][0, :n],
                    np.asarray(jout["chunk_logits"])[0, :n])
+            _close(tout["aux"], jout["aux"], tol=1e-5)
         last.append(int(np.asarray(jout["chunk_logits"])[0, n - 1].argmax()))
     block_tables = np.zeros((3, W), np.int32)
     block_tables[[0, 2]] = tables                  # lane 1 idles (null)
@@ -136,6 +137,7 @@ def _drive_paged(jcfg, tcfg, jparams, tparams, decode_steps=3):
                        mode="paged_decode", states=tst)
         jl = np.asarray(jout["logits"])
         _close(tout["logits"][[0, 2]], jl[[0, 2]])
+        _close(tout["aux"], jout["aux"], tol=1e-5)
         toks = jl.argmax(-1).astype(np.int32)[:, None]
         lengths = lengths + np.asarray([1, 0, 1], np.int32)
     return jst, tst
@@ -193,15 +195,106 @@ def test_apply_head_matches(tied):
 
 
 def test_forward_modes_outside_the_slice_raise():
-    """Every forward mode is ported; what stays outside the port (the MoE
-    feed-forward) raises naming its ROADMAP item, and an unknown mode is
-    refused."""
+    """Every forward mode and feed-forward is ported: an unknown
+    feed-forward and an unknown mode are refused."""
     jcfg, tcfg = configs(num_layers=1)
     _, tparams = params_pair(jcfg, tcfg)
     toks = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    moe = dataclasses.replace(tcfg, pattern=(("attn", "moe"),))
+    odd = dataclasses.replace(tcfg, pattern=(("attn", "sparse"),))
     for mode in ("train", "prefill"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-            forward(tparams, moe, toks, mode=mode)
+        with pytest.raises(ValueError, match="unknown feed-forward"):
+            forward(tparams, odd, toks, mode=mode)
     with pytest.raises(ValueError, match="unknown forward mode"):
         forward(tparams, tcfg, toks, mode="generate")
+
+
+# ---------------------------------------------------------------------------
+# MoE stacks: reduced mixtral-8x22b (sliding window) and dbrx-132b
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["mixtral-8x22b", "dbrx-132b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_configs_match_the_reference(arch):
+    assert (dataclasses.asdict(get_config(arch))
+            == dataclasses.asdict(jax_get_config(arch)))
+    jcfg, tcfg = configs(arch=arch)
+    assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_train_prefill_decode_match(arch):
+    """train and prefill over 2 x 12 tokens (hidden, last logits, aux
+    within 1e-5 / 1e-4), then two decode steps: the port's decode rows are
+    the reference's batch-1 decodes of each row (its slot pool's vmap),
+    aux the mean of theirs."""
+    jcfg, tcfg = configs(num_layers=2, arch=arch, d_ff=96)
+    jparams, tparams = params_pair(jcfg, tcfg, seed=8)
+    toks = RNG.integers(0, jcfg.vocab_size, (2, 12), dtype=np.int32)
+    jout = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                       "train", None)
+    tout = forward(tparams, tcfg, {"tokens": torch.from_numpy(toks)},
+                   mode="train")
+    _close(tout["hidden"], jout["hidden"], tol=1e-5)
+    _close(tout["aux"], jout["aux"], tol=1e-5)
+    assert float(tout["aux"]) > 0
+    jpre = _jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                        mode="prefill", max_len=20)
+    tpre = forward(tparams, tcfg, {"tokens": torch.from_numpy(toks)},
+                   mode="prefill", max_len=20)
+    _close(tpre["last_logits"], jpre["last_logits"])
+    _close(tpre["aux"], jpre["aux"], tol=1e-5)
+    rows = [jax.tree_util.tree_map(lambda a, b=b: a[b:b + 1] if a.ndim
+                                   else a, jpre["states"]) for b in range(2)]
+    tst = tpre["states"]
+    nxt = toks[:, -1:]
+    for _ in range(2):
+        jl, ja = [], []
+        for b in range(2):
+            o = _jax_forward(jparams, jcfg,
+                             {"tokens": jnp.asarray(nxt[b:b + 1])},
+                             mode="decode", states=rows[b])
+            rows[b] = o["states"]
+            jl.append(np.asarray(o["logits"])[0])
+            ja.append(float(o["aux"]))
+        tdec = forward(tparams, tcfg, {"tokens": torch.from_numpy(nxt)},
+                       mode="decode", states=tst)
+        tst = tdec["states"]
+        _close(tdec["logits"], np.stack(jl))
+        _close(tdec["aux"], np.mean(ja), tol=1e-5)
+        nxt = np.stack(jl).argmax(-1).astype(np.int32)[:, None]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_paged_forward_logits_match(arch):
+    """paged_prefill chunks and paged_decode rounds (an idle lane riding
+    along, as in the reference's round) with aux, from converted params.
+    Page pools hold unwindowed caches only (in the reference too), so
+    mixtral runs here without its sliding window."""
+    jcfg, tcfg = configs(num_layers=2, arch=arch, d_ff=96,
+                         sliding_window=None)
+    jparams, tparams = params_pair(jcfg, tcfg, seed=9)
+    _drive_paged(jcfg, tcfg, jparams, tparams, decode_steps=2)
+
+
+def test_converter_unstacks_scanned_moe_layers():
+    """A scan_layers MoE config: the stacked (G, E, d, f) expert leaves
+    unstack like any other leaf, and the forward matches the reference's
+    scanned one."""
+    jcfg, tcfg = configs(num_layers=3, arch="dbrx-132b", scan_layers=True,
+                         d_ff=96)
+    jparams, tparams = params_pair(jcfg, tcfg, seed=10)
+    scan = jparams["layers"]["scan"][0]["ffn"]
+    assert scan["we_up"].shape == (3, 4, tcfg.d_model, 96)
+    for g, layer in enumerate(tparams["layers"]):
+        for k in ("router", "we_up", "we_down", "we_gate"):
+            np.testing.assert_array_equal(layer["ffn"][k].numpy(),
+                                          np.asarray(scan[k])[g])
+    toks = RNG.integers(0, jcfg.vocab_size, (1, 9), dtype=np.int32)
+    jout = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                       "train", None)
+    tout = forward(tparams, tcfg, {"tokens": torch.from_numpy(toks)},
+                   mode="train")
+    _close(tout["hidden"], jout["hidden"], tol=1e-5)
+    _close(tout["aux"], jout["aux"], tol=1e-5)

@@ -1,13 +1,18 @@
 """Port serving fast path against the JAX one: serial against overlapped
 cluster stepping over a mixed paged + dense fleet, ``step`` as
 ``dispatch`` + ``collect``, and the shared step cache's hits, misses and
-sizes over the same engine builds.  Reduced configs, 2 layers, f32,
-greedy decoding.  (The reference's sharded cases come with the port's
-sharded engines.)"""
+sizes over the same engine builds, and the reference's sharded cases:
+big-model engines on the smoke mesh and on 2 gloo ranks give the
+reference's unsharded engine's tokens.  Reduced configs, 2 layers, f32,
+greedy decoding."""
+import json
+
 import jax
 import numpy as np
 import pytest
+import torch
 
+from _torch_dist import engine_rank, run_ranks
 from _torch_parity import CPU, configs, params_pair, tokens_of
 from repro.cluster import EdgeCluster as JEdgeCluster
 from repro.cluster import make_scheduler as jax_make_scheduler
@@ -17,8 +22,9 @@ from repro.serving.builders import build_fleet as jax_build_fleet
 from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch.cluster import EdgeCluster, Request, make_scheduler
 from repro_torch.convert import params_from_jax
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.serving import compiled
-from repro_torch.serving.builders import build_fleet
+from repro_torch.serving.builders import build_fleet, build_sharded_engine
 from repro_torch.serving.engine import ServeEngine
 
 FLEET = ["qwen2-1.5b", "xlstm-350m", "starcoder2-3b"]
@@ -213,3 +219,72 @@ def test_shared_steps_serve_identical_results():
     want = je.generate(prompt, 4)
     assert np.array_equal(np.asarray(ra.tokens), np.asarray(rb.tokens))
     assert np.array_equal(np.asarray(ra.tokens), np.asarray(want.tokens))
+
+
+# ---------------------------------------------------------------------------
+# sharded big-model engines
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_sharded_big_model_engine_serves(arch):
+    """The big-model configs serve through the smoke mesh: the engine
+    holds the rank's expert blocks and a request completes, no KV held."""
+    eng = build_sharded_engine(arch, max_len=32, kv_slots=2,
+                               prefill_chunk=8, device=CPU)
+    assert eng.mesh == make_smoke_mesh(CPU)
+    assert eng.paged == (arch == "dbrx-132b")    # mixtral is windowed
+    ffn = eng.params["layers"][0]["ffn"]
+    assert ffn["we_up"].shape == (1, eng.cfg.moe.num_experts,
+                                  eng.cfg.d_model, eng.cfg.d_ff)
+    req = Request(rid=0, prompt=np.arange(6, dtype=np.int32)[None],
+                  max_new_tokens=3)
+    eng.admit(req)
+    eng.run_to_completion()
+    assert req.status == "ok" and len(req.tokens) == 3
+    assert eng.kv_leak == 0
+
+
+def _sharded_case(arch, seed=0):
+    jcfg, tcfg = configs(num_layers=2, arch=arch)
+    jparams, tparams = params_pair(jcfg, tcfg, seed=seed)
+    # 4 slots (8 paged lanes): a round's capacity can drop tokens
+    kw = dict(max_len=40, kv_slots=4, prefill_chunk=8)
+    prompts = np.random.default_rng(seed).integers(
+        0, jcfg.vocab_size, (4, 10), dtype=np.int32)
+    want = JServeEngine(jcfg, jparams, **kw).generate(prompts, 5)
+    return tcfg, tparams, kw, prompts, np.stack(
+        [np.asarray(t) for t in want.tokens])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "mixtral-8x22b",
+                                  "dbrx-132b"])
+def test_smoke_mesh_engine_gives_the_reference_unsharded_tokens(arch):
+    """Smoke-mesh sharding is invisible: the port's engine on the 1 x 1
+    mesh (paged qwen2 and dbrx, dense mixtral; the MoE layers on their
+    stationary path) and without a mesh give the greedy tokens of the
+    reference's unsharded engine on the same weights."""
+    tcfg, tparams, kw, prompts, want = _sharded_case(arch, seed=1)
+    for mesh in (make_smoke_mesh(CPU), None):
+        eng = ServeEngine(tcfg, tparams, device=CPU, mesh=mesh, **kw)
+        assert eng.mesh is mesh
+        got = eng.generate(prompts, 5)
+        np.testing.assert_array_equal(
+            np.stack([np.asarray(t) for t in got.tokens]), want)
+        assert eng.kv_leak == 0
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "dbrx-132b"])
+def test_two_rank_mesh_engine_gives_the_reference_tokens(arch, tmp_path):
+    """Two gloo ranks on a (1, 2) mesh, each holding half of the experts:
+    both serve the reference's unsharded greedy tokens."""
+    tcfg, tparams, kw, prompts, want = _sharded_case(arch, seed=2)
+    params_file = str(tmp_path / "params.pt")
+    torch.save(tparams, params_file)
+    run_ranks(engine_rank, 2, tmp_path, tcfg, params_file, (1, 2),
+              prompts, 5, str(tmp_path), kw)
+    for rank in range(2):
+        with open(tmp_path / f"tokens.{rank}.json") as fh:
+            got = json.load(fh)
+        np.testing.assert_array_equal(np.asarray(got["tokens"]), want)
+        assert got["kv_leak"] == 0
