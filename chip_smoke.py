@@ -148,6 +148,20 @@ Phases, in order; the script exits non-zero at the first that fails:
    round's breakdown; then 2 layers in f32: greedy tokens with the mesh
    equal those without, and at capacity factor E / K greedy decode equals
    the train-mode argmax;
+21. LM training: 21a qwen2-1.5b at published width cut to 2 layers in
+   f32, one train step on the card (attention's forward the CUDA kernel,
+   its backward the plain chunked attention) against the same step on
+   the CPU (loss within 1e-4, each gradient leaf within 1e-3 of its
+   largest entry), ``flash_attention`` launched layers x microbatches
+   times, and bf16 on the card against f32 (2e-2); 21b ``launch.train
+   --arch qwen2-1.5b --smoke --steps 40``: the eval loss 0.2 below the
+   first; 21c qwen2-1.5b at published width and depth in bf16, batch 8 x
+   512 tokens, the config's 8 microbatches and remat: a warm-up step and
+   5 timed steps (finite, params moving, launches exact), tokens/s, host
+   enqueue against wall time a step, peak memory and a profiled step's
+   device time; 21d mixtral-8x22b at published width cut to 2 layers in
+   f32: one step's gradients on the smoke mesh with the hoisted expert
+   layout equal the step's without the mesh (1e-4);
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -162,6 +176,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -284,6 +299,8 @@ ATTN_SHAPES = {
     "dbrx_chunk_f32": (1, 48, 8, 64, 224, 128, None, 64, "float32"),
     "mixtral_forced_f32": (4, 48, 8, 143, 143, 128, 4096, 0, "float32"),
     "dbrx_forced_f32": (4, 48, 8, 143, 143, 128, None, 0, "float32"),
+    # phase 21c: qwen2-1.5b's train step, one 512-token row a microbatch
+    "qwen2_train": (1, 12, 2, 512, 512, 128, None, 0, "bfloat16"),
 }
 # flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
 # decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
@@ -2773,6 +2790,271 @@ def phase_moe_serve(arch: str) -> dict:
             "prefill_rel_f32": rel32, "prefill_flips_f32": flips32}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: LM training
+# ---------------------------------------------------------------------------
+
+QWEN = "qwen2-1.5b"
+TRAIN_GRAD_TOL = 1e-3       # card vs CPU, f32: of each leaf's largest entry
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_BF16_TOL = 2e-2       # bf16 vs f32 on the card: loss, and the grads'
+                            # norm-relative difference
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 8, 512
+TRAIN_TIMED_STEPS = 5
+TRAIN_MESH_TOL = 1e-4
+
+
+def _worst_leaf_rel(got, want) -> float:
+    """max over leaves of max |a - b| / max |b|, leaf by leaf on the card
+    (``want`` may lie on the CPU)."""
+    from repro_torch.core.optim import tree_leaves
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.to(a.device)
+        scale = max(b.float().abs().max().item(), 1e-12)
+        worst = max(worst, (a.float() - b.float()).abs().max().item()
+                    / scale)
+    return worst
+
+
+def phase_train_grads() -> dict:
+    """21a. qwen2-1.5b at published width cut to 2 layers, f32, remat off:
+    one train step's loss and gradients on the card (attention forward
+    the CUDA kernel, its backward the plain chunked attention) against
+    the same step on the CPU's plain path, ``flash_attention`` launched
+    layers x microbatches times; then bf16 on the card against f32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.optim import tree_leaves, tree_map
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.steps import make_grad_step, microbatches
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = dataclasses.replace(get_config(QWEN), num_layers=2,
+                              dtype="float32", remat=False)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(21),
+                         dev)
+    batch = synth_batch(cfg, DataConfig(batch=2, seq_len=128), 0, dev)
+    k = microbatches(cfg, 2)
+    ops.reset_launches()
+    grads, m = make_grad_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    launches = ops.launches["flash_attention"]
+    if launches != cfg.num_layers * k:
+        fail(f"phase 21a: flash_attention launched {launches} times, not "
+             f"layers x microbatches = {cfg.num_layers} x {k}")
+    t0 = time.perf_counter()
+    want_g, want = make_grad_step(cfg)(
+        tree_map(lambda t: t.to(cpu), params),
+        {n: v.to(cpu) for n, v in batch.items()})
+    cpu_s = time.perf_counter() - t0
+    loss, ref_loss = float(m["total_loss"]), float(want["total_loss"])
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    grad_rel = _worst_leaf_rel(grads, want_g)
+    if not (loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL):
+        fail(f"phase 21a: card vs CPU loss rel {loss_rel:.2e} (tol "
+             f"{TRAIN_LOSS_TOL:.0e}), worst grad leaf rel {grad_rel:.2e} "
+             f"(tol {TRAIN_GRAD_TOL:.0e})")
+    del want_g
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    p16 = tree_map(lambda t: t.to(torch.bfloat16), params)
+    g16, m16 = make_grad_step(cfg16)(p16, batch)
+    l16 = float(m16["total_loss"])
+    bf16_loss_rel = abs(l16 - loss) / abs(loss)
+    num = sum((a.float() - b).square().sum() for a, b in
+              zip(tree_leaves(g16), tree_leaves(grads)))
+    den = sum(b.square().sum() for b in tree_leaves(grads))
+    bf16_grad_rel = float(torch.sqrt(num / den))
+    if not (bf16_loss_rel <= TRAIN_BF16_TOL
+            and bf16_grad_rel <= TRAIN_BF16_TOL):
+        fail(f"phase 21a: bf16 vs f32 loss rel {bf16_loss_rel:.2e}, grads "
+             f"norm-relative {bf16_grad_rel:.2e} (tol {TRAIN_BF16_TOL:.0e})")
+    log(f"phase 21a ok: {QWEN} (2 layers, f32) card vs CPU: loss "
+        f"{loss:.6f} vs {ref_loss:.6f} (rel {loss_rel:.2e}), worst grad "
+        f"leaf rel {grad_rel:.2e}; flash_attention {launches} launches = "
+        f"{cfg.num_layers} layers x {k} microbatches; CPU step "
+        f"{cpu_s:.1f} s; bf16 vs f32: loss rel {bf16_loss_rel:.2e}, grads "
+        f"norm-rel {bf16_grad_rel:.2e}")
+    return {"launches": launches, "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "bf16_loss_rel": bf16_loss_rel,
+            "bf16_grad_rel": bf16_grad_rel}
+
+
+def phase_train_loss_falls() -> dict:
+    """21b. ``launch.train --arch qwen2-1.5b --smoke --steps 40`` on the
+    card: the held-out eval loss at least 0.2 below the first step's."""
+    from repro_torch.launch import train
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = train.main(["--arch", QWEN, "--smoke", "--steps", "40"])
+    first, final = out["first_loss"], out["eval_loss"]
+    if not final < first - 0.2:
+        fail(f"phase 21b: eval loss {final:.4f} is not 0.2 below the first "
+             f"step's {first:.4f}")
+    launches = ops.launches["flash_attention"]
+    if launches == 0:
+        fail("phase 21b: flash_attention never launched")
+    log(f"phase 21b ok: loss {first:.4f} -> eval {final:.4f}, "
+        f"{out['tokens_per_s']:.0f} tokens/s, flash_attention {launches} "
+        f"launches")
+    return {"first_loss": first, "eval_loss": final, "launches": launches,
+            "tokens_per_s": out["tokens_per_s"]}
+
+
+def phase_train_full() -> dict:
+    """21c. qwen2-1.5b at published width and depth in bf16 (remat on, the
+    config's microbatches), batch 8 x 512 tokens: one warm-up step, then
+    ``TRAIN_TIMED_STEPS`` timed steps (finite losses, params moving,
+    ``flash_attention`` = steps x layers x microbatches x 2: the
+    checkpointed forward runs again in the backward); tokens/s, the
+    host's enqueue time against the wall time per step, peak memory, and
+    one profiled step's device busy time by kernel family."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import make_train_step, microbatches
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = get_config(QWEN)
+    B, S = TRAIN_FULL_BATCH, TRAIN_FULL_SEQ
+    k = microbatches(cfg, B)
+    n = TRAIN_TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt.AdamWConfig(warmup_steps=1,
+                                                total_steps=n + 2))
+    dc = DataConfig(batch=B, seq_len=S)
+    batches = [synth_batch(cfg, dc, s, dev) for s in range(n + 2)]
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, batches[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    before = params["layers"][0]["mixer"]["wq"].clone()
+    ops.reset_launches()
+    losses, enqueue = [], []
+    t0 = time.perf_counter()
+    for s in range(1, n + 1):
+        t1 = time.perf_counter()
+        params, state, m = step(params, state, batches[s])
+        enqueue.append(time.perf_counter() - t1)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launches["flash_attention"]
+    want = n * cfg.num_layers * k * (2 if cfg.remat else 1)
+    if launches != want:
+        fail(f"phase 21c: flash_attention launched {launches} times, not "
+             f"{n} steps x {cfg.num_layers} layers x {k} microbatches x 2")
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 21c: losses {losses}")
+    moved = (params["layers"][0]["mixer"]["wq"].float()
+             - before.float()).abs().max().item()
+    if not moved > 0:
+        fail("phase 21c: the params did not move")
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = wall / n * 1e3
+    enq_ms = sum(enqueue) / n * 1e3
+    tokens_s = n * B * S / wall
+    # the device side only: a step enqueues ~10^5 ops, whose host records
+    # would make the trace slow to take and to read
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            torch.cuda._sleep(100_000)
+        params, state, m = step(params, state, batches[n + 1])
+        torch.cuda.synchronize()
+    by_kernel = _by_kernel(prof)
+    prof_s = time.perf_counter() - t0
+    busy_ms = sum(by_kernel.values()) / 1e3 if by_kernel else None
+    families = {}
+    for name, us in by_kernel.items():
+        fam = ("flash_attention" if "flash_attention" in name else
+               "gemm" if any(w in name for w in (
+                   "gemm", "nvjet", "xmma", "cutlass", "sm90_", "Kernel2"))
+               else "elementwise/other")
+        families[fam] = families.get(fam, 0.0) + us / 1e3
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    if busy_ms is None:
+        log("phase 21c: device time not measured (the profiler saw no "
+            "device time)")
+    log(f"phase 21c ok: {QWEN} full width and depth ({cfg.num_layers} "
+        f"layers, bf16, remat, {k} microbatches), batch {B} x {S}: "
+        f"{tokens_s:.1f} tokens/s, {step_ms:.1f} ms a step (host enqueue "
+        f"{enq_ms:.1f} ms), warm-up step {warm_s:.1f} s, peak "
+        f"{peak / 2**30:.2f} GiB, losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; profiled step "
+        f"({prof_s:.1f} s): device busy "
+        f"{busy_ms if busy_ms is None else round(busy_ms, 3)} ms, idle "
+        f"share {None if busy_ms is None else round(1 - busy_ms / step_ms, 3)}"
+        f"; " + ", ".join(f"{f} {v:.1f} ms"
+                          for f, v in sorted(families.items())))
+    for name, us in top:
+        log(f"    {us / 1e3:9.3f} ms  {name[:110]}")
+    log(f"  phase 21c took {time.perf_counter() - t_phase:.1f} s")
+    return {"tokens_per_s": tokens_s, "step_ms": step_ms,
+            "enqueue_ms": enq_ms, "warmup_s": warm_s,
+            "device_busy_ms": busy_ms, "device_ms_by_family": families,
+            "peak_bytes": peak, "launches": launches, "losses": losses,
+            "microbatches": k}
+
+
+def phase_train_moe_mesh() -> dict:
+    """21d. mixtral-8x22b at published width cut to 2 layers, f32: one
+    train step's gradients on the 1 x 1 NCCL smoke mesh with
+    ``hoist_moe_layout`` (the sharded MoE path and its differentiable
+    collectives) against the same step without the mesh, within
+    ``TRAIN_MESH_TOL`` of each leaf's largest entry."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.optim import tree_map
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.steps import make_grad_step
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(MIXTRAL), num_layers=2,
+                              dtype="float32", hoist_moe_layout=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(4),
+                         dev)
+    batch = synth_batch(cfg, DataConfig(batch=1, seq_len=64), 0, dev)
+    t0 = time.perf_counter()
+    grads, m = make_grad_step(cfg)(params, batch)
+    want = tree_map(lambda t: t.to("cpu"), grads)
+    del grads
+    _free_card()
+    moe.reset_collectives()
+    with sharding.use(sharding.ShardingContext(make_smoke_mesh(dev))):
+        got, m_mesh = make_grad_step(cfg)(params, batch)
+    torch.cuda.synchronize()
+    counts = dict(moe.collectives)
+    if not (counts["all_reduce"] > 0 and counts["all_gather"] > 0):
+        fail(f"phase 21d: the mesh step issued no collectives ({counts})")
+    rel = _worst_leaf_rel(got, want)
+    loss_rel = abs(float(m_mesh["total_loss"]) - float(m["total_loss"])) \
+        / abs(float(m["total_loss"]))
+    if not (rel <= TRAIN_MESH_TOL and loss_rel <= TRAIN_MESH_TOL):
+        fail(f"phase 21d: mesh vs local worst grad leaf rel {rel:.2e}, "
+             f"loss rel {loss_rel:.2e} (tol {TRAIN_MESH_TOL:.0e})")
+    log(f"phase 21d ok: {MIXTRAL} (2 layers, f32) on the smoke mesh with "
+        f"the hoisted layout: worst grad leaf rel {rel:.2e}, loss rel "
+        f"{loss_rel:.2e}, collectives {counts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del got, want, params
+    _free_card()
+    return {"grad_rel": rel, "loss_rel": loss_rel, "collectives": counts}
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -2827,6 +3109,14 @@ def main() -> None:
     for arch in (MIXTRAL, DBRX):
         moe_serve[arch] = phase_moe_serve(arch)
         _free_card()
+
+    train = {"21a": phase_train_grads()}
+    _free_card()
+    train["21b"] = phase_train_loss_falls()
+    _free_card()
+    train["21c"] = phase_train_full()
+    _free_card()
+    train["21d"] = phase_train_moe_mesh()
 
     def by_moe_arch(name):
         return {a: v["launches"][name] for a, v in moe_serve.items()}
@@ -2889,6 +3179,10 @@ def main() -> None:
                                 for a, v in mm.items()},
         "launches_teacher_forced": {a: v["flash_attention"]
                                     for a, v in mm_forced.items()},
+        # phase 21's train steps: 21a (f32, 2 layers), 21b (the launcher),
+        # 21c (the timed full-scale steps)
+        "launches_train": {ph: train[ph]["launches"]
+                           for ph in ("21a", "21b", "21c")},
         "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
         "max_abs_err_f32": max(v["max_abs_err"] for k, v in shapes.items()
@@ -2920,6 +3214,7 @@ def main() -> None:
         a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
                               "prefill_flips", "prefill_rel_f32")}
         for a, v in moe_serve.items()}}))
+    log("phase 21: " + json.dumps(train))
     torch.distributed.destroy_process_group()      # the smoke mesh's
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)

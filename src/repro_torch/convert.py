@@ -17,6 +17,10 @@ layouts:
 vmapped ``LadtsState`` / ``SacState`` / ``DqnState`` of
 ``repro.core.trainer.init_agents``, numpy leaves) and returns the port's:
 the same NamedTuples by field name, integers as int64.
+
+``params_to_jax`` is the way back: the port's tree restacked into either
+of the reference's layouts, numpy leaves; checkpoints and gradient
+comparisons go through it (``stack_layers`` keeps the leaves tensors).
 """
 from __future__ import annotations
 
@@ -47,7 +51,14 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def _unstack_layers(layers: dict, cfg) -> List[Any]:
+def _take(a, g: int):
+    return a[g] if isinstance(a, torch.Tensor) else np.asarray(a)[g]
+
+
+def unstack_layers(layers: dict, cfg) -> List[Any]:
+    """The reference's layer tree of either layout (numpy or tensor
+    leaves) -> one flat list of layers; a scanned leaf's layers are views
+    of it."""
     if "flat" in layers:
         return list(layers["flat"])
     P = len(cfg.pattern)
@@ -55,7 +66,7 @@ def _unstack_layers(layers: dict, cfg) -> List[Any]:
     flat: List[Any] = [None] * (n_groups * P)
     for j, stacked in enumerate(layers["scan"]):
         for g in range(n_groups):
-            flat[g * P + j] = _map(stacked, lambda a, g=g: np.asarray(a)[g])
+            flat[g * P + j] = _map(stacked, lambda a, g=g: _take(a, g))
     flat += list(layers["rem"])
     if len(flat) != cfg.num_layers:
         raise ValueError(f"layer tree holds {len(flat)} layers, config "
@@ -70,8 +81,58 @@ def params_from_jax(tree: dict, cfg, device) -> dict:
     out = {k: _map(v, lambda a: _to_tensor(a, device))
            for k, v in tree.items() if k != "layers"}
     out["layers"] = [_map(layer, lambda a: _to_tensor(a, device))
-                     for layer in _unstack_layers(tree["layers"], cfg)]
+                     for layer in unstack_layers(tree["layers"], cfg)]
     return out
+
+
+def _zip_map(fn, trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_zip_map(fn, [t[i] for t in trees])
+                for i in range(len(first))]
+    return fn(*trees)
+
+
+def stack_layers(layers: List[Any], cfg, layout: str) -> dict:
+    """The port's flat layer list -> the reference's layer tree of
+    ``layout``: ``"flat"`` ({"flat": [...]}) or ``"scan"`` ({"scan":
+    [...], "rem": [...]}, ``scan[j]`` stacking layers ``g * P + j``), the
+    inverse of :func:`unstack_layers`.  Leaves stay tensors."""
+    if layout == "flat":
+        return {"flat": list(layers)}
+    if layout != "scan":
+        raise ValueError(f"unknown layer layout {layout!r}; options "
+                         f"('flat', 'scan')")
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers, config {cfg.name} has "
+                         f"{cfg.num_layers}")
+    P = len(cfg.pattern)
+    n_groups = cfg.num_layers // P
+    scan = [] if n_groups == 0 else [
+        _zip_map(lambda *ls: torch.stack(ls),
+                 [layers[g * P + j] for g in range(n_groups)])
+        for j in range(P)]
+    return {"scan": scan, "rem": list(layers[n_groups * P:])}
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:     # as ml_dtypes' bf16 (the reference's)
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_jax(params: dict, cfg, layout: str) -> dict:
+    """Port params -> the reference's parameter tree with numpy leaves,
+    the inverse of :func:`params_from_jax`: the layer list restacked in
+    ``layout`` (:func:`stack_layers`).  bf16 leaves come out as
+    ``ml_dtypes.bfloat16`` arrays, which needs that package."""
+    tree = {k: v for k, v in params.items() if k != "layers"}
+    tree["layers"] = stack_layers(params["layers"], cfg, layout)
+    return _map(tree, _to_numpy)
 
 
 _STATE_TYPES = {"LadtsState": ag.LadtsState, "SacState": ag.SacState,

@@ -48,6 +48,10 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0) -> torch.Tensor:
@@ -55,14 +59,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q (B,H,Sq,hd); k, v (B,KV,Skv,hd); query i at position
     ``q_offset + i``.  Returns (B,H,Sq,hd).  The reference's TPU tile
-    sizes ``bq``/``bk`` are not arguments: the kernel picks its own."""
+    sizes ``bq``/``bk`` are not arguments: the kernel picks its own.
+
+    The kernel has no backward: on the card this refuses inputs that need
+    a gradient while grad mode is on (its output would silently carry
+    none).  :func:`flash_attention_grad` is the differentiable call."""
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
+    if _needs_grad(q, k, v):
+        raise RuntimeError("flash_attention has no backward: call it under "
+                           "torch.no_grad(), or call flash_attention_grad")
     out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
     launches["flash_attention"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA kernel forward; the backward recomputes the plain
+    ``models.attention.chunked_causal_attention`` on the saved q, k, v
+    and differentiates it (the reference's train path differentiates the
+    same function under ``jax.checkpoint``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        launches["flash_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from repro_torch.models.attention import chunked_causal_attention
+        causal, window, q_offset = ctx.mask
+        if not causal:
+            raise NotImplementedError("flash_attention_grad is causal only")
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            q, k, v = (t.transpose(1, 2) for t in inputs)
+            out = chunked_causal_attention(q, k, v, window=window,
+                                           q_offset=q_offset)
+        grads = torch.autograd.grad(out, inputs, grad_out.transpose(1, 2))
+        return (*grads, None, None, None)
+
+
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient.  On the card a call that
+    needs one goes through :class:`_FlashAttention` (kernel forward, plain
+    backward); every other call is :func:`flash_attention`'s."""
+    if q.device.type != "cpu" and _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -5,8 +5,9 @@ Port of ``repro/models/attention.py``.  Three execution paths share one
 set of weights:
 
   * ``attend_train`` / ``prefill`` -- full sequence, causal (optionally
-    windowed), through ``ops.flash_attention`` (the CUDA kernel on the
-    card, ``kernels.ref.attention_ref`` for CPU tensors).  The reference
+    windowed), through ``ops.flash_attention_grad`` (the CUDA kernel on
+    the card, with the plain chunked attention's gradient when one is
+    taken; ``kernels.ref.attention_ref`` for CPU tensors).  The reference
     computes the same function with ``chunked_causal_attention``, its
     "reference/lowering twin" of the Pallas kernel; the port keeps that
     function as the counterpart the tests compare against.
@@ -142,11 +143,13 @@ def chunked_causal_attention(q, k, v, *, window: Optional[int] = None,
 
 def _attend(q, k, v, window, q_offset=0):
     """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H*hd) through the
-    kernel wrapper, which takes the heads-first layout as views."""
+    kernel wrapper, which takes the heads-first layout as views: its
+    differentiable form, which is the kernel call itself unless a
+    gradient is taken."""
     B, Sq, H, hd = q.shape
-    out = kernel_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=True,
-                                     window=window, q_offset=q_offset)
+    out = kernel_ops.flash_attention_grad(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=True, window=window, q_offset=q_offset)
     return out.transpose(1, 2).reshape(B, Sq, H * hd)
 
 

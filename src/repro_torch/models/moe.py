@@ -167,10 +167,13 @@ def _apply_moe_local(p, cfg, xf, groups: int = 1
     w_dense, aux = _route(p["router"], cfg, xf, groups)
     C = _capacity(cfg, xf.shape[0] // groups)
     out = torch.zeros_like(xf)
+    # unbound, the stacks' gradient is one stack each (indexing would
+    # make a full-size one per expert)
+    wus, wds = p["we_up"].unbind(0), p["we_down"].unbind(0)
+    wgs = p["we_gate"].unbind(0) if "we_gate" in p else None
     for e in range(cfg.moe.num_experts):
-        wg = p["we_gate"][e] if "we_gate" in p else None
-        out = out + _one_expert(xf, w_dense[:, e], p["we_up"][e],
-                                p["we_down"][e], wg, C, groups)
+        out = out + _one_expert(xf, w_dense[:, e], wus[e], wds[e],
+                                None if wgs is None else wgs[e], C, groups)
     return out, aux
 
 
@@ -296,10 +299,104 @@ def _dp_rank_size(mesh, axes: Sequence[str]) -> Tuple[int, int]:
     return rank, size
 
 
+# Gradients through the mesh paths.  Every rank runs the same replicated
+# forward around the MoE layer and computes the same loss, so a rank's
+# gradient of anything outside the layer must be the whole loss's.
+# Inside the layer each rank's cotangents are its partial share: the
+# collectives carry their true transposes (all_reduce <-> all_reduce,
+# all_gather <-> reduce-scatter), ``_exit`` splits the replicated
+# cotangent of the layer's results into size equal shares, and ``_enter``
+# sums the partial gradients of a replicated input over the axes it is
+# replicated on.  The forward counts in ``collectives`` are unchanged.
+
+
+def _tracks(t: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _summed(g: torch.Tensor, groups) -> torch.Tensor:
+    g = g.clone(memory_format=torch.contiguous_format)
+    for group in groups:
+        dist.all_reduce(g, group=group)
+    return g
+
+
+class _Enter(torch.autograd.Function):
+    """Identity; the backward sums the gradient over ``groups``."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.groups), None
+
+
+class _Exit(torch.autograd.Function):
+    """Identity on a replicated result; the backward gives each of the
+    ``size`` ranks its share of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, size):
+        ctx.size = size
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _summed(t, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.groups), None
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """Rows of every rank of ``group`` in rank order; the backward is the
+    reduce-scatter (an all-reduce, then this rank's rows: gloo has no
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, group, n, index):
+        ctx.group, ctx.index = group, index
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g.shape[0] // dist.get_world_size(ctx.group)
+        g = _summed(g, (ctx.group,))
+        return g[ctx.index * rows:(ctx.index + 1) * rows], None, None, None
+
+
+def _enter(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    if not _tracks(t):
+        return t
+    return _Enter.apply(t, tuple(mesh.get_group(ax) for ax in axes))
+
+
+def _exit(t: torch.Tensor, mesh) -> torch.Tensor:
+    return _Exit.apply(t, mesh.size) if _tracks(t) else t
+
+
 def _all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    for ax in axes:
-        dist.all_reduce(t, group=mesh.get_group(ax))
-        collectives["all_reduce"] += 1
+    """Sum over ``axes``: in place, or out of place when ``t`` carries a
+    gradient."""
+    if _tracks(t):
+        t = _AllReduce.apply(t, tuple(mesh.get_group(ax) for ax in axes))
+    else:
+        for ax in axes:
+            dist.all_reduce(t, group=mesh.get_group(ax))
+    collectives["all_reduce"] += len(axes)
     return t
 
 
@@ -308,17 +405,38 @@ def _all_gather_rows(t: torch.Tensor, mesh,
     """Concatenate every rank's rows over ``axes``, minor axis first, so
     row (i_major * n_minor + i_minor) * T_loc + t lands in order."""
     for ax in reversed(tuple(axes)):
-        parts = [torch.empty_like(t) for _ in range(mesh.shape[ax])]
-        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(ax))
+        group, n = mesh.get_group(ax), mesh.shape[ax]
+        if _tracks(t):
+            t = _AllGatherRows.apply(t, group, n, mesh.local_rank(ax))
+        else:
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            t = torch.cat(parts, 0)
         collectives["all_gather"] += 1
-        t = torch.cat(parts, 0)
     return t
 
 
 def _mean_over_mesh(aux: torch.Tensor, mesh) -> torch.Tensor:
-    aux = aux.reshape(1).clone()
-    _all_reduce(aux, mesh, mesh.axis_names)
+    aux = _all_reduce(aux.reshape(1).clone(), mesh, mesh.axis_names)
     return aux[0] / mesh.size
+
+
+def _entered(p, xf, mesh):
+    """The layer's replicated inputs behind ``_enter``: the tokens and the
+    router over every axis; an expert stack in the reference's or the
+    hoisted layout also over every axis, a rank's own (1, r, ...) block
+    over the axes other than "model"."""
+    everywhere = mesh.axis_names
+    block_axes = tuple(ax for ax in everywhere if ax != "model")
+    M = mesh.shape["model"]
+    q = dict(p)
+    q["router"] = _enter(p["router"], mesh, everywhere)
+    for name in ("we_up", "we_down", "we_gate"):
+        if name in p:
+            w = p[name]
+            own = w.ndim == 4 and w.shape[0] != M
+            q[name] = _enter(w, mesh, block_axes if own else everywhere)
+    return q, _enter(xf, mesh, everywhere)
 
 
 def _my_rows(xf, mesh, dp_axes, groups: int):
@@ -352,6 +470,7 @@ def _apply_moe_sharded(p, cfg, xf, ctx, groups: int = 1
     M = mesh.shape["model"]
     _, f_par, r, _ = _layout_dims(cfg, M)
     j = mesh.local_rank("model")
+    p, xf = _entered(p, xf, mesh)
     wu, wd, wg = _weights(p, cfg, M, j)
     dp_axes = _dp_axes(ctx)
     x_loc, g_loc = _my_rows(xf, mesh, dp_axes, groups)
@@ -359,15 +478,18 @@ def _apply_moe_sharded(p, cfg, xf, ctx, groups: int = 1
     C = _capacity(cfg, x_loc.shape[0] // g_loc)
     my_e_par = j // f_par
     out = torch.zeros_like(x_loc)
+    wu, wd = wu.unbind(0), wd.unbind(0)
+    wg = None if wg is None else wg.unbind(0)
     for q in range(r):
         # rank j owns experts [my_e_par * r, my_e_par * r + r)
         e = my_e_par * r + q
         out = out + _one_expert(x_loc, w_dense[:, e], wu[q], wd[q],
                                 None if wg is None else wg[q], C, g_loc)
-    _all_reduce(out, mesh, ("model",))
+    out = _all_reduce(out, mesh, ("model",))
     # aux varies across token shards: mean it over every rank
     aux = _mean_over_mesh(aux, mesh)
-    return _all_gather_rows(out, mesh, dp_axes), aux
+    out = _all_gather_rows(out, mesh, dp_axes)
+    return _exit(out, mesh), _exit(aux, mesh)
 
 
 def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
@@ -393,6 +515,7 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
     j = mesh.local_rank("model")
     di = mesh.local_rank("data") * d_lp
     cut = slice(di, di + d_lp)
+    p, xf = _entered(p, xf, mesh)
     wu, wd, wg = _weights(p, cfg, M, j)
     dp_axes = _dp_axes(ctx)
     x_loc, _ = _my_rows(xf, mesh, dp_axes, groups)
@@ -404,6 +527,8 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
     my_e_par = j // f_par
     out_full = torch.zeros((T, d_model), dtype=torch.float32,
                            device=xf.device)
+    wu, wd = wu.unbind(0), wd.unbind(0)
+    wg = None if wg is None else wg.unbind(0)
     for q in range(r):
         e = my_e_par * r + q
         w_col = w_dense[:, e]
@@ -420,9 +545,9 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
         yb = yb * (w_col[rows] * valid).to(yb.dtype)[:, None]
         out_full[:, cut].index_add_(0, rows, yb.float())
     # disjoint d-slices sum over 'data'; disjoint experts over 'model'
-    _all_reduce(out_full, mesh, ("data", "model"))
+    out_full = _all_reduce(out_full, mesh, ("data", "model"))
     aux = _mean_over_mesh(aux, mesh)
-    return out_full.to(xf.dtype), aux
+    return _exit(out_full.to(xf.dtype), mesh), _exit(aux, mesh)
 
 
 def apply_moe(p: dict, cfg, x: torch.Tensor, groups: int = 1

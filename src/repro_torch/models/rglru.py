@@ -119,7 +119,8 @@ def rglru_scan(p: dict, cfg, x: torch.Tensor, *,
     """x (B, S, d) -> ((B, S, d), final state).  The conv runs in the
     model dtype and the recurrence in f32, as in the reference; the
     recurrence is the time loop, or with ``use_assoc_scan`` the log-depth
-    prefix scan."""
+    prefix scan.  Serving's loop writes each h_t in place; with a
+    gradient to take, it stacks them instead."""
     gate = _gelu(x @ p["w_gate_in"])
     u_raw = (x @ p["w_in"]).float()
     u = _conv1d(p, u_raw.to(x.dtype)).float()
@@ -127,6 +128,14 @@ def rglru_scan(p: dict, cfg, x: torch.Tensor, *,
     B, S, rd = u.shape
     if use_assoc_scan:
         hs = _prefix_scan(a, b)
+    elif torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        # autograd refuses ``out=``: keep each h_t and stack them
+        h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)
+        steps = []
+        for t in range(S):
+            h = torch.addcmul(b[:, t], a[:, t], h)
+            steps.append(h)
+        hs = torch.stack(steps, dim=1)
     else:
         hs = torch.empty((B, S, rd), dtype=torch.float32, device=x.device)
         h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)

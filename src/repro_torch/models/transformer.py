@@ -10,9 +10,9 @@ and ``(in, out)`` layout, except that layers are one flat list
 states are a flat list too, one dict per layer, each with a leading
 batch (slot) axis and a per-row ``pos`` (B,) int32.
 
-Forward modes: ``train`` (forward only: hidden states, no loss and no
-backward), ``prefill``, ``decode``, ``paged_prefill`` and
-``paged_decode``.  The modality front ends are stubs, as in the
+Forward modes: ``train`` (hidden states, differentiable; the loss is in
+``repro_torch.train.losses``), ``prefill``, ``decode``, ``paged_prefill``
+and ``paged_decode``.  The modality front ends are stubs, as in the
 reference: audio configs (``num_codebooks``) take K codebook token
 streams (B, K, S), sum their embeddings and have one head per codebook;
 vision configs take patch embeddings (B, P, vision_dim) through the
@@ -28,7 +28,9 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import sharding
 from repro_torch.models import attention, moe, rglru, xlstm
 from repro_torch.models.layers import (apply_mlp, dense_init, init_mlp,
                                        init_rmsnorm, rmsnorm,
@@ -246,7 +248,6 @@ def apply_head(params, cfg, x) -> torch.Tensor:
 MODES = ("train", "prefill", "decode", "paged_prefill", "paged_decode")
 
 
-@torch.no_grad()
 def forward(params, cfg, inputs: dict, mode: str,
             states: Optional[List[dict]] = None,
             max_len: Optional[int] = None) -> dict:
@@ -271,9 +272,35 @@ def forward(params, cfg, inputs: dict, mode: str,
     (..., K, V).
     ``max_len`` sizes prefill's caches (patches included).  Decode writes
     the dense K/V caches in place, and the paged modes the pools.
+
+    ``train`` runs under the caller's grad mode, and with ``cfg.remat``
+    checkpoints each block (``torch.utils.checkpoint``) when grad is on;
+    the serving modes run under ``torch.no_grad()``.
     """
     if mode not in MODES:
         raise ValueError(f"unknown forward mode {mode!r}; options {MODES}")
+    if mode == "train":
+        return _forward(params, cfg, inputs, mode, states, max_len)
+    with torch.no_grad():
+        return _forward(params, cfg, inputs, mode, states, max_len)
+
+
+def _remat_block(cfg, blk, p, x, positions):
+    """One train-mode block under ``torch.utils.checkpoint``: only its
+    input is kept, and the backward recomputes it inside the sharding
+    context of the forward (the MoE layer reads it)."""
+    ctx = sharding.current()
+
+    def run(p_, x_):
+        with sharding.use(ctx):
+            out, _, a = _apply_block(cfg, blk, p_, x_, positions, None,
+                                     "train")
+        return out, a
+
+    return checkpoint(run, p, x, use_reentrant=False)
+
+
+def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
     paged = None
     pos_offset = 0
     if mode == "paged_prefill":
@@ -293,10 +320,14 @@ def forward(params, cfg, inputs: dict, mode: str,
         positions = torch.arange(x.shape[1], device=x.device)
     new_states = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, (blk, p) in enumerate(zip(cfg.layer_pattern(), params["layers"])):
         st = states[i] if states is not None else None
-        x, ns, a = _apply_block(cfg, blk, p, x, positions, st, mode,
-                                max_len=max_len, paged=paged)
+        if remat:
+            (x, a), ns = _remat_block(cfg, blk, p, x, positions), None
+        else:
+            x, ns, a = _apply_block(cfg, blk, p, x, positions, st, mode,
+                                    max_len=max_len, paged=paged)
         new_states.append(ns)
         if a is not None:
             aux = aux + a

@@ -1,17 +1,150 @@
-"""Step builders for serving: dense prefill / decode and paged.
+"""Step builders: the train and eval steps, and serving's dense prefill /
+decode and paged steps.
 
-Port of ``make_prefill_step``, ``make_decode_step``,
-``make_paged_prefill_step`` and ``make_paged_decode_step`` from
-``repro/train/steps.py``.  The training step comes with LM training
-(ROADMAP.md A8).
+Port of ``repro/train/steps.py``.  The train step is
+:func:`make_grad_step`'s gradients (microbatched, accumulated in f32)
+followed by one AdamW update; the serving steps run the forward under
+``torch.no_grad()``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch.core.optim import tree_leaves, tree_map
+from repro_torch.launch import sharding
+from repro_torch.models import moe
 from repro_torch.models.transformer import forward
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.losses import chunked_ce_loss
+
+
+def microbatches(cfg, batch: int) -> int:
+    """The reference's microbatch count k for a global batch: at most
+    ``cfg.microbatches`` and ``batch``, dividing ``batch``, and inside a
+    mesh's context also leaving ``batch / k`` divisible by the
+    data-parallel ranks ("pod" x "data")."""
+    k = max(1, min(cfg.microbatches, batch))
+    while batch % k:
+        k -= 1
+    ctx = sharding.current()
+    if ctx is not None:
+        dp = math.prod(ctx.mesh.shape[ax] for ax in ("pod", "data")
+                       if ax in ctx.mesh.axis_names)
+        while k > 1 and ((batch // k) % dp or batch % k):
+            k -= 1
+    return k
+
+
+def _hoist_ranks(cfg) -> int:
+    """The "model" ranks to hoist the MoE expert layout over (0: none):
+    a MoE config with ``hoist_moe_layout`` inside a mesh with "model"."""
+    ctx = sharding.current()
+    if (cfg.moe is not None and cfg.hoist_moe_layout and ctx is not None
+            and "model" in ctx.mesh.axis_names):
+        return ctx.mesh.shape["model"]
+    return 0
+
+
+def _loss(params, cfg, batch):
+    out = forward(params, cfg, batch, mode="train")
+    loss = chunked_ce_loss(params, cfg, out["hidden"], batch["labels"],
+                           batch.get("mask"))
+    return loss + out["aux"], loss, out["aux"]
+
+
+def make_grad_step(cfg):
+    """``grad_step(params, batch) -> (grads, metrics)``: the gradient of
+    the CE loss plus the MoE ``aux`` term, shaped like ``params``.
+
+    The batch (every entry with the batch axis first) splits into
+    :func:`microbatches` k row blocks; each block's gradient is taken
+    (``torch.autograd.grad``) and accumulated in f32, then divided by k.
+    With k = 1 the gradients keep the params' dtype, as in the reference.
+    Inside a mesh with a "model" axis a MoE config with
+    ``hoist_moe_layout`` differentiates with respect to
+    ``moe.prepare_tree(params)`` (the expert layout made once a step) and
+    maps the gradients back with ``moe.unprepare_grads``.
+
+    On a mesh every rank runs the whole batch: the port keeps activations
+    and non-expert weights replicated (ROADMAP.md A7b), and the MoE
+    layer's collectives carry their transposes (``models/moe.py``), so
+    each rank's gradient of a replicated weight is already the whole
+    batch's.  The reference shards the batch over "data" and its GSPMD
+    reduces those gradients over that axis implicitly; here nothing is
+    left to average.  Metrics: ``loss``, ``aux_loss``, ``total_loss``
+    (f32 scalars, the mean over the microbatches)."""
+    def grad_step(params, batch):
+        B = batch["tokens"].shape[0]
+        k = microbatches(cfg, B)
+        M = _hoist_ranks(cfg)
+        gparams = moe.prepare_tree(params, cfg, M) if M else params
+        wrt = tree_map(lambda t: t.detach().requires_grad_(), gparams)
+        leaves = tree_leaves(wrt)
+        rows = B // k
+        acc = None
+        sums = torch.zeros(3, dtype=torch.float32,
+                           device=leaves[0].device)
+        for i in range(k):
+            mb = {name: v[i * rows:(i + 1) * rows]
+                  for name, v in batch.items()}
+            total, loss, aux = _loss(wrt, cfg, mb)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            sums += torch.stack([total, loss, aux]).detach().float()
+            if k == 1:
+                acc = grads
+            elif acc is None:
+                acc = [g.float() for g in grads]
+            else:
+                for a, g in zip(acc, grads):
+                    a.add_(g)
+            del total, loss, aux, grads
+        if k > 1:
+            acc = [a / k for a in acc]
+            sums = sums / k
+        it = iter(acc)
+        grads = tree_map(lambda _: next(it), gparams)
+        if M:
+            grads = moe.unprepare_grads(grads, cfg, M)
+        return grads, {"total_loss": sums[0], "loss": sums[1],
+                       "aux_loss": sums[2]}
+
+    return grad_step
+
+
+def make_train_step(cfg, opt_cfg: Optional[opt_lib.AdamWConfig] = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: :func:`make_grad_step`'s gradients, then one AdamW update
+    (weight decay where the reference's layout has two or more dims,
+    ``optimizer.decay_mask``).  Metrics: ``loss``, ``aux_loss``,
+    ``total_loss``, ``lr`` and ``grad_norm``."""
+    opt_cfg = opt_cfg or opt_lib.AdamWConfig()
+    grad_step = make_grad_step(cfg)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = grad_step(params, batch)
+        params, opt_state, m = opt_lib.update(
+            opt_cfg, grads, opt_state, params,
+            decay=opt_lib.decay_mask(params, cfg))
+        metrics.update(m)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg):
+    """Forward-only loss (validation), under ``torch.no_grad()``."""
+    def eval_step(params, batch):
+        with torch.no_grad():
+            out = forward(params, cfg, batch, mode="train")
+            return chunked_ce_loss(params, cfg, out["hidden"],
+                                   batch["labels"], batch.get("mask"))
+
+    return eval_step
 
 
 def pick_tokens(logits: torch.Tensor, sample: bool, temperature: float,

@@ -5,6 +5,7 @@ import torch and the port only; the reference's side of a comparison is
 computed in the test process and handed over in files."""
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
 import time
@@ -36,11 +37,14 @@ def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 180.0):
 
 
 def _entry(rank: int, fn, world: int, store: str, args) -> None:
+    faulthandler.enable()
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
         fn(rank, *args)
+        # no rank tears its connections down while another still uses them
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -97,3 +101,72 @@ def engine_rank(rank: int, cfg, params_file: str, shape, prompts,
     toks = np.stack([np.asarray(t) for t in res.tokens]).tolist()
     with open(os.path.join(out_dir, f"tokens.{rank}.json"), "w") as fh:
         json.dump({"tokens": toks, "kv_leak": eng.kv_leak}, fh)
+
+
+def moe_grads_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, inputs file, mesh shape, stationary, placed)
+    case: ``apply_moe`` inside the mesh's context on inputs that need a
+    gradient, then the backward of ``sum(out * w) + c * aux`` (``w`` and
+    ``c`` from the file).  The experts are this rank's ``place_params``
+    block when ``placed``, else the whole (E, d, f) stacks.  Writes the
+    gradients of x, the router and the expert weights (as held), and the
+    forward's collective counts, to ``out_dir/<name>.<rank>.npz``."""
+    import dataclasses
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import moe
+    meshes = {}
+    for name, cfg, inputs, shape, stationary, placed in cases:
+        data = np.load(inputs)
+        p = {k: torch.from_numpy(data[k]) for k in
+             ("router", "we_up", "we_down", "we_gate") if k in data}
+        if shape not in meshes:
+            meshes[shape] = make_production_mesh(
+                shape=shape, axes=("data", "model"), device="cpu")
+        mesh = meshes[shape]
+        if placed:
+            p = sharding.place_params(mesh, {"layers": [{"ffn": p}]},
+                                      cfg)["layers"][0]["ffn"]
+        p = {k: v.clone().requires_grad_() for k, v in p.items()}
+        x = torch.from_numpy(data["x"]).requires_grad_()
+        cfg = dataclasses.replace(cfg, moe_stationary_serve=stationary)
+        moe.reset_collectives()
+        with sharding.use(sharding.ShardingContext(mesh)):
+            out, aux = moe.apply_moe(p, cfg, x)
+        counts = dict(moe.collectives)
+        loss = (out * torch.from_numpy(data["w"])).sum() + float(
+            data["c"]) * aux
+        loss.backward()
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                 out=out.detach().numpy(), x=x.grad.numpy(),
+                 **{k: v.grad.numpy() for k, v in p.items()}, **counts)
+
+
+def train_step_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, params file, batch file, mesh shape, AdamW
+    keywords) case: the port's ``make_grad_step`` and ``make_train_step``
+    inside the mesh's context, every rank holding the whole params;
+    writes the gradients and the new params, flattened in leaf order, to
+    ``out_dir/<name>.<rank>.npz``."""
+    from repro_torch.core.optim import tree_leaves
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import make_grad_step, make_train_step
+    meshes = {}
+    for name, cfg, params_file, batch_file, shape, opt_kw in cases:
+        params = torch.load(params_file, weights_only=True)
+        batch = torch.load(batch_file, weights_only=True)
+        if shape not in meshes:
+            meshes[shape] = make_production_mesh(
+                shape=shape, axes=("data", "model"), device="cpu")
+        with sharding.use(sharding.ShardingContext(meshes[shape])):
+            grads, _ = make_grad_step(cfg)(params, batch)
+            new, _, metrics = make_train_step(
+                cfg, opt.AdamWConfig(**opt_kw))(params, opt.init(params),
+                                                batch)
+        blobs = {f"g{i}": g.numpy() for i, g in enumerate(tree_leaves(grads))}
+        blobs.update({f"p{i}": p.numpy()
+                      for i, p in enumerate(tree_leaves(new))})
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                 loss=float(metrics["loss"]), **blobs)
