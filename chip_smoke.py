@@ -16,8 +16,9 @@ Phases, in order; the script exits non-zero at the first that fails:
    and starcoder2-3b's 24 query heads over 2 KV heads), at phase 16's
    crash drill (page 16, a 7-page table), at phases 18 and 19's rounds
    (page 16, a 7-page table over 11 pages, both archs) and at phase 20c's
-   dbrx-132b round (H 48 over KV 8, page 16, a 14-page table), in bf16
-   and f32,
+   dbrx-132b round (H 48 over KV 8, page 16, a 14-page table) and at
+   phase 22c's Table V round (page 16, a 7-page table over 9 pages), in
+   bf16 and f32,
    with its time, its bound, the plain version's time and one library call's time;
    each call is two kernels, split and merge, and a profiler trace of one
    call shows both, with the grids its split plan gives;
@@ -64,8 +65,10 @@ Phases, in order; the script exits non-zero at the first that fails:
    prompts), phases 18 and 19's 8-token chunks (both paged archs) and
    phase 20's (H 48 over KV 8: mixtral-8x22b's 128-token prefill in its
    4096 window, dbrx-132b's 64-token chunk at offset 64 against 224
-   keys, and the f32 pass's 4 x 143-token train-mode forwards),
-   bf16 and f32, with
+   keys, and the f32 pass's 4 x 143-token train-mode forwards) and
+   phase 22's (22a's qwen2-1.5b prefill of 32768 tokens, whose plain
+   version runs in 1024 x 1024 tiles, and 22c's 64-token Table V chunk
+   against 112 keys), bf16 and f32, with
    its time, its bound, the plain version's and SDPA's; a profiler trace
    of one call per shape must show one kernel with the grid its tile
    plan gives; the compiler's registers and spills per instantiation;
@@ -75,7 +78,8 @@ Phases, in order; the script exits non-zero at the first that fails:
    (llava's 672-slot rings in bf16, musicgen's 160-slot rings in f32, as
    its dequantised int8 rings reach it), phase 16's f32 76-slot ring and
    phase 20b's mixtral-8x22b round (4 slots of a 144-slot ring, H 48 over
-   KV 8, bf16 and f32), likewise, its split and merge
+   KV 8, bf16 and f32) and phase 22a's 8 rows of a full 32768-slot
+   ring, likewise, its split and merge
    launches traced as in phase 2;
 11. decode against teacher-forced forward on the card: full-width
    recurrentgemma-9b in f32 with 3 layers serves one 2040-token prompt
@@ -162,6 +166,21 @@ Phases, in order; the script exits non-zero at the first that fails:
    device time; 21d mixtral-8x22b at published width cut to 2 layers in
    f32: one step's gradients on the smoke mesh with the hoisted expert
    layout equal the step's without the mesh (1e-4);
+22. the tooling: 22a ``launch.dryrun``'s counting pass (fake CPU
+   tensors) for qwen2-1.5b at published width and depth in bf16 at a
+   train (2 x 512), a prefill (1 x 32768) and a decode shape (8 against a
+   32768-deep ring), then each step on the card: the allocated inputs'
+   bytes equal the dry run's argument bytes exactly, the counted bound
+   under the H100 peaks over the measured time (CUDA events) is at most
+   1.05, peak memory, and the attention kernels launched layers x
+   calls; 22b ``bench.kernels.bench_kernels()``: every kernel at the
+   reference's bench shapes and the main path's equal to its plain
+   version; 22c ``bench_tablev(full_scale=True)``: every request ``ok``,
+   no KV held, ``paged_flash_decode`` = layers x decode rounds and
+   ``flash_attention`` = layers x prefill chunks; 22d Figs. 5, 6a and 8a
+   at quick scale, cut to the budget after one timed episode: finite
+   delays, ``ladn_denoise`` 3 a training step and 1 an evaluation step;
+   22e ``bench_roofline()`` and the report over 22a's records;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -185,69 +204,26 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM data-sheet peaks (dense): HBM3 bytes/s and FLOP/s by dtype
-HBM_BYTES_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}    # tests/test_kernels.py:45
+try:
+    # the kernels' main-path shapes, inputs, bounds and timer (one copy,
+    # shared with ``python -m repro_torch.bench kernels``)
+    from repro_torch.bench.kernels import (
+        ATTN_SHAPES, DECODE_SHAPES, LADN_SHAPES, LADN_TOL, LADN_WIDE,
+        PAGED_SHAPES, PS, TOL, attention_case, attention_library,
+        attention_plain, attention_timing, attn_pairs, bound,
+        flash_decode_case, ladn_bound, ladn_case, paged_decode_case,
+        sdpa_paged_inputs, time_ms)
+    from repro_torch.launch.mesh import HBM_BW
+except ImportError as exc:      # a copy of this script alone
+    print(f"[chip_smoke] FAIL: cannot import the port from {ROOT}/src: "
+          f"{exc}", flush=True)
+    sys.exit(1)
 
-# main-path shapes of paged_flash_decode under phase 4's serve flags:
-# max_lanes 8, qwen2-1.5b heads, page 16, max_len 128 + 32 = 160 ->
-# 1 + 4 * 10 pages and a 10 + 4 + 1 wide block table
-B, H, KV, HD, PS, P, W = 8, 12, 2, 128, 16, 41, 15
-# paged_flash_decode's shapes (B, H, KV, hd, ps, P, W, lengths): the
-# serve path's (ragged, with a 1-token lane and a full table), and the
-# same heads at 8 lanes of 2048 tokens (W 128, P = 1 + 8 * 128)
-PAGED_SHAPES = {
-    "serve": (B, H, KV, HD, PS, P, W, (1, W * PS, 37, 16, 17, 100, 2, 160)),
-    "long_2048": (8, H, KV, HD, PS, 1 + 8 * 128, 128, (2048,) * 8),
-    # phase 13's paged engines: 8 lanes, page 8, max_len
-    # 3 * (32 + 8) = 120 -> 1 + 2 * 15 pages and a 15 + 2 + 1 wide table,
-    # at qwen2-1.5b's heads and at starcoder2-3b's
-    "qwen2_closedloop": (8, H, KV, HD, 8, 31, 18,
-                         (1, 120, 37, 16, 17, 64, 2, 88)),
-    "starcoder2_3b": (8, 24, 2, 128, 8, 31, 18,
-                      (1, 120, 37, 16, 17, 64, 2, 88)),
-    # phase 16's paged crash drill (run in f32): 8 lanes, page 16, max_len
-    # 64 + 12 = 76 -> 1 + 4 * 5 pages and a 5 + 1 + 1 wide table
-    "crash_qwen2": (8, H, KV, HD, 16, 21, 7, (65, 76, 70, 64, 17, 40, 1, 1)),
-    # phases 18 and 19's paged engines (bf16): 8 lanes, page 16, max_len
-    # 3 * (16 + 6) = 66 -> 1 + 2 * 5 pages and a 5 + 1 + 1 wide table, at
-    # qwen2-1.5b's heads and at starcoder2-3b's
-    "chaos_qwen2": (8, H, KV, HD, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
-    "chaos_sc2": (8, 24, 2, 128, 16, 11, 7, (1, 66, 37, 16, 17, 38, 2, 23)),
-    # phase 20c's paged dbrx-132b engine (H 48 over KV 8): 8 lanes, page
-    # 16, max_len 128 + 16 = 144 -> 1 + 4 * 9 pages and a 9 + 4 + 1 wide
-    # table; the pages admit 4 requests at a time, so 4 lanes idle
-    "dbrx_round": (8, 48, 8, 128, 16, 37, 14,
-                   (129, 137, 144, 130, 0, 0, 0, 0)),
-}
 SERVE_ARGS = ["--arch", "qwen2-1.5b", "--full-scale", "--edges", "2",
               "--scheduler", "jsq", "--requests", "8", "--prompt-len", "128",
               "--tokens", "32", "--rate", "8", "--device", "cuda"]
 N_REQUESTS = 8
 
-# ladn_denoise's shapes on the LAD-TS path (G agents, T rows, I steps,
-# A actions, S state, H hidden): one decision per agent at a task step;
-# the update's K = 64 no-grad chains per agent; one live placement
-# (serve.build_scheduler: 2 engines, I = 3); and phase 13's, on the QoS
-# observation of 4 edges (S = 3 + 2 * 4, I = 3): acting and the update in
-# the QoS simulator, one live placement
-LADN_SHAPES = {"act": (20, 1, 5, 20, 22, 20),
-               "update": (20, 64, 5, 20, 22, 20),
-               "live": (1, 1, 3, 2, 4, 20),
-               "cl_act": (4, 1, 3, 4, 11, 20),
-               "cl_update": (4, 64, 3, 4, 11, 20),
-               "cl_live": (1, 1, 3, 4, 11, 20),
-               # phase 17's, on the availability observation of 2 edges
-               # (S = 2 + 2 * 2, I = 3): acting and the update in the
-               # fault-enabled simulator, one live placement
-               "chaos_act": (2, 1, 3, 2, 6, 20),
-               "chaos_update": (2, 64, 3, 2, 6, 20),
-               "chaos_live": (1, 1, 3, 2, 6, 20)}
-# and one shape above 32 wide, for the shared-memory instantiation (no
-# main path reaches it; T 33 leaves the last block ragged)
-LADN_WIDE = {"wide": (4, 33, 7, 40, 70, 64)}
-LADN_TOL = 1e-4
 # seconds one simulator episode may take before num_slots is cut
 EPISODE_BUDGET_S = 120.0
 MIN_SLOTS = 20
@@ -257,73 +233,6 @@ RG_SERVE_ARGS = ["--arch", RG, "--full-scale", "--edges", "2",
                  "--scheduler", "jsq", "--requests", "8", "--prompt-len",
                  "128", "--tokens", "32", "--rate", "8", "--kv-slots", "4",
                  "--device", "cuda"]
-# flash_attention's shapes (B, H, KV, Sq, Skv, hd, window, q_offset, dtype):
-# recurrentgemma's dense prefill of phase 12's 128-token prompts, the same
-# heads where the 2048 window bites, phase 4's qwen2 paged prefill chunk
-# (64 queries at offset 64 against the 15 x 16-token table) and the last
-# chunk of a 2048-token qwen2 prompt (offset 1984, a 128-page table)
-ATTN_SHAPES = {
-    "rg_prefill": (1, 16, 1, 128, 128, 256, 2048, 0, "bfloat16"),
-    "rg_4096": (1, 16, 1, 4096, 4096, 256, 2048, 0, "bfloat16"),
-    "qwen2_chunk": (1, 12, 2, 64, 240, 128, None, 64, "bfloat16"),
-    "qwen2_chunk_2048": (1, 12, 2, 64, 2048, 128, None, 1984, "bfloat16"),
-    "rg_prefill_f32": (1, 16, 1, 128, 128, 256, 2048, 0, "float32"),
-    # phase 13's paged engines: the last 16-token chunk of a 64-token
-    # prompt against the 18 x 8-token table, at qwen2-1.5b's heads and at
-    # starcoder2-3b's
-    "qwen2_cl_chunk": (1, 12, 2, 16, 144, 128, None, 48, "bfloat16"),
-    "sc2_chunk": (1, 24, 2, 16, 144, 128, None, 48, "bfloat16"),
-    # phase 15's dense prefills: llava-next-mistral-7b's 576 patches and
-    # 64-token prompt (H 32 over KV 8, hd 128), musicgen-large's 128-token
-    # prompt (MHA, hd 64)
-    "llava_prefill": (1, 32, 8, 640, 640, 128, None, 0, "bfloat16"),
-    "musicgen_prefill": (1, 32, 32, 128, 128, 64, None, 0, "bfloat16"),
-    # phase 16's crash drills (f32): the paged qwen2 chunk (16 queries at
-    # offset 48 against the 7 x 16-token table) and recurrentgemma's dense
-    # prefills of the 64-token prompts and of the 16-token gated one
-    "crash_qwen2_chunk_f32": (1, 12, 2, 16, 112, 128, None, 48, "float32"),
-    "crash_rg_prefill_f32": (1, 16, 1, 64, 64, 256, 2048, 0, "float32"),
-    "crash_rg_gate_f32": (1, 16, 1, 16, 16, 256, 2048, 0, "float32"),
-    # phases 18 and 19's paged engines: an 8-token chunk at offset 8
-    # against the 7 x 16-token table, at qwen2-1.5b's heads and at
-    # starcoder2-3b's
-    "chaos_qwen2_chunk": (1, 12, 2, 8, 112, 128, None, 8, "bfloat16"),
-    "chaos_sc2_chunk": (1, 24, 2, 8, 112, 128, None, 8, "bfloat16"),
-    # phase 20 (H 48 over KV 8, hd 128): mixtral-8x22b's dense 128-token
-    # prefill (window 4096) and dbrx-132b's second 64-token chunk against
-    # the 14 x 16-token table, in bf16 and in the f32 pass, and the f32
-    # pass's train-mode forwards over 4 x (128 + 15) tokens
-    "mixtral_prefill": (1, 48, 8, 128, 128, 128, 4096, 0, "bfloat16"),
-    "dbrx_chunk": (1, 48, 8, 64, 224, 128, None, 64, "bfloat16"),
-    "mixtral_prefill_f32": (1, 48, 8, 128, 128, 128, 4096, 0, "float32"),
-    "dbrx_chunk_f32": (1, 48, 8, 64, 224, 128, None, 64, "float32"),
-    "mixtral_forced_f32": (4, 48, 8, 143, 143, 128, 4096, 0, "float32"),
-    "dbrx_forced_f32": (4, 48, 8, 143, 143, 128, None, 0, "float32"),
-    # phase 21c: qwen2-1.5b's train step, one 512-token row a microbatch
-    "qwen2_train": (1, 12, 2, 512, 512, 128, None, 0, "bfloat16"),
-}
-# flash_decode's shapes (B, H, KV, W, hd, lengths, dtype): phase 12's
-# decode round (4 slots, max_len 128 + 32 = 160 -> a 160-slot ring) and a
-# wrapped 2048-slot ring
-DECODE_SHAPES = {
-    "rg_round": (4, 16, 1, 160, 256, (129, 145, 160, 131), "bfloat16"),
-    "rg_ring_2048": (4, 16, 1, 2048, 256, (2048,) * 4, "bfloat16"),
-    "rg_round_f32": (4, 16, 1, 160, 256, (129, 145, 160, 131), "float32"),
-    "rg_ring_2048_f32": (4, 16, 1, 2048, 256, (2048,) * 4, "float32"),
-    # phase 15's decode rounds: llava (max_len 576 + 64 + 32 = 672) in
-    # bf16, musicgen (160) in f32, its int8 rings dequantised
-    "llava_round": (4, 32, 8, 672, 128, (641, 655, 672, 645), "bfloat16"),
-    "musicgen_round_f32": (4, 32, 32, 160, 64, (129, 145, 160, 131),
-                           "float32"),
-    # phase 16's dense crash drill: recurrentgemma-9b's 4 slots of a
-    # 64 + 12 = 76-slot ring, f32
-    "crash_rg_ring_f32": (4, 16, 1, 76, 256, (65, 76, 70, 17), "float32"),
-    # phase 20b's dense mixtral-8x22b round: 4 slots of a 144-slot ring
-    # (max_len 128 + 16, under the 4096 window), bf16 and f32
-    "mixtral_round": (4, 48, 8, 144, 128, (129, 137, 144, 130), "bfloat16"),
-    "mixtral_round_f32": (4, 48, 8, 144, 128, (129, 137, 144, 130),
-                          "float32"),
-}
 
 
 def log(msg: str) -> None:
@@ -339,38 +248,6 @@ def _events():
     import torch
     return (torch.cuda.Event(enable_timing=True),
             torch.cuda.Event(enable_timing=True))
-
-
-def time_ms(fn, iters: int = 50, reps: int = 5) -> float:
-    """Device time of one ``fn()`` call: ``iters`` calls captured in a
-    CUDA graph, replayed ``reps`` times between CUDA events, so Python
-    and launch overhead stay out of the number."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start, end = _events()
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
-
-
-def _bound(nbytes: int, flops: int, dtype: str):
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
-                                     else "operations")
 
 
 def eager_ms(fn, iters: int = 200) -> float:
@@ -434,42 +311,6 @@ def phase_setup() -> str:
 # ---------------------------------------------------------------------------
 # phase 2: kernel against its plain version
 # ---------------------------------------------------------------------------
-
-
-def _paged_decode_case(shape, dtype, seed: int = 0):
-    """Inputs of paged_flash_decode at ``PAGED_SHAPES[shape]``: a random
-    pool, scrambled tables whose unmapped tails hold out-of-range ids."""
-    import numpy as np
-    import torch
-    Bs, Hs, KVs, hd, ps, Ps, Ws, lens = PAGED_SHAPES[shape]
-    rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
-    lengths = np.asarray(lens, np.int32)
-    tables = np.stack([rng.permutation(np.arange(1, Ps))[:Ws]
-                       for _ in range(Bs)]).astype(np.int32)
-    for b, ln in enumerate(lengths):      # unmapped tail: out of range
-        n = -(-int(ln) // ps)
-        tables[b, n:] = rng.choice([-7, Ps, Ps + 1000], size=Ws - n)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    q, kp, vp = (torch.randn(shp, generator=gen, device=dev).to(dtype)
-                 for shp in ((Bs, Hs, hd), (Ps, KVs, ps, hd),
-                             (Ps, KVs, ps, hd)))
-    return (q, kp, vp, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(lengths).to(dev))
-
-
-def _sdpa_inputs(q, kp, vp, tables, lens):
-    """Dense (B, KV, W*ps, hd) K/V gathered through the tables, and the
-    length mask, for the library yardstick."""
-    import torch
-    Bs, Ws = tables.shape
-    Ps, KVs, ps, hd = kp.shape
-    tbl = tables.long().clamp(0, Ps - 1)
-    k = kp[tbl].permute(0, 2, 1, 3, 4).reshape(Bs, KVs, Ws * ps, hd)
-    v = vp[tbl].permute(0, 2, 1, 3, 4).reshape(Bs, KVs, Ws * ps, hd)
-    mask = (torch.arange(Ws * ps, device=q.device)[None, :]
-            < lens[:, None].long())[:, None, None, :]
-    return q[:, :, None, :], k.contiguous(), v.contiguous(), mask
 
 
 def traced_launches(fn, calls: int = 4, pad: int = 64):
@@ -552,8 +393,8 @@ def phase_kernel() -> dict:
         log(f"  paged_flash_decode {shape} (B={Bs} H={Hs} KV={KVs} hd={hd}"
             f" ps={ps} P={Ps} W={Ws})")
         for name in ("bfloat16", "float32"):
-            q, kp, vp, tables, lens = _paged_decode_case(
-                shape, getattr(torch, name))
+            q, kp, vp, tables, lens = paged_decode_case(
+                PAGED_SHAPES[shape], getattr(torch, name))
             got = decode_attention.paged_flash_decode(q, kp, vp, tables,
                                                       lens)
             torch.cuda.synchronize()
@@ -585,7 +426,7 @@ def phase_kernel() -> dict:
             call_ms = eager_ms(kernel)
             plain_ms = time_ms(lambda: ref.paged_decode_ref(q, kp, vp,
                                                             tables, lens))
-            sq, sk, sv, mask = _sdpa_inputs(q, kp, vp, tables, lens)
+            sq, sk, sv, mask = sdpa_paged_inputs(q, kp, vp, tables, lens)
             lib_out = F.scaled_dot_product_attention(
                 sq, sk, sv, attn_mask=mask, enable_gqa=True)[:, :, 0]
             lib_err = (lib_out.float() - want.float()).abs().max().item()
@@ -596,7 +437,7 @@ def phase_kernel() -> dict:
             nbytes = (2 * q.numel() * size            # q in, out
                       + 2 * ctx * KVs * hd * size     # the K and V it needs
                       + tables.numel() * 4 + lens.numel() * 4)
-            bound_ms, bound_by = _bound(nbytes, 4 * ctx * Hs * hd, name)
+            bound_ms, bound_by = bound(nbytes, 4 * ctx * Hs * hd, name)
             row = {"max_abs_err": err, "ms": ms, "eager_ms": call_ms,
                    "plain_ms": plain_ms, "library_ms": library_ms,
                    "library_err": lib_err, "bound_ms": bound_ms,
@@ -866,7 +707,7 @@ def phase_round_breakdown(rounds: int = 4) -> None:
     eng = build_engines("qwen2-1.5b", 1, 160, device="cuda",
                         full_scale=True)[0]
     rng = np.random.default_rng(5)
-    for rid in range(B):
+    for rid in range(PAGED_SHAPES["serve"][0]):      # the serve's 8 lanes
         eng.admit(Request(rid=rid, max_new_tokens=32,
                           prompt=rng.integers(0, eng.cfg.vocab_size,
                                               (1, 128), dtype=np.int32)))
@@ -911,40 +752,6 @@ def phase_round_breakdown(rounds: int = 4) -> None:
 # ---------------------------------------------------------------------------
 # phase 5: ladn_denoise against its plain version
 # ---------------------------------------------------------------------------
-
-
-def _ladn_case(G, T, I, A, S, H, seed: int = 0):  # noqa: E741
-    """Random stacked LADN weights and rows on the card, in the kernel's
-    argument order (the schedule last)."""
-    import torch
-    from repro_torch.core import networks as nets
-    from repro_torch.core.diffusion import make_schedule_np
-    from repro_torch.kernels import ops
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    theta = nets.init_ladn(gen, S, A, (H, H), num_agents=G, device=dev)
-    x = torch.randn((G, T, A), generator=gen, device=dev)
-    s = torch.randn((G, T, S), generator=gen, device=dev)
-    noise = torch.randn((G, T, I, A), generator=gen, device=dev)
-    w1x, w1t, w1s, b1, w2, b2, w3, b3 = ops.pack_ladn_weights(theta, S, A)
-    temb_w1 = nets.timestep_embed(torch.arange(I, 0, -1, device=dev),
-                                  device=dev) @ w1t
-    return (x, s, noise, temb_w1, w1x, w1s, b1, w2, b2, w3, b3,
-            make_schedule_np(I))
-
-
-def _ladn_bound_ms(G, T, I, A, S, H):  # noqa: E741
-    """The least time for one call: each input read once and the output
-    written once at HBM rate, or its f32 flops at the f32 peak."""
-    nbytes = 4 * (G * T * (A + S + I * A + A)          # x, s, noise, out
-                  + G * I * H                          # temb_w1
-                  + G * (A * H + S * H + H * H + H * A + 2 * H + A))
-    per_step = 2 * A * H + 2 * H * H + 2 * H * A + 5 * H + 6 * A
-    flops = G * T * (2 * S * H + H + I * per_step)
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    flops_ms = flops / PEAK_FLOPS["float32"] * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
-                                     else "operations")
 
 
 def check_ladn_launch(label: str, fn, plan):
@@ -1007,7 +814,7 @@ def phase_ladn_kernel() -> dict:
     for name, shape in {**LADN_SHAPES, **LADN_WIDE}.items():
         G, T, I, A, S, H = shape  # noqa: E741
         plan = ladn_denoise.plan(G, T, A, S, H, I)
-        args = _ladn_case(*shape)
+        args = ladn_case(*shape)
         # the plain version's schedule on the card (nothing is copied from
         # the host inside the timed graph); the kernel folds the numpy one
         plain_args = args[:-1] + (DiffusionSchedule(
@@ -1027,7 +834,7 @@ def phase_ladn_kernel() -> dict:
         ms = time_ms(kernel)
         call_ms = eager_ms(kernel)
         plain_ms = time_ms(lambda: ref.ladn_denoise_ref(*plain_args))
-        bound_ms, bound_by = _ladn_bound_ms(*shape)
+        bound_ms, bound_by = ladn_bound(*shape)
         result[name] = {"shape": dict(zip("GTIASH", shape)),
                         "launched": launched,
                         "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
@@ -1231,16 +1038,6 @@ def phase_live_ladts() -> int:
 # ---------------------------------------------------------------------------
 
 
-def _attn_mask(Sq, Skv, window, q_offset, dev):
-    import torch
-    qpos = q_offset + torch.arange(Sq, device=dev)[:, None]
-    kpos = torch.arange(Skv, device=dev)[None, :]
-    mask = kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    return mask
-
-
 def ptxas_report(log: str) -> list:
     """Each kernel's registers, stack and spill bytes from an
     ``nvcc -Xptxas -v`` log, the template arguments read from the mangled
@@ -1305,9 +1102,7 @@ def check_attention_launch(label: str, fn, plan):
 
 def phase_flash_attention() -> dict:
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import build, flash_attention, ref
-    dev = torch.device("cuda")
+    from repro_torch.kernels import build, flash_attention
     info = build.build_info["flash_attention"]
     ptxas = ptxas_report(info.get("ptxas", ""))
     for row in ptxas:
@@ -1319,24 +1114,16 @@ def phase_flash_attention() -> dict:
     result = {} if info["cached"] else {"ptxas": ptxas}
     for name, (B, Hq, KVh, Sq, Skv, hd, win, off, dt) in ATTN_SHAPES.items():
         dtype = getattr(torch, dt)
-        gen = torch.Generator(device=dev).manual_seed(9)
-        # the model's layouts: (B, S, heads, hd) projections as views
-        q = torch.randn((B, Sq, Hq, hd), generator=gen, device=dev,
-                        dtype=torch.float32).to(dtype).transpose(1, 2)
-        k = torch.randn((B, Skv, KVh, hd), generator=gen, device=dev,
-                        dtype=torch.float32).to(dtype).transpose(1, 2)
-        v = torch.randn((B, Skv, KVh, hd), generator=gen, device=dev,
-                        dtype=torch.float32).to(dtype).transpose(1, 2)
+        q, k, v = attention_case(ATTN_SHAPES[name])
         got = flash_attention.flash_attention(q, k, v, window=win,
                                               q_offset=off)
         torch.cuda.synchronize()
-        want = ref.attention_ref(q, k, v, window=win, q_offset=off)
+        want = attention_plain(q, k, v, win, off)
         err = (got.float() - want.float()).abs().max().item()
         if not err <= TOL[dt]:
             fail(f"flash_attention {name}: max abs err {err:.3e} > "
                  f"{TOL[dt]:.0e}")
-        big = Sq * Skv > 1 << 20
-        iters = 5 if big else 50
+        kw = attention_timing(Sq, Skv)
 
         def kernel():
             return flash_attention.flash_attention(q, k, v, window=win,
@@ -1346,22 +1133,17 @@ def phase_flash_attention() -> dict:
                                          off)
         launched = check_attention_launch(f"flash_attention {name}", kernel,
                                           plan)
-        ms = time_ms(kernel, iters=iters, reps=3 if big else 5)
-        call_ms = eager_ms(kernel, iters=20 if big else 200)
-        plain_ms = time_ms(lambda: ref.attention_ref(
-            q, k, v, window=win, q_offset=off), iters=iters,
-            reps=3 if big else 5)
-        mask = _attn_mask(Sq, Skv, win, off, dev)
-        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                 enable_gqa=True)
+        ms = time_ms(kernel, **kw)
+        call_ms = eager_ms(kernel, iters=20 if kw else 200)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v, win, off), **kw)
+        library = attention_library(q, k, v, win, off)
+        lib_out = library()
         lib_err = (lib_out.float() - want.float()).abs().max().item()
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True), iters=iters,
-            reps=3 if big else 5)
-        pairs = int(mask.sum().item())
+        library_ms = time_ms(library, **kw)
+        pairs = attn_pairs(Sq, Skv, win, off)
         size = q.element_size()
         nbytes = size * (2 * q.numel() + k.numel() + v.numel())
-        bound_ms, bound_by = _bound(nbytes, 4 * B * Hq * hd * pairs, dt)
+        bound_ms, bound_by = bound(nbytes, 4 * B * Hq * hd * pairs, dt)
         result[name] = {
             "shape": dict(B=B, H=Hq, KV=KVh, Sq=Sq, Skv=Skv, hd=hd,
                           window=win, q_offset=off, dtype=dt),
@@ -1373,9 +1155,9 @@ def phase_flash_attention() -> dict:
             f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
             f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
             f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
-        del q, k, v, got, want, lib_out, mask
+        del q, k, v, got, want, lib_out, library
         torch.cuda.empty_cache()
-    log(f"phase 9 ok: flash_attention matches attention_ref at "
+    log(f"phase 9 ok: flash_attention matches its plain version at "
         f"{', '.join(ATTN_SHAPES)}")
     return result
 
@@ -1385,19 +1167,6 @@ def phase_flash_attention() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _flash_decode_case(name: str):
-    """Inputs of flash_decode at ``DECODE_SHAPES[name]``: q, K and V
-    caches, per-lane lengths."""
-    import torch
-    Bs, Hq, KVh, W_, hd, lens, dt = DECODE_SHAPES[name]
-    dtype, dev = getattr(torch, dt), torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(10)
-    q = torch.randn((Bs, Hq, hd), generator=gen, device=dev).to(dtype)
-    k = torch.randn((Bs, KVh, W_, hd), generator=gen, device=dev).to(dtype)
-    v = torch.randn((Bs, KVh, W_, hd), generator=gen, device=dev).to(dtype)
-    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
-
-
 def phase_flash_decode() -> dict:
     import torch
     import torch.nn.functional as F
@@ -1405,7 +1174,7 @@ def phase_flash_decode() -> dict:
     dev = torch.device("cuda")
     result = {}
     for name, (Bs, Hq, KVh, W_, hd, lens, dt) in DECODE_SHAPES.items():
-        q, k, v, lengths = _flash_decode_case(name)
+        q, k, v, lengths = flash_decode_case(DECODE_SHAPES[name])
         got = decode_attention.flash_decode(q, k, v, lengths)
         torch.cuda.synchronize()
         want = ref.decode_ref(q, k, v, lengths)
@@ -1437,7 +1206,7 @@ def phase_flash_decode() -> dict:
         size = q.element_size()
         nbytes = (2 * q.numel() * size + 2 * ctx * KVh * hd * size
                   + 4 * Bs)
-        bound_ms, bound_by = _bound(nbytes, 4 * ctx * Hq * hd, dt)
+        bound_ms, bound_by = bound(nbytes, 4 * ctx * Hq * hd, dt)
         result[name] = {
             "shape": dict(B=Bs, H=Hq, KV=KVh, W=W_, hd=hd, lengths=list(lens),
                           dtype=dt),
@@ -2490,7 +2259,7 @@ def phase_moe_layer(arch: str) -> dict:
         pairs = _moe_pairs(p, cfg, x, groups)
         nbytes = wbytes + p["router"].numel() * 4 + 2 * x.numel() * 2
         flops = pairs * 3 * 2 * cfg.d_model * cfg.d_ff
-        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
+        bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
         result[case] = {"T": T, "groups": groups, "rel_err": errs,
                         "ms": ms, "local_graph_ms": graph_ms,
                         "device_ms": dev_ms,
@@ -2506,7 +2275,7 @@ def phase_moe_layer(arch: str) -> dict:
                         f"{k} {v:.3f}" for k, v in dev_ms.items())
             + f"; bound {bound_ms:.3f} ms ({bound_by}:"
             f" {wbytes / 1e9:.2f} GB of experts at "
-            f"{HBM_BYTES_S / 1e12:.2f} TB/s)")
+            f"{HBM_BW / 1e12:.2f} TB/s)")
     result["nccl_kernels"] = sorted(nccl)
     log(f"phase 20a ok: {arch} one layer (d {cfg.d_model}, f {cfg.d_ff}, E "
         f"{E}, K {cfg.moe.top_k}, bf16): the three paths agree within "
@@ -2710,7 +2479,7 @@ def phase_moe_serve(arch: str) -> dict:
              f"every routing decision equal")
     eng.reset()
     rb = _moe_round_breakdown(eng, [r.prompt for r in reqs[:MOE_SLOTS]])
-    stream_ms = _tree_bytes(eng.params) / HBM_BYTES_S * 1e3
+    stream_ms = _tree_bytes(eng.params) / HBM_BW * 1e3
     busy = ("device busy not measured (the profiler saw no device time)"
             if rb["busy_ms"] is None else
             f"device busy {rb['busy_ms']:.2f} ms (idle share "
@@ -2720,7 +2489,7 @@ def phase_moe_serve(arch: str) -> dict:
     log(f"{label}: decode round ({MOE_SLOTS} requests decoding, {n} layers,"
         f" bf16, mesh): enqueue {rb['enqueue_ms']:.2f} ms, wall "
         f"{rb['wall_ms']:.2f} ms, {busy}; every weight read once: "
-        f"{stream_ms:.3f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s; prefill "
+        f"{stream_ms:.3f} ms at {HBM_BW / 1e12:.2f} TB/s; prefill "
         f"logits mesh vs none {rel:.2e} of max |logit| with {flips} "
         f"routing decisions flipped; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -3055,10 +2824,241 @@ def phase_train_moe_mesh() -> dict:
     return {"grad_rel": rel, "loss_rel": loss_rel, "collectives": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tooling (dry run, kernel bench, Table V, Figs. 5-8, roofline)
+# ---------------------------------------------------------------------------
+
+# 22a's cut shapes of qwen2-1.5b at published width and depth, bf16: what
+# one card holds of each kind
+TOOL_SHAPES = (("train_cut", 512, 2, "train"),
+               ("prefill_cut", 32768, 1, "prefill"),
+               ("decode_cut", 32768, 8, "decode"))
+MAX_SHARE = 1.05          # bound / measured: above 1, the count is wrong
+TOOL_EPISODE_BUDGET_S = 40.0
+
+
+def phase_tooling_dryrun(card: str):
+    """22a. The dry run against the card: for each kind, the counting pass
+    of ``launch.dryrun`` (fake CPU tensors) at a cut shape, then the same
+    step on the card: the allocated inputs' bytes equal the dry run's
+    argument bytes exactly, the counted bound over the measured device
+    time (CUDA events, one step after a warm-up) is at most 1.05, and
+    the attention kernels launch layers x calls."""
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import mesh_shape
+    from repro_torch.models.transformer import init_layer_states, init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import microbatches
+    dev = torch.device("cuda")
+    cfg = get_config(QWEN)
+    L, V = cfg.num_layers, cfg.vocab_size
+    mesh = mesh_shape("1x1")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(22),
+                         dev)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out, records = {}, []
+    for name, S, B, kind in TOOL_SHAPES:
+        shape = InputShape(name, S, B, kind)
+        t0 = time.perf_counter()
+        rec = dryrun.analyse(cfg, shape, mesh, dryrun.trace(cfg, shape,
+                                                             mesh),
+                             time.perf_counter() - t0)
+        records.append(rec)
+        toks = torch.randint(0, V, (B, 1 if kind == "decode" else S),
+                             generator=gen, device=dev, dtype=torch.int32)
+        if kind == "train":
+            labels = torch.randint(0, V, (B, S), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            args = (params, opt.init(params),
+                    {"tokens": toks, "labels": labels})
+            calls = {"flash_attention": L * microbatches(cfg, B)
+                     * (2 if cfg.remat else 1)}
+        elif kind == "prefill":
+            args = (params, {"tokens": toks})
+            calls = {"flash_attention": L}
+        else:
+            args = (params, {"tokens": toks},
+                    init_layer_states(cfg, B, S, dev, filled_pos=S - 1))
+            calls = {"flash_decode": L}
+        allocated = _tree_bytes(args)
+        if allocated != rec["argument_bytes_total"]:
+            fail(f"22a {name}: allocated inputs {allocated} B, the dry run "
+                 f"counts {rec['argument_bytes_total']} B")
+        step = dryrun.step_for_shape(cfg, shape)
+        step(*args)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        launches = {k: ops.launches[k] for k in calls}
+        if launches != calls:
+            fail(f"22a {name}: launches {launches}, expected {calls}")
+        first = res[0] if kind != "train" else res[2]["loss"]
+        if not torch.isfinite(torch.as_tensor(first).float()).all():
+            fail(f"22a {name}: the step's output is not finite")
+        bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+        share = bound_ms / ms
+        if not share <= MAX_SHARE:
+            fail(f"22a {name}: bound {bound_ms:.3f} ms over measured "
+                 f"{ms:.3f} ms = {share:.3f} > {MAX_SHARE}: the count is "
+                 f"wrong")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[name] = {"B": B, "S": S, "kind": kind, "ms": ms,
+                     "bound_ms": bound_ms, "bound_by": rec["bottleneck"],
+                     "share": share, "flops": rec["flops"],
+                     "bytes": rec["bytes"],
+                     "argument_bytes": rec["argument_bytes_total"],
+                     "peak_gib": peak, "trace_s": rec["trace_s"],
+                     "launches": launches}
+        log(f"  22a {name} ({kind}, B {B} x S {S}; {card}): argument bytes "
+            f"{allocated} = the dry run's; peak {peak:.2f} GiB; counted "
+            f"{rec['flops']:.4e} FLOPs, {rec['bytes']:.4e} B (traced in "
+            f"{rec['trace_s']} s on the CPU); bound {bound_ms:.3f} ms "
+            f"({rec['bottleneck']}) against {ms:.3f} ms measured: share "
+            f"{share:.4f}; launches {launches}")
+        del args, res
+        _free_card()
+    shares = ", ".join(f"{v['share']:.4f}" for v in out.values())
+    log(f"phase 22a ok: qwen2-1.5b (28 layers, bf16) train / prefill / "
+        f"decode: exact argument bytes, shares {shares} (<= {MAX_SHARE}), "
+        f"launches = layers x calls")
+    return out, records
+
+
+def phase_tooling_kernels(card: str) -> list:
+    """22b. ``bench.kernels.bench_kernels()`` on the card: every row's
+    kernel equal to its plain version (bf16 2e-2, f32 1e-4)."""
+    from repro_torch.bench.kernels import bench_kernels
+    t0 = time.perf_counter()
+    rows, records = bench_kernels()
+    bad = [r for r in records if not (r["ok"] and r["mode"] == "cuda")]
+    if bad:
+        fail(f"22b: rows off their plain version: {bad}")
+    for r in rows:
+        log(f"  22b {r}")
+    log(f"phase 22b ok: {len(records)} kernel rows match their plain "
+        f"versions ({card}; {time.perf_counter() - t0:.1f} s)")
+    return records
+
+
+def phase_tooling_tablev(card: str) -> dict:
+    """22c. ``bench_tablev(full_scale=True)``: N = 1, 8, 32 through the
+    4-layer cloud engine and the 2 / 3-layer edges at published width:
+    every request ``ok``, no KV held, ``paged_flash_decode`` launched
+    layers x decode rounds and ``flash_attention`` layers x prefill
+    chunks, summed over each run's engines."""
+    from repro_torch.bench.serving import bench_tablev
+    t0 = time.perf_counter()
+    rows, records = bench_tablev(full_scale=True)
+    sums = {"paged_flash_decode": 0, "flash_attention": 0}
+    for r in records:
+        if r["completed"] != r["requests"] or r["count"] != r["requests"]:
+            fail(f"22c: {r['mode']} N={r['requests']}: {r['completed']} "
+                 f"completed")
+        if any(e["kv_leak"] for e in r["engines"]):
+            fail(f"22c: {r['mode']} N={r['requests']}: KV held "
+                 f"{[e['kv_leak'] for e in r['engines']]}")
+        want = {"paged_flash_decode": sum(e["layers"] * e["decode_rounds"]
+                                          for e in r["engines"]),
+                "flash_attention": sum(e["layers"] * e["prefills"]
+                                       for e in r["engines"]),
+                "ladn_denoise": 0, "flash_decode": 0}
+        if r["launches"] != want:
+            fail(f"22c: {r['mode']} N={r['requests']}: launches "
+                 f"{r['launches']}, the run implies {want}")
+        for k in sums:
+            sums[k] += r["launches"][k]
+    for r in rows:
+        log(f"  22c {r}")
+    log(f"phase 22c ok: Table V at published width ({card}): "
+        f"{len(records)} runs, every request ok, no KV held, launches "
+        f"{sums} ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": sums, "rows": rows}
+
+
+def phase_tooling_scheduling(card: str) -> dict:
+    """22d. Figs. 5, 6a and 8a at quick scale, cut to the budget: one
+    timed lad-ts episode first, then fig5 with every method at 2
+    episodes, one fig6a point and fig8a at I 5 (2 episodes each when the
+    timed episode allows, else 1): finite delays, and ``ladn_denoise``
+    launched 3 times a training task step and once an evaluation step
+    for the diffusion policies, never for the others."""
+    import math
+    from repro_torch.bench import scheduling as sch
+    from repro_torch.core.trainer import train_method
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    train_method("lad-ts", sch.env_for_scale("quick"), sch.agent_cfg("quick"),
+                 episodes=1, device="cuda")
+    ep_s = time.perf_counter() - t0
+    eps = 2 if 13 * ep_s <= TOOL_EPISODE_BUDGET_S else 1
+    ops.reset_launches()
+    records = []
+    rows, _ = sch.bench_fig5_learning("quick", episodes=2, records=records)
+    rows += sch.bench_sweep("quick", "max_tasks", (8,), episodes=eps,
+                            eval_episodes=1, records=records)
+    rows += sch.bench_fig8_params("quick", episodes=eps, eval_episodes=1,
+                                  steps=(5,), alphas=(), records=records)
+    total = 0
+    for r in records:
+        delays = r["delays"] + ([r["eval_delay"]] if "eval_delay" in r
+                                else [])
+        if not all(math.isfinite(d) and d > 0 for d in delays):
+            fail(f"22d: {r['bench']} {r['method']}: delays {delays}")
+        chain = r["method"] in ("lad-ts", "d2sac-ts")
+        want = 3 * r["task_steps"] if chain else 0
+        want_eval = r.get("eval_steps", 0) if chain else 0
+        got = (r["ladn_launches"], r.get("eval_ladn_launches", 0))
+        if got != (want, want_eval):
+            fail(f"22d: {r['bench']} {r['method']}: ladn_denoise launches "
+                 f"{got}, expected {(want, want_eval)}")
+        total += sum(got)
+    if ops.launches["ladn_denoise"] != total:
+        fail(f"22d: ladn_denoise launched {ops.launches['ladn_denoise']} "
+             f"times, the runs account for {total}")
+    for r in rows:
+        log(f"  22d {r}")
+    log(f"phase 22d ok: quick-scale Figs. 5, 6a and 8a ({card}; one lad-ts "
+        f"episode {ep_s:.2f} s, {eps} episode(s) a sweep run): delays "
+        f"finite, ladn_denoise {total} = 3 a training step + 1 an "
+        f"evaluation step ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": total, "episode_s": ep_s, "rows": rows}
+
+
+def phase_tooling_roofline(card: str, records: list) -> list:
+    """22e. ``bench_roofline()`` and the report over 22a's records, written
+    to a temporary directory."""
+    import tempfile
+    from repro_torch.bench.roofline import bench_roofline
+    from repro_torch.roofline import report
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "torch_dryrun_1x1.jsonl"), "w") as fh:
+            for rec in records:
+                fh.write(json.dumps(rec) + "\n")
+        rows = bench_roofline(tmp)
+        report.main(["--results", tmp])
+    mine = [r for r in rows if r.startswith("roofline_1x1/qwen2-1.5b/")]
+    if len(mine) != len(records):
+        fail(f"22e: roofline rows {rows}")
+    for r in mine:
+        log(f"  22e {r} ({card})")
+    log("phase 22e ok: the roofline bench and report read 22a's records")
+    return mine
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
-    phase_setup()
+    card = phase_setup()
     checks = phase_kernel()
     phase_decode_vs_prefill()
     phase_xlstm_decode_vs_forward()
@@ -3117,6 +3117,32 @@ def main() -> None:
     train["21c"] = phase_train_full()
     _free_card()
     train["21d"] = phase_train_moe_mesh()
+    _free_card()
+
+    t22 = time.perf_counter()
+    tool = {}
+    tool["22a"], dry_records = phase_tooling_dryrun(card)
+    tool["22b"] = phase_tooling_kernels(card)
+    _free_card()
+    tool["22c"] = phase_tooling_tablev(card)
+    _free_card()
+    tool["22d"] = phase_tooling_scheduling(card)
+    tool["22e"] = phase_tooling_roofline(card, dry_records)
+    tool["seconds"] = time.perf_counter() - t22
+    log(f"phase 22 ok in {tool['seconds']:.1f} s")
+
+    def tooling(name):
+        """Phase 22's launches of one kernel, and its 22b rows."""
+        runs = {"22a": {k: v["launches"].get(name, 0)
+                        for k, v in tool["22a"].items()},
+                "22c": tool["22c"]["launches"].get(name, 0),
+                "22d": tool["22d"]["launches"] if name == "ladn_denoise"
+                else 0}
+        rows = [{k: r[k] for k in ("shape", "dtype", "us_per_call",
+                                   "plain_us", "library_us", "bound_us",
+                                   "max_abs_err")}
+                for r in tool["22b"] if r["kernel"] == name]
+        return {"launches_tooling": runs, "tooling_bench": rows}
 
     def by_moe_arch(name):
         return {a: v["launches"][name] for a, v in moe_serve.items()}
@@ -3147,7 +3173,8 @@ def main() -> None:
         "ms": bf["ms"], "eager_ms": bf["eager_ms"],
         "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
-        "library_ms": bf["library_ms"], "shapes": checks, "check": "ok"}, {
+        "library_ms": bf["library_ms"], "shapes": checks, "check": "ok",
+        **tooling("paged_flash_decode")}, {
         "name": "ladn_denoise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ladn_denoise.cu",
         "replaces": "src/repro/kernels/ladn_denoise.py:34",
@@ -3165,7 +3192,8 @@ def main() -> None:
         # incomplete)
         "instantiation": {k: v["launched"] and v["launched"]["kernel"]
                           for k, v in ladn_shapes.items()},
-        "shapes": ladn_shapes, "check": "ok"}, {
+        "shapes": ladn_shapes, "check": "ok",
+        **tooling("ladn_denoise")}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
@@ -3191,7 +3219,8 @@ def main() -> None:
         "ms": pre["ms"], "eager_ms": pre["eager_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
         "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
-        "shapes": shapes, "check": "ok"}, {
+        "shapes": shapes, "check": "ok",
+        **tooling("flash_attention")}, {
         "name": "flash_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:48",
@@ -3209,12 +3238,15 @@ def main() -> None:
         "ms": rnd["ms"], "eager_ms": rnd["eager_ms"],
         "plain_ms": rnd["plain_ms"], "bound_ms": rnd["bound_ms"],
         "bound_by": rnd["bound_by"], "library_ms": rnd["library_ms"],
-        "shapes": dec, "check": "ok"}]
+        "shapes": dec, "check": "ok",
+        **tooling("flash_decode")}]
     log("phase 20: " + json.dumps({"moe_layer": moe_layer, "moe_serve": {
         a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
                               "prefill_flips", "prefill_rel_f32")}
         for a, v in moe_serve.items()}}))
     log("phase 21: " + json.dumps(train))
+    log("phase 22: " + json.dumps({k: v for k, v in tool.items()
+                                   if k not in ("22b",)}))
     torch.distributed.destroy_process_group()      # the smoke mesh's
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,8 +1,11 @@
 """Serving benches of the port on the cluster API.
 
-Port of ``bench_qos_mix``, ``bench_closed_loop`` and ``bench_chaos`` from
-``benchmarks/serving.py``:
+Port of ``bench_tablev``, ``bench_qos_mix``, ``bench_closed_loop`` and
+``bench_chaos`` from ``benchmarks/serving.py``:
 
+``bench_tablev``       the paper's Table V: one deep centralized engine
+                       against ``n_edge`` shallow edge engines under JSQ
+                       placement, makespan per request count;
 ``bench_closed_loop``  train LAD-TS in the QoS-enabled simulator, then
                        replay one mixed-QoS Poisson trace through a
                        heterogeneous live fleet (``FLEET_ARCHS`` cycled
@@ -45,7 +48,7 @@ from repro_torch.core.env import EnvParams
 from repro_torch.core.trainer import train_method
 from repro_torch.faults import FaultParams, RetryPolicy, single_crash
 from repro_torch.kernels import ops
-from repro_torch.serving.builders import build_fleet, warmup
+from repro_torch.serving.builders import build_engines, build_fleet, warmup
 from repro_torch.workload import BEST_EFFORT, INTERACTIVE, STANDARD, scaled
 
 # two arch families (attention -> paged KV pool, xLSTM -> dense slot pool)
@@ -95,6 +98,64 @@ def run_extras(dev, engines, done, wall: float, launches0: dict) -> dict:
                     for i, e in enumerate(engines)],
         "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
                          if dev.type == "cuda" else None)}
+
+
+def bench_tablev(num_requests=(1, 8, 32), prompt_len: int = 16,
+                 gen_tokens: int = 8, n_edge: int = 4,
+                 device: DeviceLike = None, full_scale: bool = False):
+    """Centralized (one deep engine) vs edge cluster (``n_edge`` shallow
+    engines + JSQ placement), makespan per request count, on ``device``
+    (``cuda`` unless the caller asks for the CPU).  The reference's
+    depths: 4 layers for the cloud, 2 / 3 alternating for the edges, of
+    qwen2-1.5b reduced or, with ``full_scale``, at published width and
+    dtype.  Returns (csv_rows, json_records); each record carries the
+    reference's summary of the run and the port's ``PORT_KEYS``."""
+    dev = resolve_device(device)
+    max_len = prompt_len + gen_tokens
+    cloud = build_engines("qwen2-1.5b", 1, max_len, depths=[4], device=dev,
+                          full_scale=full_scale)[0]
+    edges = build_engines("qwen2-1.5b", n_edge, max_len,
+                          depths=[2 + (i % 2) for i in range(n_edge)],
+                          seed0=1, device=dev, full_scale=full_scale)
+    vocab = cloud.cfg.vocab_size
+    warmup([cloud] + edges, prompt_len)
+
+    rows: List[str] = []
+    records: List[dict] = []
+    for N in num_requests:
+        def trace():
+            return poisson_trace(N, rate=1e6, prompt_len=prompt_len,
+                                 max_new_tokens=gen_tokens,
+                                 min_new_tokens=gen_tokens,
+                                 vocab_size=vocab, num_origins=n_edge,
+                                 seed=N)
+
+        walls = {}
+        for mode, engines, sched in (
+                ("centralized", [cloud], make_scheduler("round-robin", 1)),
+                ("dedgeai", edges, make_scheduler("jsq", n_edge))):
+            for e in engines:
+                e.reset()
+            launches0 = start_run(dev)
+            t0 = time.monotonic()
+            done = EdgeCluster(engines, sched).run(trace())
+            walls[mode] = time.monotonic() - t0
+            stats = summarize(done)
+            records.append({"bench": "tablev", "mode": mode, "requests": N,
+                            "wall_s": walls[mode], **stats,
+                            **run_extras(dev, engines, done, walls[mode],
+                                         launches0)})
+        c, e = records[-2], records[-1]
+        speedup = walls["centralized"] / max(walls["dedgeai"], 1e-9)
+        rows.append(
+            f"tableV_N={N}/centralized,"
+            f"{walls['centralized'] / max(N, 1) * 1e6:.0f},"
+            f"mean={c['mean_s']:.3f}s;p95={c['p95_s']:.3f}s")
+        rows.append(
+            f"tableV_N={N}/dedgeai,{walls['dedgeai'] / max(N, 1) * 1e6:.0f},"
+            f"mean={e['mean_s']:.3f}s;p95={e['p95_s']:.3f}s;"
+            f"speedup={speedup:.2f}x")
+    return rows, records
 
 
 def bench_qos_mix(gen_tokens: int, prompt_len: int = 0):

@@ -8,6 +8,8 @@ import importlib
 from typing import Dict, List
 
 from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
+from repro_torch.configs.shapes import (SHAPES, SHAPES_BY_NAME, InputShape,
+                                        get_shape, smoke_shape)
 
 _ARCH_MODULES: Dict[str, str] = {
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
@@ -32,5 +34,12 @@ def get_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
-__all__ = ["ARCH_IDS", "BlockSpec", "ModelConfig", "MoEConfig", "get_config",
-           "reduced"]
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
+
+
+__all__ = [
+    "ARCH_IDS", "BlockSpec", "InputShape", "ModelConfig", "MoEConfig",
+    "SHAPES", "SHAPES_BY_NAME", "all_configs", "get_config", "get_shape",
+    "reduced", "smoke_shape",
+]

@@ -22,6 +22,7 @@ from repro_torch.core.networks import TIME_EMBED_DIM, timestep_embed
 from repro_torch.core.optim import tree_leaves
 from repro_torch.kernels import decode_attention, ladn_denoise as _ladn, ref
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.roofline.hooks import kernel_call
 
 launches = {"paged_flash_decode": 0, "ladn_denoise": 0,
             "flash_attention": 0, "flash_decode": 0}
@@ -40,8 +41,8 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     q (B,H,hd); k/v_pages (P,KV,ps,hd); block_tables (B,W) int32;
     lengths (B,) int32.  Returns (B,H,hd)."""
     if q.device.type == "cpu":
-        return ref.paged_decode_ref(q, k_pages, v_pages, block_tables,
-                                    lengths)
+        return kernel_call("paged_flash_decode", ref.paged_decode_ref, q,
+                           k_pages, v_pages, block_tables, lengths)
     out = decode_attention.paged_flash_decode(q, k_pages, v_pages,
                                               block_tables, lengths)
     launches["paged_flash_decode"] += 1
@@ -65,8 +66,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     a gradient while grad mode is on (its output would silently carry
     none).  :func:`flash_attention_grad` is the differentiable call."""
     if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset)
+        return kernel_call("flash_attention", ref.attention_ref, q, k, v,
+                           causal=causal, window=window, q_offset=q_offset)
     if _needs_grad(q, k, v):
         raise RuntimeError("flash_attention has no backward: call it under "
                            "torch.no_grad(), or call flash_attention_grad")
@@ -127,7 +128,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     q (B,H,hd); caches (B,KV,S,hd); length () or (B,) valid positions.
     Returns (B,H,hd)."""
     if q.device.type == "cpu":
-        return ref.decode_ref(q, k_cache, v_cache, length)
+        return kernel_call("flash_decode", ref.decode_ref, q, k_cache,
+                           v_cache, length)
     out = decode_attention.flash_decode(q, k_cache, v_cache, length)
     launches["flash_decode"] += 1
     return out

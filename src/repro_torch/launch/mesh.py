@@ -12,9 +12,9 @@ names a grid of those ranks with the reference's axis names:
 The process group is the caller's to set up (``init_process_group`` with
 an explicit store, rank and world size); :func:`make_production_mesh`
 checks the grid against its world size.  :func:`make_smoke_mesh` needs no
-group: it starts a one-rank one on an in-process ``HashStore``.  The TPU
-v5e peak constants of the reference are not copied: the H100's come with
-the roofline (ROADMAP.md A9).
+group: it starts a one-rank one on an in-process ``HashStore``.  The peak
+constants are the H100's, in place of the reference's TPU v5e ones; the
+roofline (``repro_torch.roofline``) divides by them.
 """
 from __future__ import annotations
 
@@ -25,6 +25,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device
+
+# NVIDIA H100 SXM5 80GB at 700 W, from NVIDIA's H100 Tensor Core GPU
+# data sheet (dense, no sparsity); per card
+PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 on the tensor cores
+PEAK_FLOPS_F32 = 67e12          # FLOP/s, f32 on the CUDA cores
+HBM_BW = 3.35e12                # bytes/s, HBM3
+NVLINK_BW = 450e9               # bytes/s per direction (the reference's ICI_BW)
+HBM_BYTES = 80e9                # bytes of HBM3 a card
 
 SMOKE_AXES = ("data", "model")
 

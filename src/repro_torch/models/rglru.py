@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.roofline.hooks import fill, trips
 
 _C = 8.0
 _NBLOCKS = 8  # block-diagonal gate projections, as in Griffin
@@ -132,14 +133,14 @@ def rglru_scan(p: dict, cfg, x: torch.Tensor, *,
         # autograd refuses ``out=``: keep each h_t and stack them
         h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)
         steps = []
-        for t in range(S):
+        for t in trips(S):
             h = torch.addcmul(b[:, t], a[:, t], h)
             steps.append(h)
-        hs = torch.stack(steps, dim=1)
+        hs = torch.stack(fill(steps, S), dim=1)
     else:
         hs = torch.empty((B, S, rd), dtype=torch.float32, device=x.device)
         h = torch.zeros((B, rd), dtype=torch.float32, device=x.device)
-        for t in range(S):             # h_t = a_t * h_{t-1} + b_t
+        for t in trips(S):             # h_t = a_t * h_{t-1} + b_t
             h = torch.addcmul(b[:, t], a[:, t], h, out=hs[:, t])
     out = hs.to(x.dtype) * gate
     Wc = p["conv_w"].shape[0]

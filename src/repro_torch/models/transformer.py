@@ -24,6 +24,7 @@ its own batch-1 decode under the reference's ``vmap``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -106,11 +107,27 @@ def init_params(cfg, generator: torch.Generator,
     return params
 
 
-def init_layer_states(cfg, batch: int, max_len: int,
-                      device: torch.device) -> List[dict]:
+def abstract_params(cfg, fake_mode=None) -> dict:
+    """The params of ``cfg`` as fake CPU tensors of ``fake_mode`` (a new
+    ``FakeTensorMode`` unless given): the reference's ``jax.eval_shape``
+    of ``init_params``, shapes and dtypes with no storage.  Run a step on
+    them inside the same mode."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_mode or FakeTensorMode():
+        return init_params(cfg, torch.Generator(device="cpu"),
+                           torch.device("cpu"))
+
+
+def init_layer_states(cfg, batch: int, max_len: int, device: torch.device,
+                      filled_pos: Optional[int] = None) -> List[dict]:
     """Empty per-layer states with a leading batch (slot) axis: dense
     K/V rings (``attention.init_kv_cache``), RG-LRU, mLSTM or sLSTM
-    states, each with a ``pos`` (batch,) int32."""
+    states, each with a ``pos`` (batch,) int32.
+
+    ``filled_pos`` stamps a token count for a decode of the whole batch
+    at one depth (the dry run pretends a ``max_len``-deep cache is
+    already written): each ``pos`` is then one 0-d int32 shared by every
+    row, the reference's layout, which the decode forward broadcasts."""
     states = []
     for blk in cfg.layer_pattern():
         _check_block(blk)
@@ -123,6 +140,10 @@ def init_layer_states(cfg, batch: int, max_len: int,
             states.append(xlstm.init_mlstm_state(cfg, batch, device))
         else:
             states.append(xlstm.init_slstm_state(cfg, batch, device))
+    if filled_pos is not None:
+        for st in states:
+            st["pos"] = torch.tensor(filled_pos, dtype=torch.int32,
+                                     device=device)
     return states
 
 
@@ -312,7 +333,11 @@ def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
                  "lengths": inputs["lengths"]}
         pos_offset = inputs["lengths"][:, None]
     elif mode == "decode":
-        # each row's own position, where the reference vmaps a scalar
+        # each row's own position, where the reference vmaps a scalar; a
+        # 0-d pos (``init_layer_states(filled_pos=)``) is every row's
+        B = inputs["tokens"].shape[0]
+        states = [dict(st, pos=st["pos"].expand(B)) if st["pos"].dim() == 0
+                  else st for st in states]
         pos_offset = states[0]["pos"][:, None]
     x = embed_inputs(params, cfg, inputs, pos_offset)
     positions = None
@@ -341,3 +366,18 @@ def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
                 "states": new_states, "aux": aux}
     return {"logits": apply_head(params, cfg, x)[:, 0], "states": new_states,
             "aux": aux}
+
+
+def config_for_shape(cfg, shape):
+    """Long-context decode on full-attention archs switches to the
+    beyond-paper sliding-window variant (weights are unchanged)."""
+    long_decode = shape.kind == "decode" and shape.seq_len > 65536
+    if long_decode and not cfg.is_subquadratic():
+        raise ValueError(
+            f"{cfg.name} cannot serve {shape.name}: full attention and no "
+            "long_context_window configured")
+    if (long_decode and cfg.long_context_window is not None
+            and cfg.sliding_window is None):
+        return dataclasses.replace(cfg,
+                                   sliding_window=cfg.long_context_window)
+    return cfg

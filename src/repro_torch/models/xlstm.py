@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.roofline.hooks import fill, trips
 
 # ---------------------------------------------------------------------------
 # mLSTM
@@ -91,11 +92,11 @@ def mlstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     st = init_mlstm_state(cfg, B, x.device)
     state = (st["C"], st["n"], st["m"])
     hs = []
-    for t in range(S):
+    for t in trips(S):
         state, h = _mlstm_cell(state, (q[:, t], k[:, t], v[:, t],
                                        i_t[:, t], f_t[:, t]))
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, S, d).to(x.dtype)
+    h = torch.stack(fill(hs, S), dim=1).reshape(B, S, d).to(x.dtype)
     C, n, m = state
     new = {"C": C, "n": n, "m": m,
            "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
@@ -176,10 +177,10 @@ def slstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     st = init_slstm_state(cfg, B, x.device)
     state = (st["c"], st["n"], st["h"], st["m"])
     hs = []
-    for t in range(S):
+    for t in trips(S):
         state, h = _slstm_cell(p, state, x_pre[:, t], r)
         hs.append(h)
-    h = torch.stack(hs, dim=1).to(x.dtype)
+    h = torch.stack(fill(hs, S), dim=1).to(x.dtype)
     c, n, h_f, m = state
     new = {"c": c, "n": n, "h": h_f, "m": m,
            "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}

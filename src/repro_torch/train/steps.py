@@ -17,6 +17,7 @@ from repro_torch.core.optim import tree_leaves, tree_map
 from repro_torch.launch import sharding
 from repro_torch.models import moe
 from repro_torch.models.transformer import forward
+from repro_torch.roofline.hooks import trips
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.losses import chunked_ce_loss
 
@@ -87,7 +88,7 @@ def make_grad_step(cfg):
         acc = None
         sums = torch.zeros(3, dtype=torch.float32,
                            device=leaves[0].device)
-        for i in range(k):
+        for i in trips(k, backward_inside=True):
             mb = {name: v[i * rows:(i + 1) * rows]
                   for name, v in batch.items()}
             total, loss, aux = _loss(wrt, cfg, mb)

@@ -28,7 +28,10 @@ def test_the_scan_sees_the_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "decode_attention.py", "serve.py", "injector.py",
             "live.py", "stress.py", "moe.py", "mesh.py", "sharding.py",
-            "mixtral_8x22b.py", "dbrx_132b.py", "chip_smoke.py"} <= names
+            "mixtral_8x22b.py", "dbrx_132b.py", "chip_smoke.py", "shapes.py",
+            "specs.py", "dryrun.py", "analysis.py", "reanalyze.py",
+            "report.py", "hooks.py", "scheduling.py", "kernels.py",
+            "roofline.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES,
