@@ -147,7 +147,9 @@ Phases, in order; the script exits non-zero at the first that fails:
    dense slot pool) and 20c dbrx-132b cut to 4 of 40 layers (bf16, paged
    pool) each serve 8 requests (prompt 128, 16 new tokens, 4 slots)
    through ``ServeEngine(mesh=...)``: every request ``ok``, no KV held,
-   the attention kernels launched layers x passes with the warm-up,
+   the attention kernels launched layers x passes with the warm-up (the
+   dense engine's rings decode through ``flash_decode``'s split-only and
+   merge-only entries, one each a layer and round),
    prefill logits with and without the mesh within 2e-2, a decode
    round's breakdown; then 2 layers in f32: greedy tokens with the mesh
    equal those without, and at capacity factor E / K greedy decode equals
@@ -181,6 +183,23 @@ Phases, in order; the script exits non-zero at the first that fails:
    at quick scale, cut to the budget after one timed episode: finite
    delays, ``ladn_denoise`` 3 a training step and 1 an evaluation step;
    22e ``bench_roofline()`` and the report over 22a's records;
+23. the reference's placement on the 1 x 1 NCCL mesh (every weight
+   placed by ``param_pspecs``, every collective issued on one-rank
+   groups): 23a ``flash_decode``'s split-only entry
+   (``ops.flash_decode_partials``) then its merge-only entry
+   (``ops.decode_merge``) against the one-call kernel and the plain
+   versions at recurrentgemma-9b's and llava-next-mistral-7b's decode
+   rounds in bf16 and f32, and a 160-slot ring cut by hand into 4
+   slices, the last empty, against the whole ring's plain decode, with
+   each pass's time and bound; 23b qwen2-1.5b (paged) and 23c
+   recurrentgemma-9b (dense) at published width and depth in bf16
+   through ``build_sharded_engine``: 8 and 4 greedy requests with the
+   tokens of a meshless engine on the same weights, no KV held, exact
+   launches (23c: both new entries = attention layers x decode rounds
+   with the warm-up), placed bytes = the dry run's argument bytes for
+   the same mesh, and a decode round's host and device ms with the mesh
+   and without; 23d a reduced qwen2-1.5b train step (f32) on placed
+   params = the meshless step within 1e-5;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -1462,7 +1481,7 @@ def _closed_loop_launches(rec: dict) -> dict:
                                    for e in paged),
             "ladn_denoise": (CL_REQUESTS + 1 if rec["scheduler"] == "lad-ts"
                              else 0),
-            "flash_decode": 0}
+            "flash_decode": 0, "flash_decode_partials": 0, "decode_merge": 0}
 
 
 def phase_closed_loop() -> dict:
@@ -1932,7 +1951,8 @@ def _paged_launches(engines: list) -> dict:
                                       for e in paged),
             "flash_attention": sum(e["layers"] * e["prefills"]
                                    for e in paged),
-            "ladn_denoise": 0, "flash_decode": 0}
+            "ladn_denoise": 0, "flash_decode": 0,
+            "flash_decode_partials": 0, "decode_merge": 0}
 
 
 def phase_chaos_serve() -> dict:
@@ -2451,8 +2471,12 @@ def phase_moe_serve(arch: str) -> dict:
         fail(f"{label}: the engine holds {eng.kv_leak} slots or pages idle")
     prefills, rounds = eng.prefills + warm[0], eng.decode_rounds + warm[1]
     n = MOE_LAYERS
-    decode_kernel = "paged_flash_decode" if eng.paged else "flash_decode"
-    want = {"flash_attention": n * prefills, decode_kernel: n * rounds}
+    # the dense engine's rings are cut over the mesh's one "model" rank:
+    # a round is the split pass and the merge pass, apart
+    decode_kernels = (("paged_flash_decode",) if eng.paged
+                      else ("flash_decode_partials", "decode_merge"))
+    want = {"flash_attention": n * prefills,
+            **{k: n * rounds for k in decode_kernels}}
     for k, v in launches.items():
         if v != want.get(k, 0):
             fail(f"{label}: launches {launches}, expected {want} ({n} "
@@ -2464,8 +2488,9 @@ def phase_moe_serve(arch: str) -> dict:
     log(f"{label}: {N_REQUESTS}/{N_REQUESTS} ok on a "
         f"{'paged' if eng.paged else 'dense'} {n}-layer bf16 engine, "
         f"kv_leak 0; flash_attention {launches['flash_attention']} = {n} x "
-        f"{prefills} prefill passes, {decode_kernel} "
-        f"{launches[decode_kernel]} = {n} x {rounds} decode rounds (warm-up"
+        f"{prefills} prefill passes, "
+        + ", ".join(f"{k} {launches[k]}" for k in decode_kernels)
+        + f" = {n} x {rounds} decode rounds each (warm-up"
         f" included); MoE collectives {dict(moe.collectives)}; {toks} "
         f"tokens in {wall:.2f} s ({toks / wall:.1f} tok/s)")
     # prefill logits with and without the mesh: within MOE_REL unless a
@@ -2971,7 +2996,8 @@ def phase_tooling_tablev(card: str) -> dict:
                                           for e in r["engines"]),
                 "flash_attention": sum(e["layers"] * e["prefills"]
                                        for e in r["engines"]),
-                "ladn_denoise": 0, "flash_decode": 0}
+                "ladn_denoise": 0, "flash_decode": 0,
+                "flash_decode_partials": 0, "decode_merge": 0}
         if r["launches"] != want:
             fail(f"22c: {r['mode']} N={r['requests']}: launches "
                  f"{r['launches']}, the run implies {want}")
@@ -3055,6 +3081,321 @@ def phase_tooling_roofline(card: str, records: list) -> list:
     return mine
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the reference's placement on the 1 x 1 NCCL mesh
+# ---------------------------------------------------------------------------
+
+# flash_decode's two passes apart: recurrentgemma-9b's dense round and
+# llava-next-mistral-7b's, bf16 and f32, and the recurrentgemma ring cut
+# by hand into 4 slices of 40 slots (one empty for every lane) as 4
+# "model" ranks would hold it
+SPLIT_SHAPES = {
+    "rg_round": DECODE_SHAPES["rg_round"],
+    "rg_round_f32": DECODE_SHAPES["rg_round_f32"],
+    "llava_round": DECODE_SHAPES["llava_round"],
+    "llava_round_f32": DECODE_SHAPES["llava_round"][:6] + ("float32",),
+}
+SPLIT_CUT = ("rg_cut4", (4, 16, 1, 160, 256, (100, 45, 80, 119)), 4)
+PLACE_SERVE_NEW = 12
+
+
+def _split_bound(B, H, KV, hd, lens, n, elem: int, dt: str):
+    """(partials bound, merge bound): each input read once, each output
+    written once at HBM rate, or the arithmetic at the dtype's peak
+    (partials: q K^T and P V over the valid positions; merge: a weight,
+    a multiply-add and a denominator term per partial entry)."""
+    G = H // KV
+    valid = sum(lens)
+    part_out = B * KV * n * G * (hd + 2) * 4
+    p = bound(B * H * hd * elem + 2 * valid * KV * hd * elem + 4 * B
+              + part_out, 4 * valid * H * hd, dt)
+    m = bound(part_out + B * H * hd * elem, B * KV * n * G * (2 * hd + 3),
+              "float32")
+    return p, m
+
+
+def phase_split_kernels() -> dict:
+    """23a. ``flash_decode_partials`` then ``decode_merge`` (each pass of
+    ``flash_decode`` alone) against the one-call ``flash_decode`` and the
+    plain versions (``ref.decode_partials_ref``, ``ref.decode_merge_ref``
+    and ``ref.decode_ref``) at ``SPLIT_SHAPES``, within ``TOL``; then the
+    ring of ``SPLIT_CUT`` cut into slices, each slice's partials (an empty
+    one where a split holds no valid slot) concatenated and merged,
+    against the whole ring's plain decode.  Each pass's time (CUDA-graph
+    replay), its plain version's and its bound."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    rows = {}
+    for name, spec in SPLIT_SHAPES.items():
+        B, H, KV, S, hd, lens, dt = spec
+        tol = TOL[dt]
+        q, k, v, L = flash_decode_case(spec)
+        per, n = da.split_plan(B, KV, S, da.TILE)
+        acc, m, l = ops.flash_decode_partials(q, k, v, L)
+        two = ops.decode_merge(acc, m, l, q.dtype)
+        one = ops.flash_decode(q, k, v, L)
+        pa, pm, pl = ref.decode_partials_ref(q, k, v, L, per_split=per,
+                                             n_splits=n)
+        plain = ref.decode_merge_ref(pa, pm, pl, q.dtype)
+        want = ref.decode_ref(q, k, v, L)
+        torch.cuda.synchronize()
+        if not torch.equal(torch.isinf(m), torch.isinf(pm)):
+            fail(f"23a {name}: the empty partials differ from the plain "
+                 f"version's")
+        live = ~torch.isinf(pm)
+        err_acc = (acc - pa).abs().max().item()
+        err_ml = max((m[live] - pm[live]).abs().max().item(),
+                     (l - pl).abs().max().item() / pl.abs().max().item())
+        err = {"vs_one_call": (two.float() - one.float()).abs().max().item(),
+               "vs_plain": (two.float() - want.float()).abs().max().item(),
+               "plain_merge": (plain.float() - want.float()).abs().max()
+               .item(), "partials_acc": err_acc, "partials_m_l": err_ml}
+        if not (err["vs_one_call"] <= tol and err["vs_plain"] <= tol
+                and err["plain_merge"] <= tol
+                and err_acc <= tol * max(pa.abs().max().item(), 1.0)
+                and err_ml <= tol):
+            fail(f"23a {name}: errors {err} over tolerance {tol}")
+        times = {
+            "partials_ms": time_ms(lambda: ops.flash_decode_partials(
+                q, k, v, L)),
+            "merge_ms": time_ms(lambda: ops.decode_merge(acc, m, l,
+                                                         q.dtype)),
+            "one_call_ms": time_ms(lambda: ops.flash_decode(q, k, v, L)),
+            "plain_partials_ms": time_ms(lambda: ref.decode_partials_ref(
+                q, k, v, L, per_split=per, n_splits=n), iters=10, reps=3),
+            "plain_merge_ms": time_ms(lambda: ref.decode_merge_ref(
+                acc, m, l, q.dtype), iters=10, reps=3)}
+        (pb, pby), (mb, mby) = _split_bound(B, H, KV, hd, lens, n,
+                                            q.element_size(), dt)
+        rows[name] = {"shape": {"B": B, "H": H, "KV": KV, "S": S, "hd": hd,
+                                "lens": list(lens), "dtype": dt,
+                                "n_splits": n, "per_split": per},
+                      "max_abs_err": err, **times,
+                      "partials_bound_ms": pb, "partials_bound_by": pby,
+                      "merge_bound_ms": mb, "merge_bound_by": mby}
+        log(f"  23a {name} ({n} splits of {per}): partials "
+            f"{times['partials_ms']:.4f} ms (plain "
+            f"{times['plain_partials_ms']:.4f}, bound {pb:.6f} {pby}), merge "
+            f"{times['merge_ms']:.4f} (plain {times['plain_merge_ms']:.4f},"
+            f" bound {mb:.6f} {mby}), one call {times['one_call_ms']:.4f};"
+            f" err vs one call {err['vs_one_call']:.2e}, vs plain "
+            f"{err['vs_plain']:.2e}")
+    name, spec, M = SPLIT_CUT
+    for dt in ("bfloat16", "float32"):
+        spec_dt = spec + (dt,)
+        B, H, KV, S, hd, lens, _ = spec_dt
+        q, k, v, L = flash_decode_case(spec_dt)
+        Wl = S // M
+        parts = [ops.flash_decode_partials(
+            q, k[:, :, j * Wl:(j + 1) * Wl].contiguous(),
+            v[:, :, j * Wl:(j + 1) * Wl].contiguous(),
+            torch.clamp(L - j * Wl, 0, Wl).to(torch.int32))
+            for j in range(M)]
+        if not torch.isinf(parts[-1][1]).all():
+            fail(f"23a {name}: the last slice is not empty everywhere")
+        acc, m, l = (torch.cat([p[i] for p in parts], 2) for i in range(3))
+        out = ops.decode_merge(acc, m, l, q.dtype).float()
+        want = ref.decode_ref(q, k, v, L).float()
+        plain = ref.decode_merge_ref(acc, m, l, q.dtype).float()
+        e = max((out - want).abs().max().item(),
+                (plain - want).abs().max().item())
+        if not (torch.isfinite(out).all() and e <= TOL[dt]):
+            fail(f"23a {name} {dt}: {M} slices merged differ from the "
+                 f"whole ring by {e:.3e} (finite "
+                 f"{bool(torch.isfinite(out).all())})")
+        rows[f"{name}_{dt}"] = {"slices": M, "lens": list(lens),
+                                "max_abs_err": e}
+        log(f"  23a {name} {dt}: {M} slices of {Wl} (the last empty), "
+            f"merged = the whole ring's plain decode to {e:.2e}")
+    log("phase 23a ok: the split-only and merge-only flash_decode entries "
+        "= the one-call kernel and the plain versions")
+    return rows
+
+
+def _placed_bytes(placed, states=None) -> int:
+    n = _tree_bytes(placed)
+    for layer in states or []:
+        n += sum(t.numel() * t.element_size() for k, t in layer.items()
+                 if k in ("k", "v", "k_scale", "v_scale"))
+    return n
+
+
+def _dry_bytes(cfg, mesh_tag: str, slots: int = 0, max_len: int = 0) -> int:
+    """One rank's argument bytes of ``cfg``'s params (and, with
+    ``slots``, a dense pool's K/V rings) as the dry run counts them."""
+    from repro_torch.launch import sharding, specs
+    from repro_torch.models.transformer import init_layer_states
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    mesh = specs.mesh_shape(mesh_tag)
+    fake = FakeTensorMode()
+    p, p_spec = specs.param_specs(cfg, mesh, fake)
+    args, sp = [p], [p_spec]
+    if slots:
+        import torch
+        with fake:
+            st = init_layer_states(cfg, slots, max_len, torch.device("cpu"))
+        s_spec = sharding.state_pspecs(st, mesh)
+        keep = ("k", "v", "k_scale", "v_scale")
+        args.append([{k: t for k, t in layer.items() if k in keep}
+                     for layer in st])
+        sp.append([{k: t for k, t in layer.items() if k in keep}
+                   for layer in s_spec])
+    return specs.argument_bytes(args, sp, mesh)[1]
+
+
+def _placement_serve(label, arch, paged, n_req, plen, max_len, slots):
+    """A ``build_sharded_engine`` engine of ``arch`` at published width
+    and depth (bf16) on the 1 x 1 NCCL mesh and a meshless engine on the
+    same weights (the 1 x 1 blocks are the whole tensors): a warm-up
+    request, then ``n_req`` greedy requests through each, tokens equal,
+    no KV held, the mesh run's launches exact; placed bytes against the
+    dry run's; a decode round with the mesh and without."""
+    import numpy as np
+    import torch
+    from repro_torch.cluster.request import Request
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.serving.builders import build_sharded_engine
+    from repro_torch.serving.engine import ServeEngine
+    t0 = time.perf_counter()
+    eng = build_sharded_engine(arch, max_len, full_scale=True,
+                               kv_slots=slots, paged=paged, seed=23,
+                               device="cuda")
+    cfg = eng.cfg
+    meshless = ServeEngine(cfg, eng.params, max_len=max_len,
+                           kv_slots=slots, paged=paged, device="cuda",
+                           seed=23, arch_id=arch)
+    rng = np.random.default_rng(23)
+    V = cfg.vocab_size
+    prompts = [rng.integers(0, V, (1, plen), dtype=np.int32)
+               for _ in range(n_req)]
+    n_attn = sum(b.mixer == "attn" for b in cfg.layer_pattern())
+    out, launched = {}, {}
+    for name, e in (("mesh", eng), ("meshless", meshless)):
+        ops.reset_launches()
+        sharding.reset_collectives()
+        e.generate(rng.integers(0, V, (1, plen), dtype=np.int32), 2)
+        warm = (e.prefills, e.decode_rounds)
+        e.reset()
+        reqs = [Request(rid=i, max_new_tokens=PLACE_SERVE_NEW, prompt=p)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            e.admit(r)
+        e.run_to_completion()
+        torch.cuda.synchronize()
+        if any(r.status != "ok" for r in reqs) or e.kv_leak:
+            fail(f"{label} {name}: statuses {[r.status for r in reqs]}, "
+                 f"kv_leak {e.kv_leak}")
+        out[name] = np.stack([np.concatenate([np.asarray(t).ravel()
+                                              for t in r.tokens])
+                              for r in reqs])
+        launched[name] = (dict(ops.launches), e.prefills + warm[0],
+                          e.decode_rounds + warm[1],
+                          dict(sharding.collectives))
+    if not np.array_equal(out["mesh"], out["meshless"]):
+        bad = np.argwhere(out["mesh"] != out["meshless"])
+        fail(f"{label}: mesh tokens differ from the meshless engine's at "
+             f"(request, step) {bad[:4].tolist()}")
+    launches, prefills, rounds, coll = launched["mesh"]
+    if paged:
+        want = {"flash_attention": n_attn * prefills,
+                "paged_flash_decode": n_attn * rounds}
+    else:
+        want = {"flash_attention": n_attn * prefills,
+                "flash_decode_partials": n_attn * rounds,
+                "decode_merge": n_attn * rounds}
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(f"{label}: launches {launches}, expected {want} ({n_attn} "
+             f"attention layers x {prefills} prefills / {rounds} decode "
+             f"rounds, warm-up included)")
+    if not (coll["all_gather"] > 0 and coll["all_reduce"] > 0):
+        fail(f"{label}: the mesh run issued collectives {coll}")
+    report = eng.placement_report()
+    placed = _placed_bytes(eng.params, None if paged else
+                           eng._pool_states)
+    dry = _dry_bytes(cfg, "1x1", 0 if paged else slots, max_len)
+    if placed != dry:
+        fail(f"{label}: placed bytes {placed} != the dry run's argument "
+             f"bytes {dry}")
+    breakdown = {}
+    for name, e in (("mesh", eng), ("meshless", meshless)):
+        e.reset()
+        breakdown[name] = _moe_round_breakdown(e, prompts[:slots])
+    log(f"{label} ok: {arch} at published width and depth ({cfg.num_layers}"
+        f" layers, {n_attn} attention, bf16, "
+        f"{'paged' if paged else 'dense'}) on the 1 x 1 NCCL mesh: "
+        f"{n_req} x {PLACE_SERVE_NEW} greedy tokens = the meshless "
+        f"engine's; launches {want}; collectives {coll}; placed "
+        f"{placed} B = the dry run's argument bytes ({time.perf_counter() - t0:.1f} s)")
+    for name, rb in breakdown.items():
+        busy = ("not measured" if rb["busy_ms"] is None else
+                f"{rb['busy_ms']:.3f} ms (idle {rb['idle_share']:.3f}), "
+                + ", ".join(f"{k} {v:.3f}" for k, v in
+                            sorted(rb["by_kind_ms"].items())))
+        log(f"  {label} decode round {name}: enqueue {rb['enqueue_ms']:.2f}"
+            f" ms, wall {rb['wall_ms']:.2f} ms, device busy {busy}")
+    layer0 = report.get("layers.0", {})
+    log(f"  {label} placement: embed {report.get('embed')}, layer 0 "
+        f"{layer0}")
+    del eng, meshless
+    _free_card()
+    return {"launches": launches, "collectives": coll,
+            "placed_bytes": placed, "dry_run_bytes": dry,
+            "round": breakdown, "layer0": layer0}
+
+
+def phase_placement_train() -> dict:
+    """23d. One train step of reduced qwen2-1.5b (f32) on the 1 x 1 NCCL
+    mesh from its placed params against the meshless step: gradients and
+    new params within 1e-5 of each leaf's largest entry."""
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.steps import make_grad_step, make_train_step
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(reduced(get_config(QWEN)), num_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(23),
+                         dev)
+    batch = synth_batch(cfg, DataConfig(batch=4, seq_len=64), 0, dev)
+    kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10, eps=1e-4)
+    grads, _ = make_grad_step(cfg)(params, batch)
+    new, _, _ = make_train_step(cfg, opt.AdamWConfig(**kw))(
+        params, opt.init(params), batch)
+    mesh = make_smoke_mesh(dev)
+    placed = sharding.place_params(mesh, params, cfg)
+    with sharding.use(sharding.ShardingContext(mesh)):
+        g_mesh, _ = make_grad_step(cfg)(placed, batch)
+        n_mesh, _, m = make_train_step(cfg, opt.AdamWConfig(**kw))(
+            placed, opt.init(placed), batch)
+    rel = _worst_leaf_rel(g_mesh, grads)
+    rel_p = _worst_leaf_rel(n_mesh, new)
+    if not (rel <= 1e-5 and rel_p <= 1e-5):
+        fail(f"23d: mesh vs meshless grads {rel:.2e}, params {rel_p:.2e}")
+    log(f"phase 23d ok: reduced {QWEN} (f32) one step on the 1 x 1 mesh = "
+        f"the meshless step: grads {rel:.2e}, params {rel_p:.2e} of each "
+        f"leaf's largest entry")
+    return {"grad_rel": rel, "param_rel": rel_p}
+
+
+def phase_placement(card: str) -> dict:
+    """23. The reference's placement on the 1 x 1 NCCL mesh."""
+    t0 = time.perf_counter()
+    out = {"23a": phase_split_kernels()}
+    _free_card()
+    out["23b"] = _placement_serve("phase 23b", QWEN, True, 8, 128, 160, 4)
+    out["23c"] = _placement_serve("phase 23c", RG, False, 4, 128, 160, 4)
+    out["23d"] = phase_placement_train()
+    _free_card()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 23 ok in {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -3130,6 +3471,7 @@ def main() -> None:
     tool["22e"] = phase_tooling_roofline(card, dry_records)
     tool["seconds"] = time.perf_counter() - t22
     log(f"phase 22 ok in {tool['seconds']:.1f} s")
+    place = phase_placement(card)
 
     def tooling(name):
         """Phase 22's launches of one kernel, and its 22b rows."""
@@ -3240,6 +3582,26 @@ def main() -> None:
         "bound_by": rnd["bound_by"], "library_ms": rnd["library_ms"],
         "shapes": dec, "check": "ok",
         **tooling("flash_decode")}]
+    split = place["23a"]["rg_round"]
+    for name, pre, what in (
+            ("flash_decode_partials", "partials", "partials_acc"),
+            ("decode_merge", "merge", "vs_plain")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:110",
+            # phase 23c's mesh run (recurrentgemma-9b, warm-up included)
+            "launches": place["23c"]["launches"][name],
+            "launches_moe": by_moe_arch(name),
+            "max_abs_err": max(r["max_abs_err"][what] if isinstance(
+                r["max_abs_err"], dict) else r["max_abs_err"]
+                for r in place["23a"].values()),
+            "ms": split[f"{pre}_ms"], "plain_ms": split[f"plain_{pre}_ms"],
+            "bound_ms": split[f"{pre}_bound_ms"],
+            "bound_by": split[f"{pre}_bound_by"], "library_ms": None,
+            "one_call_ms": split["one_call_ms"],
+            "shapes": {k: v for k, v in place["23a"].items()},
+            "check": "ok"})
     log("phase 20: " + json.dumps({"moe_layer": moe_layer, "moe_serve": {
         a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
                               "prefill_flips", "prefill_rel_f32")}
@@ -3247,6 +3609,8 @@ def main() -> None:
     log("phase 21: " + json.dumps(train))
     log("phase 22: " + json.dumps({k: v for k, v in tool.items()
                                    if k not in ("22b",)}))
+    log("phase 23: " + json.dumps({k: v for k, v in place.items()
+                                   if k != "23a"}))
     torch.distributed.destroy_process_group()      # the smoke mesh's
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)

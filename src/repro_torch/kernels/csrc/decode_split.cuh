@@ -16,6 +16,10 @@
 //       out = sum_s exp(m_s - M) * acc_s / sum_s exp(m_s - M) * l_s,
 //     M = max_s m_s, and never reads the partial of a split that returned
 //     early (its memory is uninitialised).  A lane of length 0 writes zeros.
+// flash_decode.cu also launches each pass alone, for a ring cut along its
+// positions over several ranks: the split kernel with kEmpty, which leaves
+// an empty partial (m = -inf, l = 0, acc = 0) for every split it skips, and
+// the merge with kAll, which reads every partial it is given.
 //
 // Inside a split block K/V come in 32-position tiles by 16-byte cp.async
 // straight into shared memory in the cache's own type (rows padded by 16
@@ -168,7 +172,10 @@ __device__ __forceinline__ void load_tile(const Params& p, int b, int h,
   }
 }
 
-template <typename T, bool kPaged>
+// kEmpty (the split-only entry): a split that starts at or past the lane's
+// length writes a defined empty partial, m = -inf, l = 0 and acc = 0, so
+// that a merge over every split (kAll below) may read it.
+template <typename T, bool kPaged, bool kEmpty = false>
 __device__ __forceinline__ void split_body(const Params& p) {
   constexpr bool kMma = sizeof(T) == 2;      // bf16 on the tensor cores
   constexpr int VEC = 16 / sizeof(T);
@@ -185,7 +192,19 @@ __device__ __forceinline__ void split_body(const Params& p) {
   const int split = blockIdx.y;
   const int len = lane_length(p, b);
   const int start = split * p.per_split;
-  if (start >= len) return;                 // the merge never reads it
+  if (start >= len) {                       // the merge never reads it,
+    if constexpr (kEmpty) {                 // unless it reads every split
+      const int rows = min(kRows, p.G - g0);
+      const size_t prow = ((size_t)bh * p.n_splits + split) * p.G + g0;
+      if (threadIdx.x < rows) {
+        p.m[prow + threadIdx.x] = __int_as_float(0xff800000);  // -inf
+        p.l[prow + threadIdx.x] = 0.f;
+      }
+      float* acc = p.acc + prow * p.hd;
+      for (int i = threadIdx.x; i < rows * p.hd; i += kThreads) acc[i] = 0.f;
+    }
+    return;
+  }
   const int end = min(start + p.per_split, len);
   const int ntiles = (end - start + kTile - 1) / kTile;
   const int rows = min(kRows, p.G - g0);    // valid query heads here
@@ -467,16 +486,23 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // The splits of a row are shared among thread groups: each of the
 // kMergeThreads / (hd / 4) groups covers every column in float4s and
 // sums every groups-th split; the groups' sums then meet in shared memory.
-template <typename T>
+// kAll (the merge-only entry): read all n_splits partials, with no lane
+// length (p.lengths unused), where an empty partial has m = -inf and
+// weight exp(-inf - M) = 0; a row whose partials are all empty gives
+// zeros (its denominator is 0).
+template <typename T, bool kAll = false>
 __device__ __forceinline__ void merge_body(const Params& p) {
   __shared__ float4 part[kMergeThreads];
   __shared__ float red[kMergeThreads / 32];
   const int row = blockIdx.x;               // (b * KV + h) * G + g
   const int g = row % p.G;
   const int bh = row / p.G;
-  const int len = lane_length(p, bh / p.KV);
-  int live = (len + p.per_split - 1) / p.per_split;   // splits below len
-  live = live < p.n_splits ? live : p.n_splits;
+  int live = p.n_splits;
+  if constexpr (!kAll) {
+    const int len = lane_length(p, bh / p.KV);
+    live = (len + p.per_split - 1) / p.per_split;     // splits below len
+    live = live < p.n_splits ? live : p.n_splits;
+  }
   const size_t first = (size_t)bh * p.n_splits * p.G + g;
   const float* m = p.m + first;             // split s at m[s * G]
   const float* l = p.l + first;
@@ -494,7 +520,9 @@ __device__ __forceinline__ void merge_body(const Params& p) {
     x += expf(m[(size_t)s * p.G] - M) * l[(size_t)s * p.G];
   }
   const float denom = block_reduce<false>(x, red);
-  const float inv = live > 0 ? 1.f / denom : 0.f;   // length 0: zeros
+  // length 0 (or, for kAll, every partial empty): zeros
+  const float inv = kAll ? (denom > 0.f ? 1.f / denom : 0.f)
+                         : (live > 0 ? 1.f / denom : 0.f);
 
   const int ncol = p.hd / 4;
   const int groups = kMergeThreads / ncol;

@@ -47,6 +47,12 @@
 // upper bound).  What is left is latency: two dependent launches, and
 // three dependent trips to memory a block.
 //
+// A ring cut along its positions over the "model" ranks of a mesh
+// (models/attention.py decode) takes the two passes apart: each rank runs
+// the split pass alone over its slice (repro_flash_decode_partials), the
+// partials are all-gathered, and the merge pass alone combines every
+// rank's (repro_decode_merge).
+//
 // Built by repro_torch/kernels/decode_attention.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // and called through ctypes: the C entry point launches both kernels,
@@ -71,12 +77,63 @@ flash_decode_merge_kernel(const Params p) {
   decode_split::merge_body<T>(p);
 }
 
+// the split-only and merge-only passes of a ring cut over several ranks
+template <typename T>
+__global__ void __launch_bounds__(decode_split::kThreads)
+flash_decode_partials_kernel(const Params p) {
+  decode_split::split_body<T, /*kPaged=*/false, /*kEmpty=*/true>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(decode_split::kMergeThreads)
+decode_merge_all_kernel(const Params p) {
+  decode_split::merge_body<T, /*kAll=*/true>(p);
+}
+
 template <typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   static size_t configured = 48 * 1024;
   return decode_split::launch_pair(flash_decode_split_kernel<T>,
                                    flash_decode_merge_kernel<T>, &configured,
                                    p, B, sizeof(T), stream);
+}
+
+template <typename T>
+int launch_partials(const Params& p, int B, cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
+      p.hd > decode_split::kMaxHeadDim || p.per_split <= 0 ||
+      p.n_splits <= 0 || p.n_splits > 65535 ||
+      (long long)p.per_split * p.n_splits < p.n_positions) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem =
+      decode_split::layout(p.hd, sizeof(T),
+                           decode_split::stages_for(p.per_split))
+          .total;
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_decode_partials_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  const int tiles_g = (p.G + decode_split::kRows - 1) / decode_split::kRows;
+  flash_decode_partials_kernel<T>
+      <<<dim3(B * p.KV * tiles_g, p.n_splits), decode_split::kThreads, smem,
+         stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_merge(const Params& p, int B, cudaStream_t stream) {
+  if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
+      p.hd > decode_split::kMaxHeadDim || p.n_splits <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  decode_merge_all_kernel<T>
+      <<<dim3(B * p.KV * p.G), decode_split::kMergeThreads, 0, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -112,6 +169,62 @@ int repro_flash_decode(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split pass alone, for one rank's slice of a ring cut along its
+// positions: the partials of every (lane, KV head, split) into acc
+// (B, KV, n_splits, G, hd), m and l (B, KV, n_splits, G), with an empty
+// partial (m = -inf, l = 0, acc = 0) for each split at or past the lane's
+// length.  Returns the launch's cudaError_t.
+int repro_flash_decode_partials(int dtype, const void* q, const void* k,
+                                const void* v, const int* lengths,
+                                float* acc, float* m, float* l, int B, int H,
+                                int KV, int S, int hd, int per_split,
+                                int n_splits, float scale, void* stream) {
+  if (KV <= 0 || H % KV || S <= 0) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.lengths = lengths;
+  p.KV = KV;
+  p.G = H / KV;
+  p.hd = hd;
+  p.n_positions = S;
+  p.per_split = per_split;
+  p.n_splits = n_splits;
+  p.S = S;
+  p.scale = scale;
+  p.acc = acc;
+  p.m = m;
+  p.l = l;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_partials<float>(p, B, s);
+  if (dtype == 1) return launch_partials<__nv_bfloat16>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The merge pass alone over all n_splits partials of each query row
+// (acc (B, KV, n_splits, G, hd), m and l (B, KV, n_splits, G): the
+// gathered partials of every rank's slice), empty ones included; out
+// (B, KV * G, hd) in dtype (0 = float32, 1 = bfloat16), zeros for a row
+// whose partials are all empty.  Returns the launch's cudaError_t.
+int repro_decode_merge(int dtype, const float* acc, const float* m,
+                       const float* l, void* out, int B, int KV, int G,
+                       int hd, int n_splits, void* stream) {
+  Params p{};
+  p.acc = const_cast<float*>(acc);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.out = out;
+  p.KV = KV;
+  p.G = G;
+  p.hd = hd;
+  p.n_splits = n_splits;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_merge<float>(p, B, s);
+  if (dtype == 1) return launch_merge<__nv_bfloat16>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,11 @@ into a workspace the wrapper allocates) and a merge kernel (one block per
 query row, combining the partials of the splits that start below the
 lane's length).
 
+:func:`flash_decode_partials` and :func:`decode_merge` launch the two
+passes of :func:`flash_decode` apart, for a ring cut along its positions
+over several ranks: each rank's partials (an empty one for every split it
+skips) are all-gathered and merged all together.
+
 :func:`paged_flash_decode` and :func:`flash_decode` launch their kernels
 on CUDA tensors only and raise on anything they do not take.  Their plain
 versions are ``repro_torch.kernels.ref.paged_decode_ref`` and
@@ -104,6 +109,13 @@ def _flash_library() -> ctypes.CDLL:
                                            ci, ci, ci, ci, ci, ci,
                                            ctypes.c_float, vp]
         lib.repro_flash_decode.restype = ci
+        lib.repro_flash_decode_partials.argtypes = [
+            ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            ctypes.c_float, vp]
+        lib.repro_flash_decode_partials.restype = ci
+        lib.repro_decode_merge.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci,
+                                           ci, ci, vp]
+        lib.repro_decode_merge.restype = ci
         lib.repro_flash_decode_smem_bytes.argtypes = [ci, ci, ci]
         lib.repro_flash_decode_smem_bytes.restype = ctypes.c_longlong
         lib.repro_flash_decode_error_string.argtypes = [ci]
@@ -134,11 +146,13 @@ def _lengths(lengths, B: int, device, name: str) -> torch.Tensor:
 
 
 def _split_setup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 KV: int, n_positions: int, unit: int, smem_bytes):
+                 KV: int, n_positions: int, unit: int, smem_bytes,
+                 workspace: bool = True):
     """The checks both kernels share, the split plan, and the partials'
-    workspace: (per_split, n_splits, workspace).  The workspace is one f32
-    ``torch.empty`` holding acc (B, KV, n_splits, G, hd), then m and l
-    (B, KV, n_splits, G); the kernels write every entry the merge reads."""
+    workspace: (per_split, n_splits, workspace or None).  The workspace is
+    one f32 ``torch.empty`` holding acc (B, KV, n_splits, G, hd), then m
+    and l (B, KV, n_splits, G); the kernels write every entry the merge
+    reads."""
     B, H, hd = q.shape
     if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {hd} must be a multiple of 16 and at "
@@ -151,8 +165,8 @@ def _split_setup(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if smem > _MAX_SMEM:
         raise ValueError(f"head_dim {hd} needs {smem} bytes of shared "
                          f"memory per block")
-    ws = torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
-                     device=q.device)
+    ws = (torch.empty(B * H * n_splits * (hd + 2), dtype=torch.float32,
+                      device=q.device) if workspace else None)
     return per_split, n_splits, ws
 
 
@@ -206,6 +220,22 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     return out
 
 
+def _dense_checks(q, k_cache, v_cache, name: str):
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    for t, what in ((q, "q"), (k_cache, "k_cache"), (v_cache, "v_cache")):
+        _check(t, what, q.dtype)
+    B, H, hd = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != B or \
+            k_cache.shape[3] != hd or v_cache.shape != k_cache.shape:
+        raise ValueError(f"caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    KV = k_cache.shape[1]
+    if KV == 0 or H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV}")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, length) -> torch.Tensor:
     """Launch the CUDA kernels: q (B,H,hd); caches (B,KV,S,hd); length an
@@ -216,20 +246,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     One call is two kernel launches on the current stream (the split
     blocks of :func:`split_plan` over the S positions, then the merge),
     made by one ``ctypes`` call, without synchronising."""
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_decode takes float32 or bfloat16, got "
-                        f"{q.dtype}")
-    for t, name in ((q, "q"), (k_cache, "k_cache"), (v_cache, "v_cache")):
-        _check(t, name, q.dtype)
+    _dense_checks(q, k_cache, v_cache, "flash_decode")
     B, H, hd = q.shape
-    if k_cache.dim() != 4 or k_cache.shape[0] != B or \
-            k_cache.shape[3] != hd or v_cache.shape != k_cache.shape:
-        raise ValueError(f"caches {tuple(k_cache.shape)} / "
-                         f"{tuple(v_cache.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
     KV, S = k_cache.shape[1], k_cache.shape[2]
-    if KV == 0 or H % KV:
-        raise ValueError(f"{H} query heads are not a multiple of {KV}")
     length = _lengths(length, B, q.device, "length")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
@@ -251,3 +270,83 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                            f"({msg})")
     return out
 
+
+def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, length
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """The split pass of :func:`flash_decode` alone, for one rank's slice
+    of a ring cut along its positions: q (B,H,hd); caches (B,KV,S,hd);
+    length as for :func:`flash_decode`.  Returns the f32 partials of
+    :func:`split_plan`'s splits over the S positions, acc
+    (B,KV,n_splits,G,hd), m and l (B,KV,n_splits,G): per split the
+    running max of its scaled scores, the sum of their exponentials and
+    the unnormalised sum of V rows they weight; a split at or past the
+    lane's length gives m = -inf, l = 0, acc = 0.  One kernel launch on
+    the current stream, without synchronising."""
+    _dense_checks(q, k_cache, v_cache, "flash_decode_partials")
+    B, H, hd = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    length = _lengths(length, B, q.device, "length")
+    if B == 0 or S == 0:
+        raise ValueError(f"flash_decode_partials needs lanes and positions,"
+                         f" got B {B}, S {S}")
+    lib = _flash_library()
+    per_split, n_splits, _ = _split_setup(
+        q, k_cache, v_cache, KV, S, TILE, lib.repro_flash_decode_smem_bytes,
+        workspace=False)
+    acc = torch.empty((B, KV, n_splits, G, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.empty((B, KV, n_splits, G), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)  # noqa: E741
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_decode_partials(
+            _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), length.data_ptr(), acc.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B, H, KV, S, hd, per_split,
+            n_splits, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        msg = lib.repro_flash_decode_error_string(err).decode()
+        raise RuntimeError(f"flash_decode_partials launch failed: CUDA "
+                           f"error {err} ({msg})")
+    return acc, m, l
+
+
+def decode_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The merge pass of :func:`flash_decode` alone, over every partial
+    it is given: acc (B,KV,N,G,hd), m and l (B,KV,N,G), f32 (the
+    gathered partials of :func:`flash_decode_partials` over the slices of
+    a ring).  Returns (B,KV*G,hd) in ``dtype`` (float32 or bfloat16):
+    sum_s exp(m_s - M) acc_s / sum_s exp(m_s - M) l_s, M = max_s m_s, an
+    empty partial weighing nothing, zeros where every partial is empty.
+    One kernel launch on the current stream, without synchronising."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"decode_merge writes float32 or bfloat16, got "
+                        f"{dtype}")
+    for t, name in ((acc, "acc"), (m, "m"), (l, "l")):
+        _check(t, name, torch.float32)
+    if acc.dim() != 5 or m.shape != acc.shape[:4] or l.shape != m.shape:
+        raise ValueError(f"partials acc {tuple(acc.shape)}, m "
+                         f"{tuple(m.shape)}, l {tuple(l.shape)} do not fit")
+    B, KV, N, G, hd = acc.shape
+    if hd % 16 or not 16 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} must be a multiple of 16 and at "
+                         f"most {MAX_HEAD_DIM}")
+    out = torch.empty((B, KV * G, hd), dtype=dtype, device=acc.device)
+    if B == 0 or N == 0:
+        return out.zero_()
+    lib = _flash_library()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        err = lib.repro_decode_merge(
+            _DTYPES[dtype], acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            out.data_ptr(), B, KV, G, hd, N, stream)
+    if err != 0:
+        msg = lib.repro_flash_decode_error_string(err).decode()
+        raise RuntimeError(f"decode_merge launch failed: CUDA error {err} "
+                           f"({msg})")
+    return out

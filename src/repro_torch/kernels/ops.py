@@ -25,7 +25,8 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.roofline.hooks import kernel_call
 
 launches = {"paged_flash_decode": 0, "ladn_denoise": 0,
-            "flash_attention": 0, "flash_decode": 0}
+            "flash_attention": 0, "flash_decode": 0,
+            "flash_decode_partials": 0, "decode_merge": 0}
 
 
 def reset_launches() -> None:
@@ -132,6 +133,40 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache, length)
     out = decode_attention.flash_decode(q, k_cache, v_cache, length)
     launches["flash_decode"] += 1
+    return out
+
+
+def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, length):
+    """The split pass of :func:`flash_decode` alone, over one rank's slice
+    of a ring cut along its positions (``kernels/decode_attention.py``):
+    q (B,H,hd); caches (B,KV,S,hd); length () or (B,) valid positions.
+    Returns the f32 partials (acc (B,KV,n,G,hd), m, l (B,KV,n,G)) of
+    ``decode_attention.split_plan``'s n splits, an empty one (m = -inf,
+    l = 0, acc = 0) for each split past the length."""
+    B, H, _ = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    if q.device.type == "cpu":
+        per, n = decode_attention.split_plan(B, KV, S, decode_attention.TILE)
+        return kernel_call("flash_decode_partials", ref.decode_partials_ref,
+                           q, k_cache, v_cache, length, per_split=per,
+                           n_splits=n)
+    out = decode_attention.flash_decode_partials(q, k_cache, v_cache, length)
+    launches["flash_decode_partials"] += 1
+    return out
+
+
+def decode_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The merge pass of :func:`flash_decode` alone over every partial it
+    is given (acc (B,KV,N,G,hd), m, l (B,KV,N,G), f32): (B,KV*G,hd) in
+    ``dtype``; an empty partial weighs nothing, a row of empty ones gives
+    zeros."""
+    if acc.device.type == "cpu":
+        return kernel_call("decode_merge", ref.decode_merge_ref, acc, m, l,
+                           dtype=dtype)
+    out = decode_attention.decode_merge(acc, m, l, dtype)
+    launches["decode_merge"] += 1
     return out
 
 

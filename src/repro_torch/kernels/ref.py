@@ -70,6 +70,60 @@ def decode_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     return out.reshape(B, H, hd).to(q.dtype)
 
 
+def decode_partials_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, length, *, per_split: int,
+                        n_splits: int):
+    """The split pass of :func:`decode_ref` over splits of ``per_split``
+    positions: q (B,H,hd); caches (B,KV,S,hd) with S <= per_split *
+    n_splits; length () or (B,).  Returns f32 partials acc
+    (B,KV,n_splits,G,hd), m and l (B,KV,n_splits,G): per split the max
+    of its valid scaled scores, the sum of their exponentials from that
+    max and the V rows they weight; a split with no valid position gives
+    m = -inf, l = 0, acc = 0."""
+    B, H, hd = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    P = per_split * n_splits
+    qh = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qh, k_cache.float()) / math.sqrt(hd)
+    v = v_cache.float()
+    if P > S:
+        s = torch.nn.functional.pad(s, (0, P - S))
+        v = torch.nn.functional.pad(v, (0, 0, 0, P - S))
+    length = torch.as_tensor(length, device=q.device).reshape(-1)
+    length = length.expand(B) if length.numel() == 1 else length
+    valid = torch.arange(P, device=q.device)[None, :] < length[:, None]
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full_like(s, -math.inf))
+    s = s.reshape(B, KV, G, n_splits, per_split)
+    m = s.amax(dim=-1)                                   # (B,KV,G,n)
+    p = torch.where(torch.isinf(m)[..., None], torch.zeros_like(s),
+                    torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)  # noqa: E741
+    acc = torch.einsum("bkgnp,bknpd->bkngd", p,
+                       v.reshape(B, KV, n_splits, per_split, hd))
+    return acc, m.transpose(2, 3).contiguous(), l.transpose(2, 3).contiguous()
+
+
+def decode_merge_ref(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Combine every partial of :func:`decode_partials_ref`'s layout:
+    acc (B,KV,N,G,hd), m and l (B,KV,N,G) -> (B,KV*G,hd) in ``dtype``.
+    An empty partial (m = -inf) weighs nothing; a row whose partials are
+    all empty gives zeros."""
+    B, KV, N, G, hd = acc.shape
+    M = m.amax(dim=2, keepdim=True)
+    w = torch.where(torch.isinf(m), torch.zeros_like(m),
+                    torch.exp(m - torch.where(torch.isinf(M),
+                                              torch.zeros_like(M), M)))
+    denom = (w * l).sum(dim=2)                           # (B,KV,G)
+    num = (w[..., None] * acc).sum(dim=2)                # (B,KV,G,hd)
+    out = torch.where(denom[..., None] > 0,
+                      num / torch.clamp(denom, min=1e-30)[..., None],
+                      torch.zeros_like(num))
+    return out.reshape(B, KV * G, hd).to(dtype)
+
+
 def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                      v_pages: torch.Tensor, block_tables: torch.Tensor,
                      lengths) -> torch.Tensor:

@@ -19,11 +19,13 @@ The kernel wrappers take their plain versions there, counted as the
 kernels run (their FLOPs; only their outputs written).  A mesh needs
 only its axis sizes.  Collective bytes are those the port's own
 collectives take (``c10d`` ops in the count): on ``1x1`` a MoE config
-runs the port's mesh path on a one-rank group, anything else issues
-none; a one-rank group crosses no link, so the collective term is 0
-there.  The port places only the MoE experts on a mesh (ROADMAP.md A7b)
-and has no HLO to read, so on meshes of more than one rank the record
-carries ``collective_bytes: null`` and the reason.
+runs the port's mesh path on a one-rank group (the placed layers'
+gathers and sums included), anything else issues none; a one-rank group
+crosses no link, so the collective term is 0 there.  The port places
+every weight and dense cache on a mesh (``launch/sharding.py``), but the
+counting pass traces one global program, not one rank's, and there is
+no HLO to read, so on meshes of more than one rank the record carries
+``collective_bytes: null`` and the reason (ROADMAP.md A7c).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k
@@ -59,9 +61,10 @@ from repro_torch.roofline import analysis as ra
 from repro_torch.train.steps import (make_decode_step, make_prefill_step,
                                      make_train_step)
 
-NO_COLLECTIVES = ("the port places only the MoE experts on a mesh "
-                  "(ROADMAP.md A7b) and has no HLO to read: this "
-                  "placement's collectives are not counted")
+NO_COLLECTIVES = ("the counting pass traces one global program, not a "
+                  "rank's, and has no HLO to read: the placement's "
+                  "collectives on this mesh are not counted (ROADMAP.md "
+                  "A7c)")
 ONE_RANK = ("one rank: the collectives run on a one-rank group and move "
             "nothing over a link; collective_bytes counts what they hand "
             "over, and the collective term is 0")

@@ -11,10 +11,12 @@ card's peak memory and an eval loss on a held-out batch:
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--smoke`` trains
 the reduced config; without it the published width, depth and dtype.
 ``--mesh smoke`` runs inside the one-rank 1 x 1 ``("data", "model")``
-mesh (``launch.mesh.make_smoke_mesh``: NCCL on the card), where a MoE
-config takes the mesh paths; meshes of more cards wait for the sharded
-weights (ROADMAP.md A7b).  ``--checkpoint PATH`` writes the final params
-and optimizer state in the reference's format.
+mesh (``launch.mesh.make_smoke_mesh``: NCCL on the card) on placed
+params (``launch.sharding.place_params``), where every layer takes its
+mesh path; a job of several ranks builds its mesh with
+``make_production_mesh`` and calls the same steps (``train.steps``).
+``--checkpoint PATH`` writes the final params and optimizer state in the
+reference's format.
 """
 from __future__ import annotations
 
@@ -65,11 +67,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                   warmup_steps=max(args.steps // 10, 1),
                                   total_steps=args.steps)
     dc = DataConfig(batch=args.batch, seq_len=args.seq_len)
-    ctx = (sharding.ShardingContext(make_smoke_mesh(dev))
-           if args.mesh == "smoke" else None)
+    mesh = make_smoke_mesh(dev) if args.mesh == "smoke" else None
+    ctx = sharding.ShardingContext(mesh) if mesh is not None else None
 
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev)
+    if mesh is not None:
+        params = sharding.place_params(mesh, params, cfg)
     opt_state = opt_lib.init(params)
     step_fn = make_train_step(cfg, opt_cfg)
     n_params = sum(p.numel() for p in opt_lib.tree_leaves(params))
@@ -103,7 +107,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
           + ("" if peak is None else
              f", peak memory {peak / 2 ** 30:.2f} GiB"), flush=True)
     if args.checkpoint:
-        save_checkpoint(args.checkpoint, params, cfg, opt_state, args.steps)
+        save_checkpoint(args.checkpoint, params, cfg, opt_state, args.steps,
+                        mesh=mesh)
         print(f"[train] saved {args.checkpoint}")
     return {"losses": losses, "first_loss": losses[0] if losses else None,
             "eval_loss": eval_loss, "tokens_per_s": tokens_per_s,

@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.launch import sharding
 from repro_torch.models.layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -59,15 +60,74 @@ def init_attention(generator: torch.Generator, cfg, dtype: torch.dtype,
     return p
 
 
+def _heads_tp(cfg) -> Tuple[bool, bool]:
+    """(query heads, K/V heads) computed tensor-parallel on "model" in
+    the current context: a projection's "model" cut falls between heads.
+    A cut that falls mid-head (``H * hd`` divisible, ``H`` not) is
+    gathered instead, and outside a context nothing is parallel."""
+    M = sharding.model_size()
+    d, hd = cfg.d_model, cfg.head_dim
+    heads = (sharding.splits("wq", (d, cfg.num_heads * hd))
+             and cfg.num_heads % M == 0)
+    kv = (heads and sharding.splits("wk", (d, cfg.num_kv_heads * hd))
+          and cfg.num_kv_heads % M == 0)
+    return heads, kv
+
+
+def _project(p, cfg, x):
+    """The q, k, v projections and biases, each with every head.  On a
+    mesh: a column-parallel projection's heads are all-gathered over
+    "model" after the product (its backward a reduce-scatter), a
+    gathered one computes every head; FSDP's "data" cuts are gathered
+    first.  When the heads are split the attention's "model" ranks hold
+    partial cotangents, so the replicated input and biases enter with a
+    backward that sums over "model"."""
+    ctx = sharding.current()
+    mesh = ctx.mesh if ctx is not None else None
+    d, hd = cfg.d_model, cfg.head_dim
+    heads, kv = _heads_tp(cfg)
+    if heads:
+        x = sharding.enter(x, mesh, ("model",))
+
+    def proj(name, bias, width, tp):
+        w = sharding.weight(p[name], name, (d, width),
+                            keep=("model",) if tp else (), partial=heads)
+        y = x @ w
+        if tp:
+            y = sharding.all_gather(y, mesh, "model", -1)
+        if bias in p:
+            y = y + (sharding.enter(p[bias], mesh, ("model",)) if heads
+                     else p[bias])
+        return y
+
+    return (proj("wq", "bq", cfg.num_heads * hd, heads),
+            proj("wk", "bk", cfg.num_kv_heads * hd, kv),
+            proj("wv", "bv", cfg.num_kv_heads * hd, kv))
+
+
+def _out(p, cfg, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of the attention heads ``o`` (..., H * hd).
+    On a mesh whose "model" ranks split the heads, each rank keeps its
+    heads' slice for its rows of ``wo`` (row-parallel) and the partial
+    products are summed over "model"; otherwise ``wo`` whole."""
+    width, d = cfg.num_heads * cfg.head_dim, cfg.d_model
+    heads, _ = _heads_tp(cfg)
+    if not heads:
+        return o @ sharding.weight(p["wo"], "wo", (width, d))
+    mesh = sharding.current().mesh
+    c = width // mesh.shape["model"]
+    j = mesh.local_rank("model")
+    y = o[..., j * c:(j + 1) * c] @ sharding.weight(
+        p["wo"], "wo", (width, d), keep=("model",), partial=True)
+    return sharding.reduce(y, mesh, ("model",))
+
+
 def _project_qkv(p, cfg, x, positions, use_rope):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE applied."""
+    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE applied;
+    every head on every rank of a mesh (``_project``)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
-    if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q, k, v = _project(p, cfg, x)
     q = q.reshape(B, S, cfg.num_heads, hd)
     k = k.reshape(B, S, cfg.num_kv_heads, hd)
     v = v.reshape(B, S, cfg.num_kv_heads, hd)
@@ -156,7 +216,7 @@ def _attend(q, k, v, window, q_offset=0):
 def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
     """Full-sequence causal attention (train / prefill forward)."""
     q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
-    return _attend(q, k, v, blk.window) @ p["wo"]
+    return _out(p, cfg, _attend(q, k, v, blk.window))
 
 
 def _cache_dtype(cfg) -> torch.dtype:
@@ -208,7 +268,7 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
     reads the unquantised K/V; an int8 cache quantises the ring after."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
-    out = _attend(q, k, v, blk.window) @ p["wo"]
+    out = _out(p, cfg, _attend(q, k, v, blk.window))
     kT = k.transpose(1, 2)   # (B,KV,S,hd)
     vT = v.transpose(1, 2)
     max_len = max(max_len or S, S if blk.window is None else 0)
@@ -234,7 +294,32 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
     return out, cache
 
 
-def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
+def _ring(cfg, blk, cache, max_len: Optional[int]) -> Tuple[int, int, bool]:
+    """(W, this rank's first ring slot, cut) of a dense cache: its global
+    ring size, and whether a mesh's "model" ranks cut it along its
+    positions (``launch.sharding.pool_pspecs``: where "model" divides W,
+    a one-rank axis included), each holding W / M slots from the
+    offset."""
+    Wl = cache["k"].shape[2]
+    ctx = sharding.current()
+    if ctx is None:
+        return Wl, 0, False
+    M = ctx.mesh.shape.get("model", 1)
+    if M == 1:
+        return Wl, 0, "model" in ctx.mesh.shape
+    if max_len is None:
+        raise ValueError("a decode on a mesh of more than one 'model' rank "
+                         "needs max_len to size the ring")
+    W = min(blk.window or max_len, max_len)
+    cut = W % M == 0
+    if Wl != (W // M if cut else W):
+        raise ValueError(f"ring of {Wl} slots on this rank; a {W}-slot ring "
+                         f"over {M} 'model' ranks is {W // M if cut else W}")
+    return W, ctx.mesh.local_rank("model") * Wl if cut else 0, cut
+
+
+def decode(p, cfg, blk, x, cache, max_len: Optional[int] = None
+           ) -> Tuple[torch.Tensor, dict]:
     """One-token decode per slot.  x (B,1,d); ``cache["pos"]`` (B,) holds
     each slot's tokens written so far.
 
@@ -243,32 +328,74 @@ def decode(p, cfg, blk, x, cache) -> Tuple[torch.Tensor, dict]:
     min(pos + 1, W) slots: the reference's validity rule, slot j valid iff
     j <= pos or pos >= W.  An int8 cache writes the quantised K/V and
     their scales, dequantises the whole ring to f32 and attends with
-    ``q`` in f32: the reference's f32 read."""
+    ``q`` in f32: the reference's f32 read.
+
+    On a mesh whose "model" ranks cut the ring along its positions (W /
+    M slots each, W from ``max_len`` as ``init_kv_cache`` sizes it), the
+    new K/V go only to the rank holding slot pos % W; since the valid
+    slots are a prefix, rank j's are the first clamp(min(pos + 1, W) -
+    j W / M, 0, W / M) of its own.  Each rank runs the split pass alone
+    over them (``ops.flash_decode_partials``), the f32 partials are
+    all-gathered over "model", and the merge pass alone
+    (``ops.decode_merge``) combines all of them, for every head on every
+    rank.  A ring "model" does not divide is whole on every rank and
+    takes ``ops.flash_decode``."""
     B = x.shape[0]
     hd = cfg.head_dim
     pos = cache["pos"]
     q, k, v = _project_qkv(p, cfg, x, pos[:, None], blk.use_rope)
-    W = cache["k"].shape[2]
+    W, first, cut = _ring(cfg, blk, cache, max_len)
+    Wl = cache["k"].shape[2]
     rows = torch.arange(B, device=x.device)
-    slot = (pos % W).long()
+    slot = (pos % W).long() - first
+    mine = ((slot >= 0) & (slot < Wl))[:, None, None]
+    slot = torch.clamp(slot, 0, Wl - 1)
     new = dict(cache, pos=pos + 1)
     q = q[:, 0].contiguous()
+
+    def write(name, t):
+        ring = cache[name]
+        t = t.to(ring.dtype)
+        ring[rows, :, slot] = (torch.where(mine, t, ring[rows, :, slot])
+                               if cut else t)
+
     if cfg.kv_cache_dtype == "int8":
         for name, t in (("k", k), ("v", v)):
             vals, scale = _quantize_kv(t[:, 0])    # (B,KV,hd), (B,KV,1)
-            cache[name][rows, :, slot] = vals
-            cache[name + "_scale"][rows, :, slot] = scale
+            write(name, vals)
+            write(name + "_scale", scale)
         k_read = _dequantize_kv(cache["k"], cache["k_scale"], torch.float32)
         v_read = _dequantize_kv(cache["v"], cache["v_scale"], torch.float32)
         q = q.float()
     else:
-        cache["k"][rows, :, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, :, slot] = v[:, 0].to(cache["v"].dtype)
+        write("k", k[:, 0])
+        write("v", v[:, 0])
         k_read, v_read = cache["k"], cache["v"]
-    length = torch.clamp(pos + 1, max=W).to(torch.int32)
-    out = kernel_ops.flash_decode(q, k_read, v_read, length)
-    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype) @ p["wo"]
-    return out, new
+    if cut:
+        out = _cut_ring_decode(q, k_read, v_read, pos, W, first)
+    else:
+        if sharding.current() is not None:
+            sharding.note("kv_ring", "whole")
+        length = torch.clamp(pos + 1, max=W).to(torch.int32)
+        out = kernel_ops.flash_decode(q, k_read, v_read, length)
+    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
+    return _out(p, cfg, out), new
+
+
+def _cut_ring_decode(q, k_read, v_read, pos, W: int, first: int):
+    """Decode against this rank's ring slots [first, first + W / M) of a
+    W-slot ring cut over "model": the split pass over the valid prefix of
+    them, the partials all-gathered over "model", the merge pass over
+    every rank's."""
+    Wl = k_read.shape[2]
+    length = torch.clamp(torch.clamp(pos + 1, max=W) - first, 0,
+                         Wl).to(torch.int32)
+    acc, m, l = kernel_ops.flash_decode_partials(q, k_read, v_read, length)
+    mesh = sharding.current().mesh
+    acc, m, l = (sharding.all_gather(t, mesh, "model", 2)
+                 for t in (acc, m, l))
+    sharding.note("kv_ring", "model=split")
+    return kernel_ops.decode_merge(acc, m, l, q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -340,7 +467,7 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
     max_ctx = block_table.shape[-1] * k_pages.shape[2]
     kd = _gather_pages(k_pages, block_table, max_ctx)[None]   # (1,ctx,KV,hd)
     vd = _gather_pages(v_pages, block_table, max_ctx)[None]
-    out = _attend(q, kd, vd, None, q_offset=start) @ p["wo"]
+    out = _out(p, cfg, _attend(q, kd, vd, None, q_offset=start))
     return out, cache
 
 
@@ -367,4 +494,4 @@ def paged_decode(p, cfg, blk, x, cache, block_tables, lengths
                                         cache["k_pages"], cache["v_pages"],
                                         block_tables, lengths + 1)
     out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
-    return out @ p["wo"], cache
+    return _out(p, cfg, out), cache

@@ -7,9 +7,12 @@ reads the same in both packages.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.launch import sharding
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int,
@@ -81,12 +84,28 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     return p
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(p: dict, x: torch.Tensor,
+              d_ff: Optional[int] = None) -> torch.Tensor:
     """Dense MLP.  Gated -> SwiGLU; non-gated -> tanh-approximated GELU
-    (what ``jax.nn.gelu`` computes by default)."""
-    up = x @ p["w_up"]
+    (what ``jax.nn.gelu`` computes by default).
+
+    Inside a mesh's ``ShardingContext`` the weights are this rank's
+    placed blocks (``d_ff`` gives their global shapes): FSDP's "data"
+    cuts are all-gathered, and where "model" cuts ``d_ff`` the MLP is
+    tensor-parallel (``w_up`` / ``w_gate`` column-parallel, ``w_down``
+    row-parallel, one all-reduce of the output over "model")."""
+    d = x.shape[-1]
+    tp = sharding.splits("w_up", (d, d_ff))
+    keep = ("model",) if tp else ()
+    if tp:
+        mesh = sharding.current().mesh
+        x = sharding.enter(x, mesh, ("model",))
+    up = x @ sharding.weight(p["w_up"], "w_up", (d, d_ff), keep=keep)
     if "w_gate" in p:
-        h = F.silu(x @ p["w_gate"]) * up
+        gate = x @ sharding.weight(p["w_gate"], "w_gate", (d, d_ff),
+                                   keep=keep)
+        h = F.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")
-    return h @ p["w_down"]
+    y = h @ sharding.weight(p["w_down"], "w_down", (d_ff, d), keep=keep)
+    return sharding.reduce(y, mesh, ("model",)) if tp else y

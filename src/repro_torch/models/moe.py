@@ -7,7 +7,9 @@ and the capacity semantics:
   picks each expert's tokens FIFO up to its capacity; the oracle.
 
 * ``_apply_moe_sharded``: expert parallel over the mesh's "model" ranks
-  with no all-to-all.  Activations are replicated on every rank, so rank
+  with no all-to-all.  Activations are replicated on every rank (a step
+  that splits its rows over "data" gathers them at the layer's entry),
+  so rank
   j takes its token rows (sliced over the data-parallel axes), computes
   the experts it owns on them, and one ``all_reduce`` over "model"
   combines the top-k outputs; an ``all_gather`` over the data axes gives
@@ -48,7 +50,6 @@ import math
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.launch import sharding
@@ -289,131 +290,31 @@ def _dp_axes(ctx) -> Tuple[str, ...]:
     return dp if isinstance(dp, tuple) else ((dp,) if dp else ())
 
 
-def _dp_rank_size(mesh, axes: Sequence[str]) -> Tuple[int, int]:
-    """This rank's index over the data-parallel axes (major first) and
-    their size."""
-    rank, size = 0, 1
-    for ax in axes:
-        rank = rank * mesh.shape[ax] + mesh.local_rank(ax)
-        size *= mesh.shape[ax]
-    return rank, size
-
-
 # Gradients through the mesh paths.  Every rank runs the same replicated
 # forward around the MoE layer and computes the same loss, so a rank's
 # gradient of anything outside the layer must be the whole loss's.
 # Inside the layer each rank's cotangents are its partial share: the
-# collectives carry their true transposes (all_reduce <-> all_reduce,
-# all_gather <-> reduce-scatter), ``_exit`` splits the replicated
-# cotangent of the layer's results into size equal shares, and ``_enter``
-# sums the partial gradients of a replicated input over the axes it is
-# replicated on.  The forward counts in ``collectives`` are unchanged.
-
-
-def _tracks(t: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and t.requires_grad
-
-
-def _summed(g: torch.Tensor, groups) -> torch.Tensor:
-    g = g.clone(memory_format=torch.contiguous_format)
-    for group in groups:
-        dist.all_reduce(g, group=group)
-    return g
-
-
-class _Enter(torch.autograd.Function):
-    """Identity; the backward sums the gradient over ``groups``."""
-
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _summed(g, ctx.groups), None
-
-
-class _Exit(torch.autograd.Function):
-    """Identity on a replicated result; the backward gives each of the
-    ``size`` ranks its share of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, t, size):
-        ctx.size = size
-        return t.view_as(t)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g / ctx.size, None
-
-
-class _AllReduce(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, groups):
-        ctx.groups = groups
-        return _summed(t, groups)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _summed(g, ctx.groups), None
-
-
-class _AllGatherRows(torch.autograd.Function):
-    """Rows of every rank of ``group`` in rank order; the backward is the
-    reduce-scatter (an all-reduce, then this rank's rows: gloo has no
-    reduce-scatter)."""
-
-    @staticmethod
-    def forward(ctx, t, group, n, index):
-        ctx.group, ctx.index = group, index
-        parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        return torch.cat(parts, 0)
-
-    @staticmethod
-    def backward(ctx, g):
-        rows = g.shape[0] // dist.get_world_size(ctx.group)
-        g = _summed(g, (ctx.group,))
-        return g[ctx.index * rows:(ctx.index + 1) * rows], None, None, None
-
-
-def _enter(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    if not _tracks(t):
-        return t
-    return _Enter.apply(t, tuple(mesh.get_group(ax) for ax in axes))
-
-
-def _exit(t: torch.Tensor, mesh) -> torch.Tensor:
-    return _Exit.apply(t, mesh.size) if _tracks(t) else t
+# collectives (``launch.sharding``) carry their true transposes
+# (all_reduce <-> all_reduce, all_gather <-> reduce-scatter),
+# ``sharding.leave`` splits the replicated cotangent of the layer's
+# results into size equal shares, and ``sharding.enter`` sums the partial
+# gradients of a replicated input over the axes it is replicated on.  The
+# forward counts in ``collectives`` are unchanged.
 
 
 def _all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Sum over ``axes``: in place, or out of place when ``t`` carries a
     gradient."""
-    if _tracks(t):
-        t = _AllReduce.apply(t, tuple(mesh.get_group(ax) for ax in axes))
-    else:
-        for ax in axes:
-            dist.all_reduce(t, group=mesh.get_group(ax))
     collectives["all_reduce"] += len(axes)
-    return t
+    return sharding.all_reduce(t, mesh, axes)
 
 
 def _all_gather_rows(t: torch.Tensor, mesh,
                      axes: Sequence[str]) -> torch.Tensor:
     """Concatenate every rank's rows over ``axes``, minor axis first, so
     row (i_major * n_minor + i_minor) * T_loc + t lands in order."""
-    for ax in reversed(tuple(axes)):
-        group, n = mesh.get_group(ax), mesh.shape[ax]
-        if _tracks(t):
-            t = _AllGatherRows.apply(t, group, n, mesh.local_rank(ax))
-        else:
-            parts = [torch.empty_like(t) for _ in range(n)]
-            dist.all_gather(parts, t.contiguous(), group=group)
-            t = torch.cat(parts, 0)
-        collectives["all_gather"] += 1
-    return t
+    collectives["all_gather"] += len(tuple(axes))
+    return sharding.gather_rows(t, mesh, axes)
 
 
 def _mean_over_mesh(aux: torch.Tensor, mesh) -> torch.Tensor:
@@ -422,28 +323,29 @@ def _mean_over_mesh(aux: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def _entered(p, xf, mesh):
-    """The layer's replicated inputs behind ``_enter``: the tokens and the
-    router over every axis; an expert stack in the reference's or the
+    """The layer's replicated inputs behind ``sharding.enter``: the tokens
+    and the router over every axis; an expert stack in the reference's or the
     hoisted layout also over every axis, a rank's own (1, r, ...) block
     over the axes other than "model"."""
     everywhere = mesh.axis_names
     block_axes = tuple(ax for ax in everywhere if ax != "model")
     M = mesh.shape["model"]
     q = dict(p)
-    q["router"] = _enter(p["router"], mesh, everywhere)
+    q["router"] = sharding.enter(p["router"], mesh, everywhere)
     for name in ("we_up", "we_down", "we_gate"):
         if name in p:
             w = p[name]
             own = w.ndim == 4 and w.shape[0] != M
-            q[name] = _enter(w, mesh, block_axes if own else everywhere)
-    return q, _enter(xf, mesh, everywhere)
+            q[name] = sharding.enter(w, mesh,
+                                     block_axes if own else everywhere)
+    return q, sharding.enter(xf, mesh, everywhere)
 
 
 def _my_rows(xf, mesh, dp_axes, groups: int):
     """This rank's token rows and routing groups (the shard_map
     ``in_specs`` P(dp, None)): one batch splits into one group per rank,
     several groups into whole groups per rank."""
-    i, n = _dp_rank_size(mesh, dp_axes)
+    i, n = sharding.rank_over(mesh, dp_axes)
     T = xf.shape[0]
     if T % n or (groups > 1 and groups % n):
         raise ValueError(f"{T} token rows in {groups} groups do not split "
@@ -489,7 +391,7 @@ def _apply_moe_sharded(p, cfg, xf, ctx, groups: int = 1
     # aux varies across token shards: mean it over every rank
     aux = _mean_over_mesh(aux, mesh)
     out = _all_gather_rows(out, mesh, dp_axes)
-    return _exit(out, mesh), _exit(aux, mesh)
+    return sharding.leave(out, mesh), sharding.leave(aux, mesh)
 
 
 def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
@@ -547,7 +449,8 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
     # disjoint d-slices sum over 'data'; disjoint experts over 'model'
     out_full = _all_reduce(out_full, mesh, ("data", "model"))
     aux = _mean_over_mesh(aux, mesh)
-    return _exit(out_full.to(xf.dtype), mesh), _exit(aux, mesh)
+    return (sharding.leave(out_full.to(xf.dtype), mesh),
+            sharding.leave(aux, mesh))
 
 
 def apply_moe(p: dict, cfg, x: torch.Tensor, groups: int = 1
@@ -558,15 +461,30 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, groups: int = 1
     stationary path serves when ``cfg.moe_stationary_serve`` is set, the
     mesh has a "data" axis and a routing group holds at most
     ``moe_stationary_max_tokens`` tokens; otherwise the sharded path.
-    Outside one, the local path."""
+    Outside one, the local path.
+
+    When the context's step splits the rows over ``batch_axes`` (the
+    train step's batch, a dense pool's slots), ``x`` holds this rank's
+    rows: they are all-gathered first (its backward a reduce-scatter) and
+    ``groups`` counts the groups of the gathered batch, so routing,
+    groups and capacities are the whole batch's, as without the split;
+    the output keeps this rank's rows."""
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     ctx: Optional[sharding.ShardingContext] = sharding.current()
     if ctx is None or "model" not in ctx.mesh.axis_names:
         out, aux = _apply_moe_local(p, cfg, xf, groups)
-    elif (cfg.moe_stationary_serve and "data" in ctx.mesh.axis_names
-          and B * S // groups <= cfg.moe_stationary_max_tokens):
+        return out.reshape(B, S, d), aux
+    rows = ctx.batch_axes
+    if rows:
+        # the step's rows are split over ``rows``: every path below routes
+        # the whole batch, so gather it, and keep this rank's rows after
+        xf = _all_gather_rows(xf, ctx.mesh, rows)
+    if (cfg.moe_stationary_serve and "data" in ctx.mesh.axis_names
+            and xf.shape[0] // groups <= cfg.moe_stationary_max_tokens):
         out, aux = _apply_moe_stationary(p, cfg, xf, ctx, groups)
     else:
         out, aux = _apply_moe_sharded(p, cfg, xf, ctx, groups)
+    if rows:
+        out = sharding.my_rows(out, ctx.mesh, rows)
     return out.reshape(B, S, d), aux

@@ -17,6 +17,10 @@ The prompt's recurrence is a Python loop over time, as the reference's
 ``lax.associative_scan``), a log-depth prefix scan over the (a, b) pairs:
 ceil(log2 S) vectorised steps.  States carry a leading batch (slot) axis: ``h`` (B, rd) f32,
 ``conv`` (B, conv1d_width - 1, rd) f32 and ``pos`` (B,) int32.
+
+On a mesh the block computes whole on every rank: its placed
+projections are all-gathered before use, and its states take the slot
+cut only.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding
 from repro_torch.models.layers import dense_init
 from repro_torch.roofline.hooks import fill, trips
 
@@ -66,6 +71,16 @@ def init_rglru_state(cfg, batch: int, device: torch.device) -> dict:
                             dtype=torch.float32, device=device),
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+
+
+def _mesh_weights(p: dict, cfg) -> dict:
+    """``p`` with its projections whole: on a mesh the block computes whole
+    on every rank, so each placed projection is all-gathered before use
+    (``launch.sharding.whole``)."""
+    d = cfg.d_model
+    rd = cfg.rg_lru_dim or d
+    return sharding.whole(p, {"w_in": (d, rd), "w_gate_in": (d, rd),
+                              "w_out": (rd, d)})
 
 
 def _block_diag(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -122,6 +137,7 @@ def rglru_scan(p: dict, cfg, x: torch.Tensor, *,
     recurrence is the time loop, or with ``use_assoc_scan`` the log-depth
     prefix scan.  Serving's loop writes each h_t in place; with a
     gradient to take, it stacks them instead."""
+    p = _mesh_weights(p, cfg)
     gate = _gelu(x @ p["w_gate_in"])
     u_raw = (x @ p["w_in"]).float()
     u = _conv1d(p, u_raw.to(x.dtype)).float()
@@ -154,6 +170,7 @@ def rglru_step(p: dict, cfg, x: torch.Tensor, state: dict
                ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  x (B, 1, d); the conv runs in f32 over the
     rolling buffer of the last (W - 1) inputs."""
+    p = _mesh_weights(p, cfg)
     xt = x[:, 0]
     gate = _gelu(xt @ p["w_gate_in"])
     u_in = (xt @ p["w_in"]).float()

@@ -174,7 +174,8 @@ _RECURRENT = {"rglru": (rglru.rglru_step, rglru.rglru_scan),
 def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
                  paged=None):
     """Returns (x_out, new_state, aux); ``new_state`` is None in train
-    mode and ``aux`` is None unless the block is MoE."""
+    mode and ``aux`` is None unless the block is MoE.  ``max_len`` sizes
+    prefill's caches and, on a mesh, tells decode its rings' size."""
     _check_block(blk)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     new_state = None
@@ -196,7 +197,8 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
         mix, new_state = attention.prefill(p["mixer"], cfg, blk, h,
                                            positions, max_len=max_len)
     elif mode == "decode":
-        mix, new_state = attention.decode(p["mixer"], cfg, blk, h, state)
+        mix, new_state = attention.decode(p["mixer"], cfg, blk, h, state,
+                                          max_len=max_len)
     elif mode == "paged_prefill":
         mix, new_state = attention.paged_prefill_chunk(
             p["mixer"], cfg, blk, h, state, paged["block_table"],
@@ -210,16 +212,45 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
         return x, new_state, None
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if blk.ffn == "dense":
-        return x + apply_mlp(p["ffn"], h2), new_state, None
-    # a decode row is one slot's batch-1 decode in the reference
-    y, aux = moe.apply_moe(p["ffn"], cfg, h2,
-                           groups=x.shape[0] if mode == "decode" else 1)
+        return x + apply_mlp(p["ffn"], h2, cfg.d_ff), new_state, None
+    # a decode row is one slot's batch-1 decode in the reference; a step
+    # whose rows are split over ranks routes the gathered rows
+    groups = x.shape[0] * sharding.batch_ranks() if mode == "decode" else 1
+    y, aux = moe.apply_moe(p["ffn"], cfg, h2, groups=groups)
     return x + y, new_state, aux
 
 
 # ---------------------------------------------------------------------------
 # embeddings & heads
 # ---------------------------------------------------------------------------
+
+
+def _embedding(emb: torch.Tensor, cfg):
+    """(table, lookup(table, ids), vocab-parallel) for the embedding
+    ``emb``.  On a mesh whose "model" ranks cut the vocabulary, the table
+    is this rank's rows [j V / M, (j + 1) V / M) (FSDP's "data" cut
+    gathered); the lookup takes the ids in its range and gives zeros for
+    the rest, and the caller sums the partial embeddings over "model".
+    Otherwise the whole table and a plain row lookup."""
+    ctx = sharding.current()
+    if ctx is None:
+        return emb, (lambda t, ids: t[ids]), False
+    V, d = cfg.vocab_size, cfg.d_model
+    shape = (cfg.num_codebooks, V, d) if cfg.num_codebooks else (V, d)
+    vocab = sharding.splits("embed", shape)
+    table = sharding.weight(emb, "embed", shape,
+                            keep=("model",) if vocab else (), role="vocab")
+    if not vocab:
+        return table, (lambda t, ids: t[ids]), False
+    Vl = table.shape[-2]
+    lo = ctx.mesh.local_rank("model") * Vl
+
+    def lookup(t, ids):
+        local = ids - lo
+        ok = (local >= 0) & (local < Vl)
+        return t[local.clamp(0, Vl - 1)] * ok[..., None].to(t.dtype)
+
+    return table, lookup, True
 
 
 def embed_inputs(params, cfg, inputs: dict, pos_offset) -> torch.Tensor:
@@ -231,18 +262,24 @@ def embed_inputs(params, cfg, inputs: dict, pos_offset) -> torch.Tensor:
     f32) and are put in front of the text, S' = P + S.  Without RoPE the
     f32 sinusoidal table of positions ``pos_offset + arange(S')`` is
     added in the model dtype; ``pos_offset`` is an int or (B, 1)."""
-    emb = params["embed"]["embed"]
+    sharding.locate("embed")
     toks = inputs["tokens"].long()
+    emb, lookup, vocab = _embedding(params["embed"]["embed"], cfg)
     if cfg.num_codebooks:
-        x = emb[0][toks[:, 0]]
+        x = lookup(emb[0], toks[:, 0])
         for k in range(1, cfg.num_codebooks):
-            x = x + emb[k][toks[:, k]]
+            x = x + lookup(emb[k], toks[:, k])
     else:
-        x = emb[toks]
+        x = lookup(emb, toks)
+    if vocab:
+        x = sharding.reduce(x, sharding.current().mesh, ("model",))
     if cfg.vision_patches and inputs.get("patches") is not None:
         pr = params["projector"]
-        pe = F.gelu(inputs["patches"].float() @ pr["w_proj"].float(),
-                    approximate="tanh") @ pr["w_up"].float()
+        d, dv = cfg.d_model, cfg.vision_dim
+        w_proj = sharding.weight(pr["w_proj"], "w_proj", (dv, d))
+        w_up = sharding.weight(pr["w_up"], "w_up", (d, d))
+        pe = F.gelu(inputs["patches"].float() @ w_proj.float(),
+                    approximate="tanh") @ w_up.float()
         x = torch.cat([pe.to(x.dtype), x], dim=1)
     if not cfg.use_rope:
         pos = pos_offset + torch.arange(x.shape[1], device=x.device)
@@ -251,14 +288,42 @@ def embed_inputs(params, cfg, inputs: dict, pos_offset) -> torch.Tensor:
     return x
 
 
-def apply_head(params, cfg, x) -> torch.Tensor:
-    """x (B, S, d) -> logits (B, S, V), or (B, S, K, V) for codebooks."""
+def apply_head(params, cfg, x, whole: bool = False) -> torch.Tensor:
+    """x (B, S, d) -> logits (B, S, V), or (B, S, K, V) for codebooks.
+
+    On a mesh whose "model" ranks cut the vocabulary of the head (or of
+    the tied embedding), each rank computes its vocabulary slice of the
+    logits and the slices are all-gathered over "model"; with ``whole``
+    (the train loss) the head's shards are gathered first and every rank
+    computes every logit."""
+    sharding.locate("head")
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    ctx = sharding.current()
+    if ctx is None:
+        if cfg.tie_embeddings:
+            return x @ params["embed"]["embed"].T
+        if cfg.num_codebooks:
+            return torch.einsum("bsd,kdv->bskv", x, params["head"]["head"])
+        return x @ params["head"]["head"]
+    V, d, K = cfg.vocab_size, cfg.d_model, cfg.num_codebooks
     if cfg.tie_embeddings:
-        return x @ params["embed"]["embed"].T
-    if cfg.num_codebooks:
-        return torch.einsum("bsd,kdv->bskv", x, params["head"]["head"])
-    return x @ params["head"]["head"]
+        name, w = "embed", params["embed"]["embed"]
+        shape = (K, V, d) if K else (V, d)
+    else:
+        name, w = "head", params["head"]["head"]
+        shape = (K, d, V) if K else (d, V)
+    tp = sharding.splits(name, shape) and not whole
+    mesh = ctx.mesh
+    if tp:
+        x = sharding.enter(x, mesh, ("model",))
+    w = sharding.weight(w, name, shape, keep=("model",) if tp else ())
+    if cfg.tie_embeddings:
+        w = w.transpose(-1, -2)
+    logits = (torch.einsum("bsd,kdv->bskv", x, w) if K else x @ w)
+    if tp:
+        logits = sharding.all_gather(logits, mesh, "model", -1,
+                                     sum_grads=False)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -312,8 +377,11 @@ def _remat_block(cfg, blk, p, x, positions):
     context of the forward (the MoE layer reads it)."""
     ctx = sharding.current()
 
+    tag = ctx.where if ctx is not None else ""
+
     def run(p_, x_):
         with sharding.use(ctx):
+            sharding.locate(tag)
             out, _, a = _apply_block(cfg, blk, p_, x_, positions, None,
                                      "train")
         return out, a
@@ -348,6 +416,7 @@ def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for i, (blk, p) in enumerate(zip(cfg.layer_pattern(), params["layers"])):
         st = states[i] if states is not None else None
+        sharding.locate(f"layers.{i}")
         if remat:
             (x, a), ns = _remat_block(cfg, blk, p, x, positions), None
         else:

@@ -11,7 +11,9 @@ model dtype, as in the reference.  Both cells expose
 
 States carry a leading batch (slot) axis and a ``pos`` (B,) int32, as
 the port's other layer states do (the reference keeps a scalar ``pos``
-per state and vmaps the slots).
+per state and vmaps the slots).  On a mesh the cells compute whole on
+every rank: their placed weights are all-gathered before use, and their
+states take the slot cut only.
 """
 from __future__ import annotations
 
@@ -20,12 +22,22 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import sharding
 from repro_torch.models.layers import dense_init
 from repro_torch.roofline.hooks import fill, trips
 
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
+
+
+def _mlstm_whole(p, cfg) -> dict:
+    """``p`` with its projections whole: on a mesh the cells compute whole
+    on every rank (``launch.sharding.whole``)."""
+    d, hd = cfg.d_model, cfg.num_heads * cfg.head_dim
+    return sharding.whole(p, {"w_up": (d, 2 * d), "wq": (d, hd),
+                              "wk": (d, hd), "wv": (d, hd), "w_down": (d, d)})
+
 
 
 def init_mlstm(generator: torch.Generator, cfg, dtype: torch.dtype,
@@ -85,6 +97,7 @@ def _mlstm_qkv(p, cfg, y):
 
 def mlstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> ((B, S, d), final state)."""
+    p = _mlstm_whole(p, cfg)
     B, S, d = x.shape
     z, y = (x @ p["w_up"]).chunk(2, dim=-1)
     q, k, v, i_t, f_t = _mlstm_qkv(p, cfg, y)
@@ -106,6 +119,7 @@ def mlstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
 def mlstm_step(p, cfg, x: torch.Tensor, state: dict
                ) -> Tuple[torch.Tensor, dict]:
     """x (B, 1, d), state -> (out (B, 1, d), new state)."""
+    p = _mlstm_whole(p, cfg)
     B, _, d = x.shape
     z, y = (x[:, 0] @ p["w_up"]).chunk(2, dim=-1)
     q, k, v, i_t, f_t = _mlstm_qkv(p, cfg, y)
@@ -145,6 +159,11 @@ def init_slstm_state(cfg, batch: int, device: torch.device) -> dict:
     return st
 
 
+def _slstm_whole(p, cfg) -> dict:
+    d = cfg.d_model
+    return sharding.whole(p, {"w_z": (d, d), "w_out": (d, d)})
+
+
 def _gate_weights(p, kind: str) -> torch.Tensor:
     """The four gates' ``w_*`` or ``r_*`` side by side, f32: (d, 4d)."""
     return torch.cat([p[f"{kind}_{g}"] for g in _GATES], dim=1).float()
@@ -171,6 +190,7 @@ def _slstm_cell(p, state, x_pre: torch.Tensor, r: torch.Tensor):
 def slstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """x (B, S, d) -> ((B, S, d), final state).  The input projections of
     every position are one product ahead of the loop."""
+    p = _slstm_whole(p, cfg)
     B, S, d = x.shape
     x_pre = x.float() @ _gate_weights(p, "w")            # (B, S, 4d)
     r = _gate_weights(p, "r")
@@ -190,6 +210,7 @@ def slstm_scan(p, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
 def slstm_step(p, cfg, x: torch.Tensor, state: dict
                ) -> Tuple[torch.Tensor, dict]:
     """x (B, 1, d), state -> (out (B, 1, d), new state)."""
+    p = _slstm_whole(p, cfg)
     x_pre = x[:, 0].float() @ _gate_weights(p, "w")
     (c, n, h, m), h_new = _slstm_cell(
         p, (state["c"], state["n"], state["h"], state["m"]), x_pre,

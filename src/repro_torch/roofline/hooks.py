@@ -112,5 +112,7 @@ def kernel_call(name: str, plain, *args, **kwargs):
         out = plain(*args, **kwargs)
     finally:
         COUNT.in_kernel = False
-    COUNT.add(f"kernel.{name}", 0, out.numel() * out.element_size())
+    outs = out if isinstance(out, tuple) else (out,)
+    COUNT.add(f"kernel.{name}", 0,
+              sum(t.numel() * t.element_size() for t in outs))
     return out

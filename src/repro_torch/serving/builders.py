@@ -1,11 +1,12 @@
 """Engine-cluster construction and warm-up for the launcher.
 
 Port of ``repro/serving/builders.py``.  :func:`build_sharded_engine`
-builds one big-model engine (``mixtral-8x22b``, ``dbrx-132b``) on a mesh:
-each rank holds its slice of the MoE experts and every step runs inside
-the mesh's ShardingContext (``ServeEngine(mesh=...)``), on the 1 x 1
-smoke mesh by default.  ``build_engines`` / ``build_fleet`` take the
-same ``mesh=`` for every engine they build.
+builds one engine of any arch (paged, dense, recurrent, multimodal or
+MoE) on a mesh: each rank holds its placed block of the weights
+(``launch.sharding.place_params``) and of a dense slot pool, and every
+step runs inside the mesh's ShardingContext (``ServeEngine(mesh=...)``),
+on the 1 x 1 smoke mesh by default.  ``build_engines`` / ``build_fleet``
+take the same ``mesh=`` for every engine they build.
 """
 from __future__ import annotations
 
@@ -117,9 +118,9 @@ def build_sharded_engine(arch: str, max_len: int, *, mesh=None,
                          prefix_cache: Optional[bool] = None,
                          seed: int = 0,
                          device: DeviceLike = None) -> ServeEngine:
-    """One big-model engine of ``arch`` on ``mesh`` (the 1 x 1 smoke mesh
-    on ``device`` when None; ``make_production_mesh()`` on every rank of
-    a multi-card job).
+    """One engine of ``arch`` on ``mesh`` (the 1 x 1 smoke mesh on
+    ``device`` when None; ``make_production_mesh()`` on every rank of a
+    multi-card job), each rank holding its placed blocks.
 
     ``full_scale=False`` serves the reduced config at ``num_layers``, as
     the reference does; ``full_scale=True`` keeps the published config

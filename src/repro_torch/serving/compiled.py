@@ -7,7 +7,10 @@ callables rather than jitted executables; same-config engines in a fleet
 still share one.  The reference donates the slot pool and the page pools
 to each step; here every step writes them in place.  ``mesh`` joins every
 key, and a step built for a mesh runs inside that mesh's
-``ShardingContext``, where the MoE layers take their sharded paths.
+``ShardingContext`` (kept as the step's ``sharding`` attribute, whose
+report names the layout each layer used): the layers compute on the
+rank's placed weights, and the dense decode round on the rank's block
+of a slot pool cut over "data" (``launch.sharding.pool_pspecs``).
 """
 from __future__ import annotations
 
@@ -16,10 +19,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.launch import sharding
+from repro_torch.models.transformer import forward
 from repro_torch.train.steps import (make_decode_step,
                                      make_paged_decode_step,
                                      make_paged_prefill_step,
-                                     make_prefill_step)
+                                     make_prefill_step, pick_tokens)
 
 _CACHE: Dict[Tuple, Callable] = {}
 _STATS = {"hits": 0, "misses": 0}
@@ -56,6 +60,7 @@ def _on(mesh, fn: Callable) -> Callable:
         with sharding.use(ctx):
             return fn(*args, **kw)
 
+    step.sharding = ctx
     return step
 
 
@@ -94,7 +99,7 @@ def pool_insert() -> Callable:
 
 
 def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
-                     mesh=None) -> Callable:
+                     mesh=None, max_len: Optional[int] = None) -> Callable:
     """One-token decode round over the dense slot pool, written out as
     one batched decode: (params, toks (slots, 1), pool_states,
     generator) -> (tokens (slots,) int32, new pool_states).
@@ -104,20 +109,47 @@ def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
     states' ``pos`` is (slots,), which computes the same round (a
     ``ctypes`` kernel cannot sit under ``torch.func.vmap``); the MoE
     layers keep the vmap's semantics by routing each slot as its own
-    group.  K/V caches are written in place."""
+    group.  K/V caches are written in place.
+
+    On a mesh (``max_len`` then sizes the rings) ``states`` is the rank's
+    block of the pool: where the data axes divide ``kv_slots`` each rank
+    decodes its own slots' rows and the greedy tokens are all-gathered
+    over them, so every rank returns every slot's token; a sampled round
+    gathers the logits instead and draws for every slot from
+    ``generator``, the meshless engine's stream."""
     def build():
         dec = make_decode_step(cfg, sample=sample, temperature=temperature)
+        if mesh is None:
+            def pool_step(params, toks: torch.Tensor, states: List[dict],
+                          generator: Optional[torch.Generator] = None):
+                _, tok, new_states = dec(params, {"tokens": toks}, states,
+                                         generator)
+                return tok, new_states
+
+            return pool_step
+        ctx = sharding.ShardingContext(mesh)
+        axes = sharding.batch_axes_for(mesh, kv_slots)
+        rows = ctx.split_rows(axes)
 
         def pool_step(params, toks: torch.Tensor, states: List[dict],
                       generator: Optional[torch.Generator] = None):
-            _, tok, new_states = dec(params, {"tokens": toks}, states,
-                                     generator)
-            return tok, new_states
+            with sharding.use(rows):
+                mine = sharding.my_rows(toks, mesh, axes)
+                out = forward(params, cfg, {"tokens": mine}, mode="decode",
+                              states=states, max_len=max_len)
+                logits = out["logits"]
+                if axes and sample:
+                    logits = sharding.gather_rows(logits, mesh, axes)
+                tok = pick_tokens(logits, sample, temperature, generator)
+                if axes and not sample:
+                    tok = sharding.gather_rows(tok, mesh, axes)
+            return tok, out["states"]
 
-        return _on(mesh, pool_step)
+        pool_step.sharding = ctx
+        return pool_step
 
-    return _get(("pool_decode", cfg, kv_slots, sample, temperature, mesh),
-                build)
+    key = ("pool_decode", cfg, kv_slots, sample, temperature, mesh)
+    return _get(key if mesh is None else key + (max_len,), build)
 
 
 # ---------------------------------------------------------------------------

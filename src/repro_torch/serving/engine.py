@@ -36,12 +36,18 @@ that feed the next round stay on the device.
 
 **Sharded engines.**  With ``mesh=`` (``launch.mesh.make_smoke_mesh()``
 for one card, ``make_production_mesh()`` with one process per rank) the
-engine holds this rank's slice of the MoE expert weights
-(``launch.sharding.place_params``) and runs every step inside the mesh's
-``ShardingContext``, so the MoE layers combine their experts over the
-mesh's process groups.  Every rank runs the same engine on the same
-requests; other weights, the KV caches and the activations are whole on
-every rank (ROADMAP.md A7b).
+engine holds this rank's block of every weight
+(``launch.sharding.place_params``: tensor-parallel on "model", FSDP on
+"data", the MoE experts' hoisted blocks) and runs every step inside the
+mesh's ``ShardingContext``.  Every rank runs the same engine on the same
+requests and keeps the same host books.  A dense slot pool is cut
+(``launch.sharding.place_states``): slots over "data", each K/V ring's
+positions over "model"; a prefill runs on every rank and only the rank
+holding the slot keeps it (its slice of the rings), and a decode round
+computes each rank's own slots, its tokens all-gathered over "data".  A
+page pool stays whole on every rank, every lane on every rank (the
+reference cuts its pages over "data").  :meth:`placement_report` names
+the layout each layer used.
 
 Health (``repro_torch.faults``): :meth:`fail` crashes the engine (DOWN:
 queued and in-flight requests are orphaned, an uncollected dispatch is
@@ -215,8 +221,10 @@ class ServeEngine:
             self._last_tok: List[Optional[torch.Tensor]] = [None] * kv_slots
             self._pool_states = None   # per-layer states, slot axis first
             self._pool_decode = compiled.pool_decode_step(
-                cfg, kv_slots, sample, temperature, mesh=mesh)
+                cfg, kv_slots, sample, temperature, mesh=mesh,
+                max_len=max_len)
             self._insert = compiled.pool_insert()
+            self._pool_specs = None    # a mesh's cut of the slot pool
 
     # ------------------------------------------------------------------
     # continuous-batching core
@@ -349,7 +357,11 @@ class ServeEngine:
                 continue
             pend.prefill.append((req, tok, pos, False))
             self._ensure_pool()
-            self._pool_states = self._insert(self._pool_states, st, i)
+            if self.mesh is None:
+                self._pool_states = self._insert(self._pool_states, st, i)
+            else:
+                sharding.insert_state(self.mesh, self._pool_states,
+                                      self._pool_specs, st, i)
             self._slots[i] = req
             self._last_tok[i] = tok
         self._note_inflight(sum(r is not None for r in self._slots))
@@ -776,11 +788,30 @@ class ServeEngine:
 
     def _ensure_pool(self) -> None:
         """Build the slot pool at first admission: every layer's state
-        with ``kv_slots`` rows."""
+        with ``kv_slots`` rows; on a mesh, this rank's block of it."""
         if self._pool_states is None:
             from repro_torch.models.transformer import init_layer_states
-            self._pool_states = init_layer_states(
+            states = init_layer_states(
                 self.cfg, self.kv_slots, self.max_len, self.device)
+            if self.mesh is not None:
+                self._pool_specs = sharding.pool_pspecs(states, self.mesh)
+                states = sharding.place_states(self.mesh, states,
+                                               self._pool_specs)
+            self._pool_states = states
+
+    def placement_report(self) -> dict:
+        """The layout each layer's weights and rings took in this engine's
+        steps so far (``launch.sharding.placement_report``), merged over
+        its steps; empty without a mesh."""
+        steps = ((self._paged_prefill, self._paged_decode) if self.paged
+                 else (self._prefill, self._pool_decode))
+        report: dict = {}
+        for step in steps:
+            ctx = getattr(step, "sharding", None)
+            for tag, leaves in sharding.placement_report(ctx).items() \
+                    if ctx is not None else ():
+                report.setdefault(tag, {}).update(leaves)
+        return report
 
     def _ensure_paged_states(self) -> None:
         if self._paged_states is None:

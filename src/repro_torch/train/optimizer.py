@@ -51,11 +51,30 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
                                        + (1 - cfg.min_lr_ratio) * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The f32 L2 norm of every leaf together."""
-    leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+def global_norm(tree, shards=None, mesh=None) -> torch.Tensor:
+    """The f32 L2 norm of every leaf together.  With ``shards`` (per leaf
+    of ``tree``, the frozenset of ``mesh`` axes its block is cut on:
+    ``launch.sharding.split_axes``) the tree holds this rank's blocks,
+    and each leaf's sum of squares is summed over exactly the axes it is
+    cut on, never over one it is replicated on."""
+    if shards is None:
+        leaves = tree_leaves(tree)
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    from repro_torch.launch import sharding
+    by_axes: dict = {}
+
+    def add(x, axes):
+        sq = torch.sum(torch.square(x.float()))
+        by_axes[axes] = by_axes[axes] + sq if axes in by_axes else sq
+
+    tree_map(add, tree, shards)
+    total = None
+    for axes, sq in by_axes.items():   # the same order on every rank
+        sq = sq.reshape(1).clone()
+        sharding.all_reduce(sq, mesh, sorted(axes))
+        total = sq[0] if total is None else total + sq[0]
+    return torch.sqrt(total)
 
 
 def decay_mask(params, cfg):
@@ -83,12 +102,15 @@ def init(params) -> AdamWState:
 
 
 def update(cfg: AdamWConfig, grads, state: AdamWState, params,
-           decay=None):
+           decay=None, shards=None, mesh=None):
     """Returns (new params, new state, metrics {"grad_norm" (before
     clipping), "lr"}).  ``decay`` is a tree of bools shaped like the
     params (which leaves take weight decay); by default those of two or
-    more dimensions, as the reference decides on its own layout."""
-    gnorm = global_norm(grads)
+    more dimensions, as the reference decides on its own layout.  On a
+    mesh (``shards``, ``mesh``: see :func:`global_norm`) the trees hold
+    this rank's blocks: the update is elementwise, so each rank updates
+    its own, and only the norm is summed across ranks."""
+    gnorm = global_norm(grads, shards, mesh)
     scale = None
     if cfg.grad_clip_norm is not None:
         scale = torch.clamp(cfg.grad_clip_norm / torch.clamp(gnorm, min=1e-9),

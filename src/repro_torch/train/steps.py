@@ -4,7 +4,9 @@ decode and paged steps.
 Port of ``repro/train/steps.py``.  The train step is
 :func:`make_grad_step`'s gradients (microbatched, accumulated in f32)
 followed by one AdamW update; the serving steps run the forward under
-``torch.no_grad()``.
+``torch.no_grad()``.  Inside a mesh's ``ShardingContext`` the steps take
+the rank's placed params (``launch.sharding.place_params``) and the
+train step is data-parallel (:func:`make_grad_step`).
 """
 from __future__ import annotations
 
@@ -39,21 +41,62 @@ def microbatches(cfg, batch: int) -> int:
     return k
 
 
-def _hoist_ranks(cfg) -> int:
+def _hoist_ranks(cfg, params) -> int:
     """The "model" ranks to hoist the MoE expert layout over (0: none):
-    a MoE config with ``hoist_moe_layout`` inside a mesh with "model"."""
+    a MoE config with ``hoist_moe_layout`` inside a mesh with "model",
+    whose experts are whole (E, d, f) stacks (placed ones already are
+    their rank's block of that layout)."""
     ctx = sharding.current()
     if (cfg.moe is not None and cfg.hoist_moe_layout and ctx is not None
             and "model" in ctx.mesh.axis_names):
+        ups = [layer["ffn"]["we_up"] for layer in params["layers"]
+               if "we_up" in layer.get("ffn", {})]
+        if any(w.dim() == 4 for w in ups):
+            return 0
         return ctx.mesh.shape["model"]
     return 0
 
 
-def _loss(params, cfg, batch):
+def _row_split(mesh, rows: int):
+    """(axes the rows of a microbatch split over, their size, the size of
+    the data axes left whole): ``launch.specs._batch_axes``, which keeps
+    a batch no data axis divides whole."""
+    from repro_torch.launch.specs import _batch_axes
+    axes = _batch_axes(mesh, rows)
+    axes = () if axes is None else (axes if isinstance(axes, tuple)
+                                    else (axes,))
+    n_split = sharding.axes_size(mesh, axes)
+    n_dp = sharding.axes_size(mesh, sharding.data_axes(mesh))
+    return axes, n_split, n_dp // n_split
+
+
+def _loss(params, cfg, batch, split=(), n_split=1, n_rest=1):
+    """(the objective this rank differentiates, CE loss, aux), the last
+    two the whole batch's.  On a mesh each data rank's objective is its
+    share, so that the shares sum to the loss over the data ranks: its
+    rows' CE weighted by their part of the batch's positions plus 1 /
+    n_split of the aux term (the MoE layers route the gathered batch, so
+    ``aux`` is the batch's on every rank), all over the ``n_rest`` data
+    ranks that hold the same rows."""
     out = forward(params, cfg, batch, mode="train")
     loss = chunked_ce_loss(params, cfg, out["hidden"], batch["labels"],
                            batch.get("mask"))
-    return loss + out["aux"], loss, out["aux"]
+    aux = out["aux"]
+    ctx = sharding.current()
+    if ctx is None:
+        return loss + aux, loss, aux
+    mesh = ctx.mesh
+    with torch.no_grad():
+        B, S = out["hidden"].shape[:2]
+        cnt = (batch["mask"].float().sum() if batch.get("mask") is not None
+               else torch.tensor(float(B * S), device=loss.device))
+        total = cnt.reshape(1).clone()
+        sharding.all_reduce(total, mesh, split)
+        share = cnt / torch.clamp(total[0], min=1.0)
+        whole = (loss.detach() * share).reshape(1).clone()
+        sharding.all_reduce(whole, mesh, split)
+    objective = (loss * share + aux / n_split) / n_rest
+    return objective, whole[0], aux.detach()
 
 
 def make_grad_step(cfg):
@@ -65,37 +108,50 @@ def make_grad_step(cfg):
     (``torch.autograd.grad``) and accumulated in f32, then divided by k.
     With k = 1 the gradients keep the params' dtype, as in the reference.
     Inside a mesh with a "model" axis a MoE config with
-    ``hoist_moe_layout`` differentiates with respect to
-    ``moe.prepare_tree(params)`` (the expert layout made once a step) and
-    maps the gradients back with ``moe.unprepare_grads``.
+    ``hoist_moe_layout`` and whole expert stacks differentiates with
+    respect to ``moe.prepare_tree(params)`` (the expert layout made once
+    a step) and maps the gradients back with ``moe.unprepare_grads``.
 
-    On a mesh every rank runs the whole batch: the port keeps activations
-    and non-expert weights replicated (ROADMAP.md A7b), and the MoE
-    layer's collectives carry their transposes (``models/moe.py``), so
-    each rank's gradient of a replicated weight is already the whole
-    batch's.  The reference shards the batch over "data" and its GSPMD
-    reduces those gradients over that axis implicitly; here nothing is
-    left to average.  Metrics: ``loss``, ``aux_loss``, ``total_loss``
-    (f32 scalars, the mean over the microbatches)."""
+    On a mesh the step is data-parallel.  ``params`` are this rank's
+    placed blocks and ``batch`` the whole batch, on every rank; each
+    microbatch's rows split over the data axes (``launch.specs.
+    _batch_axes``: a microbatch no data axis divides stays whole), each
+    rank running its own rows, and the grads returned are this rank's
+    blocks of the whole loss's.  Each rank differentiates its share of
+    the loss (:func:`_loss`); an FSDP leaf's gradient is summed by its
+    gather's reduce-scatter, a tensor-parallel block's is its own, and
+    every leaf held whole over a data axis is summed over it here
+    (``sharding.sum_over_data``).  Metrics: ``loss``, ``aux_loss``,
+    ``total_loss`` (f32 scalars, the whole batch's, the mean over the
+    microbatches)."""
     def grad_step(params, batch):
+        ctx = sharding.current()
         B = batch["tokens"].shape[0]
         k = microbatches(cfg, B)
-        M = _hoist_ranks(cfg)
+        M = _hoist_ranks(cfg, params)
         gparams = moe.prepare_tree(params, cfg, M) if M else params
         wrt = tree_map(lambda t: t.detach().requires_grad_(), gparams)
         leaves = tree_leaves(wrt)
         rows = B // k
+        split, n_split, n_rest = ((), 1, 1) if ctx is None else \
+            _row_split(ctx.mesh, rows)
+        inner = ctx.split_rows(split) if ctx is not None else None
         acc = None
         sums = torch.zeros(3, dtype=torch.float32,
                            device=leaves[0].device)
         for i in trips(k, backward_inside=True):
             mb = {name: v[i * rows:(i + 1) * rows]
                   for name, v in batch.items()}
-            total, loss, aux = _loss(wrt, cfg, mb)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            if split:
+                mb = {name: sharding.my_rows(v, ctx.mesh, split)
+                      for name, v in mb.items()}
+            with sharding.use(inner):
+                obj, loss, aux = _loss(wrt, cfg, mb, split, n_split,
+                                       n_rest)
+                grads = torch.autograd.grad(obj, leaves, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
-            sums += torch.stack([total, loss, aux]).detach().float()
+            sums += torch.stack([loss + aux, loss, aux]).detach().float()
             if k == 1:
                 acc = grads
             elif acc is None:
@@ -103,7 +159,7 @@ def make_grad_step(cfg):
             else:
                 for a, g in zip(acc, grads):
                     a.add_(g)
-            del total, loss, aux, grads
+            del obj, loss, aux, grads
         if k > 1:
             acc = [a / k for a in acc]
             sums = sums / k
@@ -111,6 +167,8 @@ def make_grad_step(cfg):
         grads = tree_map(lambda _: next(it), gparams)
         if M:
             grads = moe.unprepare_grads(grads, cfg, M)
+        if ctx is not None:
+            grads = sharding.sum_over_data(grads, cfg, ctx.mesh)
         return grads, {"total_loss": sums[0], "loss": sums[1],
                        "aux_loss": sums[2]}
 
@@ -122,15 +180,21 @@ def make_train_step(cfg, opt_cfg: Optional[opt_lib.AdamWConfig] = None):
     metrics)``: :func:`make_grad_step`'s gradients, then one AdamW update
     (weight decay where the reference's layout has two or more dims,
     ``optimizer.decay_mask``).  Metrics: ``loss``, ``aux_loss``,
-    ``total_loss``, ``lr`` and ``grad_norm``."""
+    ``total_loss``, ``lr`` and ``grad_norm``.  On a mesh AdamW updates
+    this rank's blocks, with the gradient norm summed over exactly the
+    axes each leaf is cut on."""
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
     grad_step = make_grad_step(cfg)
 
     def train_step(params, opt_state, batch):
         grads, metrics = grad_step(params, batch)
+        ctx = sharding.current()
+        mesh = ctx.mesh if ctx is not None else None
         params, opt_state, m = opt_lib.update(
             opt_cfg, grads, opt_state, params,
-            decay=opt_lib.decay_mask(params, cfg))
+            decay=opt_lib.decay_mask(params, cfg),
+            shards=None if mesh is None else sharding.split_axes(cfg, mesh),
+            mesh=mesh)
         metrics.update(m)
         return params, opt_state, metrics
 

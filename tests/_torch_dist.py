@@ -5,9 +5,11 @@ import torch and the port only; the reference's side of a comparison is
 computed in the test process and handed over in files."""
 from __future__ import annotations
 
+import contextlib
 import faulthandler
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -20,11 +22,21 @@ def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 180.0):
     """``fn(rank, *args)`` on ``world`` spawned ranks; raises if a rank
     fails or the ranks outlive ``timeout`` seconds (then they are
     killed)."""
+    with ranks_running(fn, world, tmp_path, *args, timeout=timeout):
+        pass
+
+
+@contextlib.contextmanager
+def ranks_running(fn, world: int, tmp_path, *args, timeout: float = 180.0):
+    """:func:`run_ranks` around the ``with`` body: the ranks start on
+    entry, the body runs in the test process meanwhile, and the exit
+    waits for them (raising as :func:`run_ranks` does)."""
     store = os.path.join(str(tmp_path), "store")
     ctx = mp.start_processes(_entry, args=(fn, world, store, args),
                              nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
+        yield
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"{world} ranks still running after "
@@ -47,6 +59,12 @@ def _entry(rank: int, fn, world: int, store: str, args) -> None:
         dist.barrier()
     finally:
         dist.destroy_process_group()
+    # a rank that has finished leaves without the interpreter's teardown,
+    # where a gloo thread has aborted a finished rank ("terminate called
+    # without an active exception" after its work and the barrier)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 # ---------------------------------------------------------------------------
@@ -145,8 +163,9 @@ def moe_grads_rank(rank: int, cases, out_dir: str) -> None:
 def train_step_rank(rank: int, cases, out_dir: str) -> None:
     """For each (name, cfg, params file, batch file, mesh shape, AdamW
     keywords) case: the port's ``make_grad_step`` and ``make_train_step``
-    inside the mesh's context, every rank holding the whole params;
-    writes the gradients and the new params, flattened in leaf order, to
+    inside the mesh's context, every rank holding its placed blocks of
+    the params and the whole batch; writes the gradients and the new
+    params, gathered whole and flattened in leaf order, to
     ``out_dir/<name>.<rank>.npz``."""
     from repro_torch.core.optim import tree_leaves
     from repro_torch.launch import sharding
@@ -160,13 +179,130 @@ def train_step_rank(rank: int, cases, out_dir: str) -> None:
         if shape not in meshes:
             meshes[shape] = make_production_mesh(
                 shape=shape, axes=("data", "model"), device="cpu")
-        with sharding.use(sharding.ShardingContext(meshes[shape])):
+        mesh = meshes[shape]
+        params = sharding.place_params(mesh, params, cfg)
+        with sharding.use(sharding.ShardingContext(mesh)):
             grads, _ = make_grad_step(cfg)(params, batch)
             new, _, metrics = make_train_step(
                 cfg, opt.AdamWConfig(**opt_kw))(params, opt.init(params),
                                                 batch)
+        grads = sharding.unplace_params(mesh, grads, cfg)
+        new = sharding.unplace_params(mesh, new, cfg)
         blobs = {f"g{i}": g.numpy() for i, g in enumerate(tree_leaves(grads))}
         blobs.update({f"p{i}": p.numpy()
                       for i, p in enumerate(tree_leaves(new))})
         np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
                  loss=float(metrics["loss"]), **blobs)
+
+
+def _mesh_of(meshes: dict, shape):
+    from repro_torch.launch.mesh import make_production_mesh
+    if shape not in meshes:
+        meshes[shape] = make_production_mesh(shape=shape,
+                                             axes=("data", "model"),
+                                             device="cpu")
+    return meshes[shape]
+
+
+def _flat(tree, prefix: str = "") -> dict:
+    """``{path: numpy array}`` of a tree of tensors (dicts and lists)."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree.detach().numpy()}
+
+
+def placement_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, params file, mesh shape, slots, max_len)
+    case: this rank's ``place_params`` blocks, whether
+    ``unplace_params`` gives the params back exactly, and this rank's
+    ``place_states`` block of a dense slot pool of ``slots`` x
+    ``max_len``, written to ``out_dir/<name>.<rank>.npz`` (leaves under
+    ``p:<path>`` and ``s:<path>``)."""
+    from repro_torch.launch import sharding
+    from repro_torch.models.transformer import init_layer_states
+    meshes = {}
+    for name, cfg, params_file, shape, slots, max_len in cases:
+        params = torch.load(params_file, weights_only=True)
+        mesh = _mesh_of(meshes, shape)
+        placed = sharding.place_params(mesh, params, cfg)
+        back = sharding.unplace_params(mesh, placed, cfg)
+        same = all(np.array_equal(a, b) for a, b in
+                   zip(_flat(back).values(), _flat(params).values()))
+        pool = sharding.place_states(mesh, init_layer_states(
+            cfg, slots, max_len, torch.device("cpu")))
+        blobs = {f"p:{k}": v for k, v in _flat(placed).items()}
+        blobs.update({f"s:{k}": v for k, v in _flat(pool).items()})
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                 roundtrip=same, **blobs)
+
+
+def placement_serve_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, params file, mesh shape, prompts, n_new,
+    engine keywords) case: a ``ServeEngine`` on the rank's placed
+    params, its greedy tokens of ``generate(prompts, n_new)`` (n_new, B,
+    ...), its KV left held, prefix hits and placement report, and the
+    first prompt's prefill last logits through the mesh's forward,
+    written to ``out_dir/<name>.<rank>.npz`` (the report as JSON)."""
+    from repro_torch.launch import sharding
+    from repro_torch.models.transformer import forward
+    from repro_torch.serving.engine import ServeEngine
+    meshes = {}
+    for name, cfg, params_file, shape, prompts, n_new, kw in cases:
+        params = torch.load(params_file, weights_only=True)
+        mesh = _mesh_of(meshes, shape)
+        eng = ServeEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+        res = eng.generate(np.asarray(prompts, np.int32), n_new)
+        toks = np.stack([np.asarray(t) for t in res.tokens])
+        with sharding.use(sharding.ShardingContext(mesh)):
+            logits = forward(eng.params, cfg,
+                             {"tokens": torch.from_numpy(
+                                 np.asarray(prompts[:1], np.int32))},
+                             mode="prefill",
+                             max_len=kw.get("max_len"))["last_logits"]
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
+                 tokens=toks, logits=logits.numpy(), kv_leak=eng.kv_leak,
+                 prefix_hits=eng.prefix_hits,
+                 report=json.dumps(eng.placement_report()))
+
+
+def checkpoint_rank(rank: int, cfg, params_file: str, batch_file: str,
+                    opt_kw: dict, out_dir: str) -> None:
+    """One train step on the (2, 2) mesh from its placed params, saved
+    with ``save_checkpoint(mesh=...)`` to ``out_dir/ckpt.npz``; then that
+    file restored onto the (4, 1) mesh's placed blocks, gathered whole
+    and written (params, AdamW moments, step) to
+    ``out_dir/restored.<rank>.npz``."""
+    from repro_torch.core.optim import tree_leaves
+    from repro_torch.launch import sharding
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+    from repro_torch.train.steps import make_train_step
+    meshes = {}
+    whole = torch.load(params_file, weights_only=True)
+    batch = torch.load(batch_file, weights_only=True)
+    mesh = _mesh_of(meshes, (2, 2))
+    params = sharding.place_params(mesh, whole, cfg)
+    with sharding.use(sharding.ShardingContext(mesh)):
+        params, state, _ = make_train_step(cfg, opt.AdamWConfig(**opt_kw))(
+            params, opt.init(params), batch)
+    path = os.path.join(out_dir, "ckpt.npz")
+    save_checkpoint(path, params, cfg, state, step=1, mesh=mesh)
+    dist.barrier()
+    other = _mesh_of(meshes, (4, 1))
+    like = sharding.place_params(other, whole, cfg)
+    got, got_state, step = restore_checkpoint(path, like, cfg,
+                                              opt.init(like), mesh=other)
+    back = sharding.unplace_params(other, got, cfg)
+    mu = sharding.unplace_params(other, got_state.mu, cfg)
+    np.savez(os.path.join(out_dir, f"restored.{rank}.npz"), step=step,
+             **{f"p{i}": p.numpy() for i, p in enumerate(tree_leaves(back))},
+             **{f"m{i}": p.numpy() for i, p in enumerate(tree_leaves(mu))})

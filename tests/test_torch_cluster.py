@@ -136,7 +136,8 @@ def test_serve_main_on_cpu_completes_every_request(capsys):
     assert sum(e["decode_rounds"] for e in st["engines"]) > 0
     assert st["launches"] == {"paged_flash_decode": 0,    # plain on CPU
                               "ladn_denoise": 0, "flash_attention": 0,
-                              "flash_decode": 0}
+                              "flash_decode": 0, "flash_decode_partials": 0,
+                              "decode_merge": 0}
     out = capsys.readouterr().out
     assert out.count("[serve] req ") == 5 and "[serve] jsq: n=5" in out
 

@@ -396,7 +396,7 @@ def test_cli_reanalyze_and_report(tmp_path, capsys):
     assert one["memory_s"] == one["bytes"] / HBM_BW
     assert one["tag"] == "t" and one["overrides"] == {"microbatches": "4"}
     assert big["chips"] == 256 and big["collective_bytes"] is None
-    assert big["collective_s"] is None and "A7b" in big["collective_note"]
+    assert big["collective_s"] is None and "A7c" in big["collective_note"]
     assert big["argument_bytes"] < one["argument_bytes"]
     assert big["compute_s"] == pytest.approx(one["compute_s"] / 256)
     re_recs = {r["mesh"]: r for r in

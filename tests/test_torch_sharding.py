@@ -16,6 +16,7 @@ from repro.configs import get_config as jax_get_config
 from repro.launch import sharding as jsh
 from repro.models.transformer import abstract_params
 from repro.serving.engine import ServeEngine as JServeEngine
+from repro_torch.core.optim import tree_leaves
 from repro_torch.launch import sharding as sh
 from repro_torch.launch.mesh import (Mesh, make_production_mesh,
                                      make_smoke_mesh, mesh_chips)
@@ -201,23 +202,28 @@ def test_sharding_context_rules():
 
 
 def test_place_params_keeps_only_the_ranks_expert_block():
-    """On a mesh the MoE leaves are the rank's (1, r, d, f_lp) block;
-    every other leaf is the caller's tensor."""
+    """On the 1 x 1 mesh the MoE leaves are the rank's (1, r, d, f_lp)
+    block; every other leaf's block is the whole leaf, and is the
+    caller's tensor (no copy)."""
     _, tcfg = configs(num_layers=2, arch="mixtral-8x22b")
     _, tparams = params_pair(*configs(num_layers=2, arch="mixtral-8x22b"))
     mesh = make_smoke_mesh(CPU)
     placed = sh.place_params(mesh, tparams, tcfg)
     for src, got in zip(tparams["layers"], placed["layers"]):
-        assert got["mixer"] is src["mixer"]
+        for k, v in src["mixer"].items():
+            assert got["mixer"][k] is v
         assert got["ffn"]["router"] is src["ffn"]["router"]
         for k in ("we_up", "we_gate", "we_down"):
             want = moe.prepare_tree(src["ffn"], tcfg, 1)[k]
             assert got["ffn"][k].shape == want.shape
             np.testing.assert_array_equal(got["ffn"][k].numpy(),
                                           want.numpy())
-    assert placed["embed"] is tparams["embed"]
-    _, dense = configs(num_layers=1)
-    assert sh.place_params(mesh, tparams, dense) is tparams
+    assert placed["embed"]["embed"] is tparams["embed"]["embed"]
+    jd, dense = configs(num_layers=1)
+    _, dparams = params_pair(jd, dense)
+    same = sh.place_params(mesh, dparams, dense)
+    assert all(a is b for a, b in zip(tree_leaves(same),
+                                      tree_leaves(dparams)))
 
 
 def test_smoke_mesh_is_one_rank_and_idempotent():

@@ -8,7 +8,10 @@ routed, capped and balanced alone); one train step on a mesh with
 ``hoist_moe_layout`` gives the local step's gradients and new params; on
 (2, 1) the replicated weights' gradients equal the single-rank step's.
 The local path's gradients are held to ``jax.grad`` of the reference's
-first."""
+first.  A dense model's data-parallel step on placed params (tensor
+parallel on "model", FSDP on "data", the batch split over "data") gives
+the single-rank step's gradients and AdamW update, and its checkpoint
+restores on another mesh and without one."""
 import dataclasses
 
 import jax
@@ -17,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import moe_grads_rank, run_ranks, train_step_rank
+from _torch_dist import (checkpoint_rank, moe_grads_rank, run_ranks,
+                         train_step_rank)
 from _torch_train import OPT, one_thread, train_case
 from repro.configs import MoEConfig as JMoEConfig
 from repro.configs import get_config as jax_get_config
@@ -198,3 +202,85 @@ def test_mesh_gradients_on_4_ranks(tmp_path):
 def _both(rank, layer_cases, step_cases, out_dir):
     moe_grads_rank(rank, layer_cases, out_dir)
     train_step_rank(rank, step_cases, out_dir)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel step on placed params
+# ---------------------------------------------------------------------------
+
+DP_TOL = 1e-5
+# AdamW without clipping, and with a clip far below the gradient norm.
+# eps 1e-2: the first update is g / (|g| + eps) times lr, whose slope in g
+# is eps / (|g| + eps)^2; at eps 1e-4 the gradient entries near 1e-4 turn
+# the data-parallel sums' f32 rounding (6e-7 of a leaf's largest
+# gradient) into 2e-5 of its largest update, at 1e-2 into far less, so
+# the comparison holds the step rather than that rounding (the gradients
+# themselves are compared at 1e-5 too)
+DP_OPT = dict(OPT, eps=1e-2)
+CLIPS = {"noclip": None, "clip": 1e-2}
+
+
+def _dp_case(tmp_path):
+    """Reduced qwen2-1.5b (2 layers, f32), a batch of 4 rows, and the
+    single-rank step's gradients and new params under each clip."""
+    _, tcfg, _, tp, _, tb = train_case("qwen2-1.5b", batch=4)
+    params_file, batch_file = (str(tmp_path / f"dp.{k}.pt")
+                               for k in ("params", "batch"))
+    torch.save(tp, params_file)
+    torch.save(tb, batch_file)
+    grads, _ = make_grad_step(tcfg)(tp, tb)
+    want = {}
+    for name, clip in CLIPS.items():
+        kw = dict(DP_OPT, grad_clip_norm=clip)
+        new, _, m = make_train_step(tcfg, opt.AdamWConfig(**kw))(
+            tp, opt.init(tp), tb)
+        if clip is not None:
+            assert float(m["grad_norm"]) > 10 * clip   # clipping is active
+        want[name] = (kw, tree_leaves(new))
+    return tcfg, params_file, batch_file, tree_leaves(grads), want
+
+
+def _dp_both(rank, step_cases, ckpt_args, out_dir):
+    train_step_rank(rank, step_cases, out_dir)
+    checkpoint_rank(rank, *ckpt_args, out_dir)
+
+
+def test_data_parallel_step_and_checkpoint_on_4_ranks(tmp_path):
+    """Reduced qwen2-1.5b on placed params: on (2, 2), (4, 1) and (1, 4)
+    the batch of 4 splits over "data" (each rank its rows; tensor- and
+    FSDP-sharded weights), and every rank's gradients and AdamW step,
+    gathered whole, equal the single-rank step's within 1e-5 of each
+    leaf's largest entry, without clipping and with clipping active.  A
+    checkpoint written on (2, 2) restores without a mesh to that step's
+    params, and onto (4, 1) to the same tree, moments included."""
+    from repro_torch.train.checkpoint import restore_checkpoint
+    tcfg, pf, bf, grads, want = _dp_case(tmp_path)
+    steps = [(f"dp_{D}x{M}_{name}", tcfg, pf, bf, (D, M), kw)
+             for D, M in ((2, 2), (4, 1), (1, 4))
+             for name, (kw, _) in want.items()]
+    run_ranks(_dp_both, 4, tmp_path, steps,
+              (tcfg, pf, bf, want["clip"][0]), str(tmp_path))
+    for key, *_ in steps:
+        new = want[key.rsplit("_", 1)[1]][1]
+        for r in range(4):
+            got = np.load(tmp_path / f"{key}.{r}.npz")
+            for i, g in enumerate(grads):
+                _close(got[f"g{i}"], g.numpy(), f"{key} rank {r} grad {i}",
+                       DP_TOL)
+            for i, p in enumerate(new):
+                _close(got[f"p{i}"], p.numpy(), f"{key} rank {r} param {i}",
+                       DP_TOL)
+    tp = torch.load(pf, weights_only=True)
+    back, state, step = restore_checkpoint(str(tmp_path / "ckpt.npz"), tp,
+                                           tcfg, opt.init(tp))
+    assert step == 1 and int(state.step) == 1
+    for i, (a, b) in enumerate(zip(tree_leaves(back), want["clip"][1])):
+        _close(a.numpy(), b.numpy(), f"meshless restore param {i}", DP_TOL)
+    mu = tree_leaves(state.mu)
+    for r in range(4):
+        got = np.load(tmp_path / f"restored.{r}.npz")
+        assert int(got["step"]) == 1
+        for i, a in enumerate(tree_leaves(back)):
+            np.testing.assert_array_equal(got[f"p{i}"], a.numpy())
+        for i, a in enumerate(mu):
+            np.testing.assert_array_equal(got[f"m{i}"], a.numpy())
