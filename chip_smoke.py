@@ -200,6 +200,25 @@ Phases, in order; the script exits non-zero at the first that fails:
    the same mesh, and a decode round's host and device ms with the mesh
    and without; 23d a reduced qwen2-1.5b train step (f32) on placed
    params = the meshless step within 1e-5;
+24. one rank's program on the production mesh: 24a xlstm-350m (dense,
+   published width and depth, bf16) through ``build_sharded_engine`` on
+   the 1 x 1 mesh (the tensor-parallel mLSTM and the whole sLSTM):
+   tokens = the meshless engine's, placed bytes = the dry run's (23b
+   and 23c run qwen2-1.5b and recurrentgemma-9b through the
+   head-parallel attention and the tensor-parallel RG-LRU, and 20b /
+   20c check the MoE engines' placed bytes too); then, the smoke
+   mesh's group destroyed, the dry run traces rank 0's program of
+   minitron-8b x train_4k and llava-next-mistral-7b, recurrentgemma-9b
+   and mixtral-8x22b x prefill_32k on 16 x 16 (a fake process group of
+   256 ranks, on the CPU); 24b ``flash_attention`` at every shape those
+   traces recorded (2, 1 and 3 query heads over 1 K/V head) against
+   its plain version (absolute, and in each query row against its
+   RMS, a limit a planted fault must pass: ``ROW_TOL``; phase 9's
+   shapes too) and SDPA, timed beside the bound; 24c llava x
+   prefill_32k's rank-0 program on the card under a fake group over
+   CUDA tensors (the fake collectives move nothing): placed bytes = the
+   dry run's, device time against the dry run's compute and memory
+   terms (bound / measured <= 1.05), ``flash_attention`` = layers;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -1119,9 +1138,125 @@ def check_attention_launch(label: str, fn, plan):
     return None if launched is None else seen
 
 
-def phase_flash_attention() -> dict:
+# flash_attention's error in each query row, max |got - want| over the
+# row's RMS of want: a causal output's scale falls as 1 / sqrt(position)
+# (about 0.009 at 32k keys), so an absolute limit alone would pass a
+# wrong late row.  The limit lies between the sound kernel's largest
+# reading (bf16: an ulp of a row's largest entries, about 0.035 at 32k
+# keys) and a planted fault's (0.8 or more), on the H100
+LATE_ROWS = 1024
+ROW_TOL = {"bfloat16": 1e-1, "float32": 1e-4}
+
+
+def row_rel_err(got, want) -> float:
+    """The largest, over every (batch, head, query) row, of max |got -
+    want| over the RMS of want in that row."""
+    g, w = got.float(), want.float()
+    rms = w.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return ((g - w).abs().amax(-1) / rms).max().item()
+
+
+def planted_fault(q, k, v, want, win, off, bk):
+    """(what, its ``row_rel_err`` against ``want``) for the plain version
+    with one key tile of ``bk`` keys wrong in the last ``LATE_ROWS``
+    rows, the rows whose outputs are smallest: the far tile (keys
+    [0, bk)) dropped from a causal mask, the window one tile short
+    (``win - bk``) from a windowed one.  None where the fault would
+    change no late row or leave one with no key."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    n = min(LATE_ROWS, Sq)
+    late = off + Sq - n                   # the first late row's position
+    if win is None:
+        if late < bk or Skv <= bk:
+            return None
+        what = f"far {bk}-key tile dropped"
+        bad = attention_plain(q[:, :, -n:], k[:, :, bk:], v[:, :, bk:],
+                              None, late - bk)
+    else:
+        if win <= bk or attn_pairs(n, Skv, win - bk, late) == \
+                attn_pairs(n, Skv, win, late):
+            return None
+        what = f"window {win} one {bk}-key tile short"
+        bad = attention_plain(q[:, :, -n:], k, v, win - bk, late)
+    return what, row_rel_err(bad, want[:, :, -n:])
+
+
+def attention_row(name: str, spec) -> dict:
+    """``flash_attention`` at ``spec`` (an ``ATTN_SHAPES``-style tuple)
+    against its plain version (``TOL``, and ``ROW_TOL`` in each query
+    row, a limit that a planted fault must pass) and SDPA, one traced
+    launch with ``tile_plan``'s grid, and its device time beside the
+    plain version's, SDPA's and the bound."""
     import torch
-    from repro_torch.kernels import build, flash_attention
+    from repro_torch.kernels import flash_attention
+    B, Hq, KVh, Sq, Skv, hd, win, off, dt = spec
+    dtype = getattr(torch, dt)
+    q, k, v = attention_case(spec)
+    got = flash_attention.flash_attention(q, k, v, window=win, q_offset=off)
+    torch.cuda.synchronize()
+    want = attention_plain(q, k, v, win, off)
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= TOL[dt]:
+        fail(f"flash_attention {name}: max abs err {err:.3e} > "
+             f"{TOL[dt]:.0e}")
+    plan = flash_attention.tile_plan(B, Hq, KVh, Sq, Skv, hd, dtype, win,
+                                     off)
+    n = min(LATE_ROWS, Sq)
+    rel = row_rel_err(got, want)
+    rel_late = row_rel_err(got[:, :, -n:], want[:, :, -n:])
+    fault = planted_fault(q, k, v, want, win, off, plan.bk)
+    if not rel <= ROW_TOL[dt]:
+        fail(f"flash_attention {name}: a query row's max err over its RMS "
+             f"{rel:.3e} > {ROW_TOL[dt]:.0e}")
+    if fault is not None and not fault[1] > ROW_TOL[dt]:
+        fail(f"flash_attention {name}: the plain version with the "
+             f"{fault[0]} reads {fault[1]:.3e} <= {ROW_TOL[dt]:.0e}: the "
+             f"row check would pass it")
+    kw = attention_timing(Sq, Skv)
+
+    def kernel():
+        return flash_attention.flash_attention(q, k, v, window=win,
+                                               q_offset=off)
+
+    launched = check_attention_launch(f"flash_attention {name}", kernel,
+                                      plan)
+    ms = time_ms(kernel, **kw)
+    call_ms = eager_ms(kernel, iters=20 if kw else 200)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v, win, off), **kw)
+    library = attention_library(q, k, v, win, off)
+    lib_out = library()
+    lib_err = (lib_out.float() - want.float()).abs().max().item()
+    library_ms = time_ms(library, **kw)
+    pairs = attn_pairs(Sq, Skv, win, off)
+    size = q.element_size()
+    nbytes = size * (2 * q.numel() + k.numel() + v.numel())
+    bound_ms, bound_by = bound(nbytes, 4 * B * Hq * hd * pairs, dt)
+    row = {
+        "shape": dict(B=B, H=Hq, KV=KVh, Sq=Sq, Skv=Skv, hd=hd,
+                      window=win, q_offset=off, dtype=dt),
+        "max_abs_err": err, "row_rel_err": rel,
+        "row_rel_err_late": rel_late,
+        "fault": None if fault is None else {"what": fault[0],
+                                             "row_rel_err": fault[1]},
+        "ms": ms, "eager_ms": call_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_err": lib_err, "bound_ms": bound_ms,
+        "bound_by": bound_by, "launched": launched}
+    planted = ("no planted fault applies" if fault is None else
+               f"{fault[0]}: {fault[1]:.3e}")
+    log(f"  flash_attention {name} {dt}: err={err:.3e} (tol "
+        f"{TOL[dt]:.0e}); row err / row RMS {rel:.3e}, last {n} rows "
+        f"{rel_late:.3e} (tol {ROW_TOL[dt]:.0e}; {planted}) "
+        f"kernel={ms:.4f} ms (eager call {call_ms:.4f}"
+        f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
+        f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
+    del q, k, v, got, want, lib_out, library
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_flash_attention() -> dict:
+    from repro_torch.kernels import build
     info = build.build_info["flash_attention"]
     ptxas = ptxas_report(info.get("ptxas", ""))
     for row in ptxas:
@@ -1131,51 +1266,8 @@ def phase_flash_attention() -> dict:
             f"{' (a cached build)' if info['cached'] else ''}")
     # only this run's compiler report goes into the kernels line
     result = {} if info["cached"] else {"ptxas": ptxas}
-    for name, (B, Hq, KVh, Sq, Skv, hd, win, off, dt) in ATTN_SHAPES.items():
-        dtype = getattr(torch, dt)
-        q, k, v = attention_case(ATTN_SHAPES[name])
-        got = flash_attention.flash_attention(q, k, v, window=win,
-                                              q_offset=off)
-        torch.cuda.synchronize()
-        want = attention_plain(q, k, v, win, off)
-        err = (got.float() - want.float()).abs().max().item()
-        if not err <= TOL[dt]:
-            fail(f"flash_attention {name}: max abs err {err:.3e} > "
-                 f"{TOL[dt]:.0e}")
-        kw = attention_timing(Sq, Skv)
-
-        def kernel():
-            return flash_attention.flash_attention(q, k, v, window=win,
-                                                   q_offset=off)
-
-        plan = flash_attention.tile_plan(B, Hq, KVh, Sq, Skv, hd, dtype, win,
-                                         off)
-        launched = check_attention_launch(f"flash_attention {name}", kernel,
-                                          plan)
-        ms = time_ms(kernel, **kw)
-        call_ms = eager_ms(kernel, iters=20 if kw else 200)
-        plain_ms = time_ms(lambda: attention_plain(q, k, v, win, off), **kw)
-        library = attention_library(q, k, v, win, off)
-        lib_out = library()
-        lib_err = (lib_out.float() - want.float()).abs().max().item()
-        library_ms = time_ms(library, **kw)
-        pairs = attn_pairs(Sq, Skv, win, off)
-        size = q.element_size()
-        nbytes = size * (2 * q.numel() + k.numel() + v.numel())
-        bound_ms, bound_by = bound(nbytes, 4 * B * Hq * hd * pairs, dt)
-        result[name] = {
-            "shape": dict(B=B, H=Hq, KV=KVh, Sq=Sq, Skv=Skv, hd=hd,
-                          window=win, q_offset=off, dtype=dt),
-            "max_abs_err": err, "ms": ms, "eager_ms": call_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_err": lib_err, "bound_ms": bound_ms,
-            "bound_by": bound_by, "launched": launched}
-        log(f"  flash_attention {name} {dt}: err={err:.3e} (tol "
-            f"{TOL[dt]:.0e}) kernel={ms:.4f} ms (eager call {call_ms:.4f}"
-            f" ms) plain={plain_ms:.4f} ms sdpa={library_ms:.4f} ms (err "
-            f"{lib_err:.2e}) bound={bound_ms:.6f} ms ({bound_by})")
-        del q, k, v, got, want, lib_out, library
-        torch.cuda.empty_cache()
+    for name, spec in ATTN_SHAPES.items():
+        result[name] = attention_row(name, spec)
     log(f"phase 9 ok: flash_attention matches its plain version at "
         f"{', '.join(ATTN_SHAPES)}")
     return result
@@ -2484,6 +2576,15 @@ def phase_moe_serve(arch: str) -> dict:
                  f"rounds, warm-up included)")
     if moe.collectives["all_reduce"] == 0:
         fail(f"{label}: the MoE layers issued no collective on the mesh")
+    # phase 24a: the placed blocks (the experts' hoisted block, the dense
+    # pool's rings) are the dry run's argument bytes
+    placed = _placed_bytes(eng.params, None if eng.paged
+                           else eng._pool_states)
+    dry = _dry_bytes(cfg, "1x1", 0 if eng.paged else MOE_SLOTS, max_len)
+    if placed != dry:
+        fail(f"{label}: placed bytes {placed} != the dry run's argument "
+             f"bytes {dry}")
+    log(f"{label}: placed {placed} B = the dry run's argument bytes")
     toks = sum(len(r.tokens) for r in reqs)
     log(f"{label}: {N_REQUESTS}/{N_REQUESTS} ok on a "
         f"{'paged' if eng.paged else 'dense'} {n}-layer bf16 engine, "
@@ -3305,6 +3406,7 @@ def _placement_serve(label, arch, paged, n_req, plen, max_len, slots):
         want = {"flash_attention": n_attn * prefills,
                 "flash_decode_partials": n_attn * rounds,
                 "decode_merge": n_attn * rounds}
+    want = {k: v for k, v in want.items() if v}      # xLSTM: no attention
     if {k: v for k, v in launches.items() if v} != want:
         fail(f"{label}: launches {launches}, expected {want} ({n_attn} "
              f"attention layers x {prefills} prefills / {rounds} decode "
@@ -3396,6 +3498,149 @@ def phase_placement(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: one rank's program on the production mesh
+# ---------------------------------------------------------------------------
+
+MINITRON = "minitron-8b"
+# (arch, shape) whose rank-0 programs on 16 x 16 the dry run traces on
+# the CPU; their flash_attention calls are phase 24b's shapes
+RANK_COMBOS = ((MINITRON, "train_4k"), (LLAVA, "prefill_32k"),
+               (RG, "prefill_32k"), (MIXTRAL, "prefill_32k"))
+RANK_MESH = "16x16"
+
+
+def phase_rank_serve() -> dict:
+    """24a. xlstm-350m (dense, published width and depth, bf16) through
+    ``build_sharded_engine`` on the 1 x 1 NCCL mesh: the tensor-parallel
+    mLSTM (its C / n rows) and the whole sLSTM, tokens = the meshless
+    engine's, placed bytes = the dry run's.  (Phases 23b and 23c run
+    qwen2-1.5b and recurrentgemma-9b through the head-parallel attention
+    and the tensor-parallel RG-LRU; phases 20b / 20c hold the MoE
+    engines' placed bytes.)"""
+    return _placement_serve("phase 24a", XLSTM, False, 4, 128, 160, 4)
+
+
+def phase_rank_traces() -> dict:
+    """The dry run of ``RANK_COMBOS`` on 16 x 16: rank 0's program traced
+    on the CPU on a fake process group of 256 ranks (this process holds
+    no other group by now)."""
+    from repro_torch.launch import dryrun
+    recs = {}
+    for arch, shape in RANK_COMBOS:
+        rec = dryrun.run_one(arch, shape, RANK_MESH, verbose=False)
+        recs[(arch, shape)] = rec
+        log(f"  24 dry run {arch} x {shape} on {RANK_MESH}, rank 0: "
+            f"{rec['flops']:.4e} FLOPs, {rec['bytes']:.4e} B, collectives "
+            f"{rec['collective_bytes']:.4e} B in {rec['n_collectives']} "
+            f"calls; compute {rec['compute_s']:.4e} s, memory "
+            f"{rec['memory_s']:.4e} s, collective {rec['collective_s']:.4e}"
+            f" s: {rec['bottleneck']} (traced in {rec['trace_s']} s)")
+    return recs
+
+
+def phase_rank_attention(recs: dict) -> dict:
+    """24b. ``flash_attention`` at every shape the 16 x 16 rank-0 programs
+    of ``RANK_COMBOS`` call it with (read from the traces' recorded
+    calls), against its plain version (``TOL``, and ``ROW_TOL`` in each
+    query row, a planted fault reading above it) and SDPA, timed beside
+    the bound."""
+    import json as _json
+    rows = {}
+    for (arch, shape), rec in recs.items():
+        calls = rec["kernel_calls"].get("flash_attention", {})
+        if not calls:
+            fail(f"24b: the {arch} x {shape} trace recorded no "
+                 f"flash_attention call")
+        for i, (key, n) in enumerate(sorted(calls.items())):
+            c = _json.loads(key)
+            (B, Hq, Sq, hd), (_, KVh, Skv, _) = c["shapes"][:2]
+            spec = (B, Hq, KVh, Sq, Skv, hd, c["window"], c["q_offset"],
+                    c["dtype"])
+            name = f"rank16_{arch}_{shape}" + (f"_{i}" if i else "")
+            row = attention_row(name, spec)
+            row["calls_per_step"] = n
+            row["G"] = Hq // KVh
+            rows[name] = row
+    log(f"phase 24b ok: flash_attention = its plain version at the "
+        f"{RANK_MESH} rank-0 shapes {', '.join(rows)}")
+    return rows
+
+
+def phase_rank_program(card: str, rec: dict) -> dict:
+    """24c. Rank 0's program of llava-next-mistral-7b x prefill_32k on
+    16 x 16, on the card: the dry run's ``rank_program`` on a fake
+    process group of 256 ranks over CUDA tensors (the fake collectives
+    move nothing and leave their outputs uninitialised, so this times
+    and checks no values): the rank's placed params and its 2 rows of
+    the batch, whose bytes equal the dry run's argument bytes; one
+    prefill after a warm-up between CUDA events, against the dry run's
+    compute and memory terms (bound / measured <= ``MAX_SHARE``);
+    ``flash_attention`` launches = layers."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import mesh_shape
+    from repro_torch.models.transformer import config_for_shape, init_params
+    dev = torch.device("cuda")
+    shape = get_shape("prefill_32k")
+    cfg = config_for_shape(get_config(LLAVA), shape)
+    B, S, P = shape.global_batch, shape.seq_len, cfg.vision_patches
+    gen = torch.Generator(device=dev).manual_seed(24)
+    t0 = time.perf_counter()
+    with dryrun.rank_zero(mesh_shape(RANK_MESH), device=dev) as mesh:
+        params = init_params(cfg, gen, dev)
+        batch = {"patches": torch.randn((B, P, cfg.vision_dim),
+                                        generator=gen, device=dev).to(
+                                            getattr(torch, cfg.dtype)),
+                 "tokens": torch.randint(0, cfg.vocab_size, (B, S - P),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+        step, args = dryrun.rank_program(cfg, shape, mesh, (params, batch))
+        del params
+        _free_card()
+        held = _tree_bytes(args)
+        if held != rec["argument_bytes"]:
+            fail(f"24c: rank 0 holds {held} B, the dry run counts "
+                 f"{rec['argument_bytes']} B")
+        step(*args)                                    # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del args, step
+    _free_card()
+    want = {"flash_attention": cfg.num_layers}
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(f"24c: launches {launches}, expected {want}")
+    bound_ms = max(rec["compute_s"], rec["memory_s"]) * 1e3
+    share = bound_ms / ms
+    if not share <= MAX_SHARE:
+        fail(f"24c: bound {bound_ms:.3f} ms over measured {ms:.3f} ms = "
+             f"{share:.3f} > {MAX_SHARE}: the count is wrong")
+    log(f"phase 24c ok: {LLAVA} x prefill_32k rank 0 of {RANK_MESH} on the "
+        f"card ({card}; fake collectives): {held} B placed = the dry run's "
+        f"argument bytes; {ms:.3f} ms measured against the dry run's "
+        f"compute {rec['compute_s'] * 1e3:.3f} ms, memory "
+        f"{rec['memory_s'] * 1e3:.3f} ms (collective "
+        f"{rec['collective_s'] * 1e3:.3f} ms over NVLink, not run): share "
+        f"{share:.4f}; launches {launches}; peak {peak:.1f} GiB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"ms": ms, "bound_ms": bound_ms, "share": share,
+            "compute_ms": rec["compute_s"] * 1e3,
+            "memory_ms": rec["memory_s"] * 1e3,
+            "collective_ms": rec["collective_s"] * 1e3,
+            "argument_bytes": held, "launches": launches, "peak_gib": peak}
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -3472,6 +3717,15 @@ def main() -> None:
     tool["seconds"] = time.perf_counter() - t22
     log(f"phase 22 ok in {tool['seconds']:.1f} s")
     place = phase_placement(card)
+    t24 = time.perf_counter()
+    rank = {"24a": phase_rank_serve()}
+    _free_card()
+    torch.distributed.destroy_process_group()      # the smoke mesh's
+    rank_recs = phase_rank_traces()
+    rank["24b"] = phase_rank_attention(rank_recs)
+    rank["24c"] = phase_rank_program(card, rank_recs[(LLAVA, "prefill_32k")])
+    rank["seconds"] = time.perf_counter() - t24
+    log(f"phase 24 ok in {rank['seconds']:.1f} s ({card})")
 
     def tooling(name):
         """Phase 22's launches of one kernel, and its 22b rows."""
@@ -3498,6 +3752,7 @@ def main() -> None:
                    if k not in ("ptxas", "floor_ms")}
     pre = attn["rg_prefill"]
     shapes = {k: v for k, v in attn.items() if k != "ptxas"}
+    shapes.update(rank["24b"])          # the 16 x 16 rank-0 shapes
     rnd = dec["rg_round"]
     kernels = [{
         "name": "paged_flash_decode", "route": "cuda",
@@ -3553,10 +3808,21 @@ def main() -> None:
         # 21c (the timed full-scale steps)
         "launches_train": {ph: train[ph]["launches"]
                            for ph in ("21a", "21b", "21c")},
+        # phase 24c: rank 0 of 16 x 16, llava x prefill_32k, one prefill
+        "launches_rank16": rank["24c"]["launches"]["flash_attention"],
         "max_abs_err": max(v["max_abs_err"] for k, v in shapes.items()
                            if v["shape"]["dtype"] == "bfloat16"),
         "max_abs_err_f32": max(v["max_abs_err"] for k, v in shapes.items()
                                if v["shape"]["dtype"] == "float32"),
+        # each query row's max error over its RMS (ROW_TOL), and the
+        # smallest reading of a planted fault
+        "row_rel_err": max(v["row_rel_err"] for v in shapes.values()
+                           if v["shape"]["dtype"] == "bfloat16"),
+        "row_rel_err_f32": max(v["row_rel_err"] for v in shapes.values()
+                               if v["shape"]["dtype"] == "float32"),
+        "fault_row_rel_err": min(v["fault"]["row_rel_err"]
+                                 for v in shapes.values()
+                                 if v["fault"] is not None),
         **({"ptxas": attn["ptxas"]} if "ptxas" in attn else {}),
         "ms": pre["ms"], "eager_ms": pre["eager_ms"],
         "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
@@ -3611,7 +3877,8 @@ def main() -> None:
                                    if k not in ("22b",)}))
     log("phase 23: " + json.dumps({k: v for k, v in place.items()
                                    if k != "23a"}))
-    torch.distributed.destroy_process_group()      # the smoke mesh's
+    log("phase 24: " + json.dumps({k: v for k, v in rank.items()
+                                   if k != "24b"}))
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,7 @@ Port of ``benchmarks/roofline.py``: reads ``torch_dryrun_<mesh>.jsonl``
 (written by ``python -m repro_torch.launch.dryrun --all --mesh <mesh>``)
 and emits one CSV row per (arch x shape x mesh): the three roofline
 terms over the H100's peaks, the bottleneck, whether one rank's
-arguments fit 80 GB, and the MODEL_FLOPS / counted FLOPs ratio.  The
-collective term is blank where the dry run does not count it.
+arguments fit 80 GB, and the MODEL_FLOPS / counted FLOPs ratio.
 """
 from __future__ import annotations
 
@@ -31,7 +30,7 @@ def bench_roofline(results: str = "results") -> List[str]:
                 f"bottleneck={r['bottleneck']};"
                 f"compute={r['compute_s']:.2e};"
                 f"memory={r['memory_s']:.2e};"
-                f"collective={'' if coll is None else f'{coll:.2e}'};"
+                f"collective={coll:.2e};"
                 f"fits={int(r['fits_hbm'])};"
                 f"useful={'' if ratio is None else f'{ratio:.2f}'}")
         if not seen:

@@ -12,17 +12,19 @@ for leaf, the reference's ``PartitionSpec`` as a tuple of mesh-axis names
 
 * :func:`place_params` hands each rank its block of every weight: matrices
   tensor-parallel on "model" and FSDP on "data", the embedding
-  vocab-parallel; the MoE expert stacks keep the hoisted expert block of
-  ``moe.expert_block`` (whole over "data").  :func:`unplace_params`
-  gathers a placed tree back whole.
+  vocab-parallel; the MoE expert stacks become the rank's block of the
+  hoisted expert layout of ``moe.expert_block``, cut over "data" on the
+  reference's FSDP dim as well (:func:`expert_data_dim`).
+  :func:`unplace_params` gathers a placed tree back whole.
 * :func:`place_states` cuts a dense slot pool: slots over "data", the K/V
-  rings' sequence dim over "model".  Recurrent states take the slot cut
-  only (the mLSTM ``C`` / ``n`` stay whole over "model").
+  rings' sequence dim and the mLSTM ``C`` / ``n`` rows over "model";
+  the other recurrent states take the slot cut only.
 
 The layers read their weights through :func:`weight`, which all-gathers
 every axis a layer does not compute on in place (FSDP's "data" always;
 "model" where the layer's compute cannot use the shard, such as a
-projection cut mid-head or a recurrent block's weights).  Every collective
+projection cut mid-head, the mLSTM's projections or the sLSTM's
+weights).  Every collective
 goes through the autograd Functions below, each with its transpose, and
 each call is counted in :data:`collectives`.  Activations are placed
 explicitly by the layers and the step builders, so :func:`act` is the
@@ -300,11 +302,10 @@ _RINGS = ("k", "v", "k_scale", "v_scale")
 def pool_pspecs(states, mesh):
     """The specs :func:`place_states` cuts a dense slot pool by: the
     reference engine's (``state_pspecs``: slots over the data axes, a K/V
-    ring's sequence over "model"), with two differences.  ``pos`` (the
-    port's per-slot position, where the reference's pool carries a
-    leading slot dim on every leaf) takes the slot cut; the mLSTM's ``C``
-    and ``n`` take the slot cut only, as the recurrent blocks compute
-    whole on every "model" rank."""
+    ring's sequence and the mLSTM ``C`` / ``n`` rows over "model"), with
+    one difference: ``pos`` (the port's per-slot position, where the
+    reference's pool carries a leading slot dim on every leaf) takes the
+    slot cut."""
     specs = state_pspecs(states, mesh)
     dp = _dp_axes_of(mesh)
     sizes = dict(mesh.shape)
@@ -315,8 +316,6 @@ def pool_pspecs(states, mesh):
         name = path[-1]
         if name == "pos" and leaf.dim() == 1:
             return (dp,) if leaf.shape[0] % n_dp == 0 else (None,)
-        if name in ("C", "n"):
-            return tuple(None if a == "model" else a for a in spec)
         return spec
 
     return _zip(states, specs, fix)
@@ -505,13 +504,19 @@ def leave(t: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
-    """Sum over ``axes`` with a summing backward: in place, or out of
-    place when ``t`` carries a gradient."""
+    """Sum over ``axes`` with a summing backward: in place (a strided
+    ``t`` too), or out of place when ``t`` carries a gradient."""
     if _tracks(t):
         t = _AllReduce.apply(t, _groups(mesh, axes))
     else:
+        # a collective reads and writes dense memory: a strided view (a
+        # gradient autograd hands back as a slice of a concatenation's)
+        # is reduced in a contiguous copy and written back
+        buf = t if t.is_contiguous() else t.contiguous()
         for ax in axes:
-            dist.all_reduce(t, group=mesh.get_group(ax))
+            dist.all_reduce(buf, group=mesh.get_group(ax))
+        if buf is not t:
+            t.copy_(buf)
     collectives["all_reduce"] += len(axes)
     return t
 
@@ -670,6 +675,29 @@ def _own(block: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
     return block.clone(memory_format=torch.contiguous_format)
 
 
+def expert_data_dim(name: str, cfg, mesh) -> Optional[int]:
+    """The dim of a rank's hoisted expert block ((1, r, d, f_lp) for
+    ``we_up`` / ``we_gate``, (1, r, f_lp, d) for ``we_down``) that
+    :func:`place_params` cuts over "data": the reference's FSDP dim of
+    the (E, ., .) stack (``_leaf_spec``: d for ``we_up`` / ``we_gate``;
+    for ``we_down`` f, or d where "model" already cuts f), one place
+    further in the block.  None where "data" cuts none of it (no "data"
+    axis, or one that does not divide the block's dim)."""
+    from repro_torch.models import moe as moelib   # moe imports this
+    sizes = dict(mesh.shape)
+    if "data" not in sizes:
+        return None
+    E, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    down = name == "we_down"
+    spec = _leaf_spec((name,), (E, f, d) if down else (E, d, f), sizes)
+    if "data" not in spec:
+        return None
+    _, _, r, f_lp = moelib._layout_dims(cfg, sizes.get("model", 1))
+    block = (1, r, f_lp, d) if down else (1, r, d, f_lp)
+    dim = spec.index("data") + 1
+    return None if block[dim] % sizes["data"] else dim
+
+
 def place_params(mesh, params: dict, cfg) -> dict:
     """This rank's block of every leaf of ``params`` (the whole tree) on
     ``mesh``, by :func:`param_pspecs`: a dim whose spec names an axis
@@ -678,8 +706,9 @@ def place_params(mesh, params: dict, cfg) -> dict:
     rank's block of the hoisted layout, row ``local_rank("model")`` of
     ``moe.prepare_tree(params, cfg, M)`` kept as a leading dim of 1
     ((1, r, d, f_lp) for ``we_up`` / ``we_gate``, (1, r, f_lp, d) for
-    ``we_down``), whole over "data".  A block equal to its whole leaf is
-    the caller's tensor; a strict one is a copy."""
+    ``we_down``), cut over "data" on :func:`expert_data_dim`.  A block
+    equal to its whole leaf is the caller's tensor; a strict one is a
+    copy, except an expert block whole over "data" (a view)."""
     from repro_torch.models import moe as moelib   # moe imports this
     sizes = dict(mesh.shape)
     M = sizes.get("model", 1)
@@ -691,8 +720,14 @@ def place_params(mesh, params: dict, cfg) -> dict:
             if t.dim() != 3:
                 raise ValueError(f"{'/'.join(path)}: expected the (E, d, f) "
                                  f"stack, got {tuple(t.shape)}")
-            return moelib.expert_block(t, cfg, M, j,
-                                       rows=name == "we_down")[None]
+            block = moelib.expert_block(t, cfg, M, j,
+                                        rows=name == "we_down")[None]
+            dim = expert_data_dim(name, cfg, mesh)
+            if dim is None or sizes["data"] == 1:
+                return block
+            spec = [None] * 4
+            spec[dim] = "data"
+            return _own(_cut(block, tuple(spec), mesh), t)
         spec = _leaf_spec(path, tuple(t.shape), sizes)
         return _own(_cut(t, spec, mesh), t)
 
@@ -713,6 +748,9 @@ def unplace_params(mesh, placed: dict, cfg) -> dict:
         name = path[-1]
         with torch.no_grad():
             if name in _EXPERT_SHARDED:
+                dim = expert_data_dim(name, cfg, mesh)
+                if dim is not None and sizes["data"] > 1:
+                    t = all_gather(t, mesh, "data", dim)
                 hoisted = all_gather(t, mesh, "model", 0) if M > 1 else t
                 inv = (moelib.layout_rows_inv if name == "we_down"
                        else moelib.layout_cols_inv)
@@ -733,12 +771,16 @@ def unplace_params(mesh, placed: dict, cfg) -> dict:
 def split_axes(cfg, mesh):
     """Per leaf of ``cfg``'s params (in their structure), the frozenset of
     mesh axes its placed block is cut on; the MoE expert blocks are cut
-    on "model" only."""
+    on "model" and on "data" where :func:`expert_data_dim` names a
+    dim."""
     sizes = dict(mesh.shape)
 
     def leaf(path, shape):
-        if path[-1] in _EXPERT_SHARDED:
-            return frozenset({"model"} & set(sizes))
+        name = path[-1]
+        if name in _EXPERT_SHARDED:
+            data = expert_data_dim(name, cfg, mesh) is not None
+            return frozenset({"model"} & set(sizes)) | (
+                frozenset({"data"}) if data else frozenset())
         return frozenset(a for entry in _leaf_spec(path, tuple(shape), sizes)
                          for a in _axes(entry))
 
@@ -748,11 +790,12 @@ def split_axes(cfg, mesh):
 def sum_over_data(grads, cfg, mesh):
     """Each rank's gradients, in the params' structure, summed over every
     data-parallel axis its leaf is not cut on (each rank has
-    differentiated its own share of the loss); in place."""
+    differentiated its own share of the loss; a cut leaf's gather has
+    summed its ranks' shares); in place."""
     cut = split_axes(cfg, mesh)
     dp = data_axes(mesh)
 
-    def leaf(_, g, axes):
+    def leaf(path, g, axes):
         for ax in dp:
             if ax not in axes:
                 all_reduce(g, mesh, (ax,))
@@ -772,14 +815,19 @@ def place_states(mesh, states, specs=None):
 
 
 def insert_state(mesh, pool, specs, states, i: int) -> None:
-    """Write one request's batch-1 ``states`` (whole, from a prefill) into
-    slot ``i`` of this rank's block ``pool`` of a pool cut by ``specs``:
-    each leaf cut along its other dims by its spec, and written only on
-    the rank whose slot block holds ``i``, in place."""
+    """Write one request's batch-1 ``states`` (from a prefill) into slot
+    ``i`` of this rank's block ``pool`` of a pool cut by ``specs``: each
+    whole leaf cut along its other dims by its spec (a leaf the prefill
+    left as this rank's block, the mLSTM's rows, as it is), and written
+    only on the rank whose slot block holds ``i``, in place."""
     for layer, st, spec in zip(pool, states, specs):
         for name, leaf in layer.items():
             sp = spec[name]
-            src = _cut(st[name], (None,) + tuple(sp[1:]), mesh)
+            src = st[name]
+            # a prefill on the mesh leaves the mLSTM's C / n as the rank's
+            # rows already; anything else comes whole
+            if tuple(src.shape[1:]) != tuple(leaf.shape[1:]):
+                src = _cut(src, (None,) + tuple(sp[1:]), mesh)
             if tuple(src.shape[1:]) != tuple(leaf.shape[1:]):
                 raise ValueError(
                     f"a state {name} of shape {tuple(st[name].shape)} does "

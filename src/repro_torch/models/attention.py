@@ -29,6 +29,14 @@ as the reference does.  The page pool keeps the model dtype only.
 
 The JAX code returns new caches and donates the old ones; the port
 writes K/V caches and page pools in place and returns them.
+
+On a mesh whose "model" ranks cut the query heads between heads, the
+full-sequence paths are head-parallel, as the reference keeps its
+"heads" on "model": each rank attends only its own H / M query heads
+against the K/V heads they read, and ``wo`` is row-parallel
+(``_own_heads``).  The decode paths attend every head on every rank: a
+dense ring cut over its positions needs every head's query on each
+rank, and the page pool is whole.
 """
 from __future__ import annotations
 
@@ -74,14 +82,42 @@ def _heads_tp(cfg) -> Tuple[bool, bool]:
     return heads, kv
 
 
-def _project(p, cfg, x):
-    """The q, k, v projections and biases, each with every head.  On a
-    mesh: a column-parallel projection's heads are all-gathered over
-    "model" after the product (its backward a reduce-scatter), a
-    gathered one computes every head; FSDP's "data" cuts are gathered
-    first.  When the heads are split the attention's "model" ranks hold
-    partial cotangents, so the replicated input and biases enter with a
-    backward that sums over "model"."""
+def _own_heads(cfg) -> Optional[Tuple[int, int, int, int]]:
+    """(first query head, query heads, first K/V head, K/V heads) that
+    this rank attends when its "model" rank keeps its query heads
+    (head-parallel attention): rank j's H / M heads from j H / M, and
+    the K/V heads they read.  Where M divides KV that is the rank's own
+    column block of ``wk`` / ``wv``; where one K/V head serves several
+    ranks (the rank's heads inside one group of G = H / KV) it is that
+    one head.  None where the query heads are not cut between heads
+    (``_heads_tp``), and where a rank's heads would straddle two K/V
+    groups: those ranks attend every head (the gathered path)."""
+    if not _heads_tp(cfg)[0]:
+        return None
+    mesh = sharding.current().mesh
+    nq = cfg.num_heads // mesh.shape["model"]
+    G = cfg.num_heads // cfg.num_kv_heads
+    q0 = mesh.local_rank("model") * nq
+    if nq % G == 0:
+        return q0, nq, q0 // G, nq // G
+    if G % nq == 0:
+        return q0, nq, q0 // G, 1
+    return None
+
+
+def _project(p, cfg, x, own=None, kv_whole: bool = True):
+    """The q, k, v projections and biases.  Outside a mesh, or with
+    ``own`` None, every head: a column-parallel projection's heads are
+    all-gathered over "model" after the product (its backward a
+    reduce-scatter), a gathered one computes every head; FSDP's "data"
+    cuts are gathered first.  With ``own`` (:func:`_own_heads`) q is
+    this rank's query heads, computed on its column block of ``wq`` with
+    no gather, and k / v the K/V heads they read (its column block where
+    M divides KV, else the gathered weight's columns of that head),
+    or every K/V head with ``kv_whole`` (a cache or a page pool keeps
+    them all).  When the heads are split the attention's "model" ranks
+    hold partial cotangents, so the replicated input and biases enter
+    with a backward that sums over "model"."""
     ctx = sharding.current()
     mesh = ctx.mesh if ctx is not None else None
     d, hd = cfg.d_model, cfg.head_dim
@@ -89,52 +125,99 @@ def _project(p, cfg, x):
     if heads:
         x = sharding.enter(x, mesh, ("model",))
 
-    def proj(name, bias, width, tp):
+    def proj(name, bname, width, tp, gather=True, cols=None):
+        """x times ``name``: its column block where ``tp`` (all-gathered
+        over "model" after the product when ``gather``), else the whole
+        weight, or its columns ``cols``; plus the bias, cut alike."""
         w = sharding.weight(p[name], name, (d, width),
                             keep=("model",) if tp else (), partial=heads)
+        if cols is not None:
+            w = w[:, cols]
         y = x @ w
-        if tp:
+        if tp and gather:
             y = sharding.all_gather(y, mesh, "model", -1)
-        if bias in p:
-            y = y + (sharding.enter(p[bias], mesh, ("model",)) if heads
-                     else p[bias])
-        return y
+        if bname not in p:
+            return y
+        b = sharding.enter(p[bname], mesh, ("model",)) if heads else p[bname]
+        if tp and not gather:
+            c = width // mesh.shape["model"]
+            cols = slice(mesh.local_rank("model") * c,
+                         (mesh.local_rank("model") + 1) * c)
+        return y + (b if cols is None else b[cols])
 
-    return (proj("wq", "bq", cfg.num_heads * hd, heads),
-            proj("wk", "bk", cfg.num_kv_heads * hd, kv),
-            proj("wv", "bv", cfg.num_kv_heads * hd, kv))
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    if own is None:
+        return (proj("wq", "bq", H * hd, heads),
+                proj("wk", "bk", KV * hd, kv),
+                proj("wv", "bv", KV * hd, kv))
+    q = proj("wq", "bq", H * hd, True, gather=False)
+    if kv_whole:
+        k, v = proj("wk", "bk", KV * hd, kv), proj("wv", "bv", KV * hd, kv)
+    elif kv:
+        k = proj("wk", "bk", KV * hd, True, gather=False)
+        v = proj("wv", "bv", KV * hd, True, gather=False)
+    else:
+        cols = slice(own[2] * hd, (own[2] + own[3]) * hd)
+        k = proj("wk", "bk", KV * hd, False, cols=cols)
+        v = proj("wv", "bv", KV * hd, False, cols=cols)
+    return q, k, v
 
 
 def _out(p, cfg, o: torch.Tensor) -> torch.Tensor:
-    """The output projection of the attention heads ``o`` (..., H * hd).
-    On a mesh whose "model" ranks split the heads, each rank keeps its
-    heads' slice for its rows of ``wo`` (row-parallel) and the partial
-    products are summed over "model"; otherwise ``wo`` whole."""
+    """The output projection of the attention heads ``o`` (..., width):
+    every head (H * hd), or this rank's own heads under head-parallel
+    attention.  On a mesh whose "model" ranks split the heads, each rank
+    multiplies its heads' part of ``o`` by its rows of ``wo``
+    (row-parallel) and the partial products are summed over "model";
+    otherwise ``wo`` whole."""
     width, d = cfg.num_heads * cfg.head_dim, cfg.d_model
     heads, _ = _heads_tp(cfg)
     if not heads:
         return o @ sharding.weight(p["wo"], "wo", (width, d))
     mesh = sharding.current().mesh
     c = width // mesh.shape["model"]
-    j = mesh.local_rank("model")
-    y = o[..., j * c:(j + 1) * c] @ sharding.weight(
-        p["wo"], "wo", (width, d), keep=("model",), partial=True)
+    if o.shape[-1] != c:                   # every head: keep this rank's
+        j = mesh.local_rank("model")
+        o = o[..., j * c:(j + 1) * c]
+    y = o @ sharding.weight(p["wo"], "wo", (width, d), keep=("model",),
+                            partial=True)
     return sharding.reduce(y, mesh, ("model",))
 
 
-def _project_qkv(p, cfg, x, positions, use_rope):
-    """x (B,S,d) -> q (B,S,H,hd), k/v (B,S,KV,hd), with RoPE applied;
-    every head on every rank of a mesh (``_project``)."""
+def _project_qkv(p, cfg, x, positions, use_rope, own=None,
+                 kv_whole: bool = True):
+    """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,KVk,hd), with RoPE applied:
+    every head (``own`` None), or this rank's query heads and their K/V
+    heads (every K/V head with ``kv_whole``); see ``_project``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q, k, v = _project(p, cfg, x)
-    q = q.reshape(B, S, cfg.num_heads, hd)
-    k = k.reshape(B, S, cfg.num_kv_heads, hd)
-    v = v.reshape(B, S, cfg.num_kv_heads, hd)
+    q, k, v = _project(p, cfg, x, own, kv_whole)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _attn_heads(cfg):
+    """:func:`_own_heads` for a full-sequence attention (train, prefill,
+    a paged chunk), its layout recorded in the context's report:
+    ``heads`` is ``model=tp`` where this rank attends its own query
+    heads, ``model=gathered`` where every rank attends every head."""
+    own = _own_heads(cfg)
+    if sharding.current() is not None:
+        sharding.note("heads", "model=gathered" if own is None
+                      else "model=tp")
+    return own
+
+
+def _kv_of(own, k, v):
+    """k, v (B,S,KV,hd) narrowed to the K/V heads of ``own``."""
+    if own is None or k.shape[2] == own[3]:
+        return k, v
+    return (k.narrow(2, own[2], own[3]), v.narrow(2, own[2], own[3]))
 
 
 # ---------------------------------------------------------------------------
@@ -214,8 +297,12 @@ def _attend(q, k, v, window, q_offset=0):
 
 
 def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
-    """Full-sequence causal attention (train / prefill forward)."""
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
+    """Full-sequence causal attention (train / prefill forward); on a
+    mesh each rank attends its own query heads where they divide
+    "model" (``_own_heads``)."""
+    own = _attn_heads(cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own,
+                           kv_whole=False)
     return _out(p, cfg, _attend(q, k, v, blk.window))
 
 
@@ -267,8 +354,9 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
     position p stored at slot p % W (matching :func:`decode`).  Attention
     reads the unquantised K/V; an int8 cache quantises the ring after."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
-    out = _out(p, cfg, _attend(q, k, v, blk.window))
+    own = _attn_heads(cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own)
+    out = _out(p, cfg, _attend(q, *_kv_of(own, k, v), blk.window))
     kT = k.transpose(1, 2)   # (B,KV,S,hd)
     vT = v.transpose(1, 2)
     max_len = max(max_len or S, S if blk.window is None else 0)
@@ -461,12 +549,14 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
     ``ops.flash_attention`` with ``q_offset=start``."""
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)[None]   # (1, C)
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope)
+    own = _attn_heads(cfg)
+    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own)
     k_pages = _scatter_pages(cache["k_pages"], k[0], block_table, start)
     v_pages = _scatter_pages(cache["v_pages"], v[0], block_table, start)
     max_ctx = block_table.shape[-1] * k_pages.shape[2]
     kd = _gather_pages(k_pages, block_table, max_ctx)[None]   # (1,ctx,KV,hd)
     vd = _gather_pages(v_pages, block_table, max_ctx)[None]
+    kd, vd = _kv_of(own, kd, vd)
     out = _out(p, cfg, _attend(q, kd, vd, None, q_offset=start))
     return out, cache
 

@@ -42,7 +42,10 @@ the reference's single batch.
 Expert weights come in three layouts, told apart by their number of
 dimensions and leading size: the reference's (E, d, f) stack, the
 hoisted (M, r, d, f_lp) layout of :func:`prepare_tree`, or one rank's
-(1, r, d, f_lp) block (``launch.sharding.place_params``).
+(1, r, d, f_lp) block (``launch.sharding.place_params``), which is also
+cut over "data" on the reference's FSDP dim and all-gathered over
+"data" at use (the weights-stationary path reads a block cut on d as it
+is).
 """
 from __future__ import annotations
 
@@ -300,6 +303,30 @@ def _dp_axes(ctx) -> Tuple[str, ...]:
 # results into size equal shares, and ``sharding.enter`` sums the partial
 # gradients of a replicated input over the axes it is replicated on.  The
 # forward counts in ``collectives`` are unchanged.
+#
+# Summed over every rank, those partials give the gradient of the mean
+# of the data-parallel ranks' objectives: ``leave`` shares each rank's
+# cotangent of the layer's result (a result the same on every one of
+# them) over the whole mesh.  That is each rank's share for a leaf or an
+# input whole over the data axes (``sharding.sum_over_data`` or the rows
+# gather's reduce-scatter sums the shares).  A leaf cut over "data"
+# carries the sum of its "data" ranks' objectives' gradients instead (an
+# FSDP gather's reduce-scatter sums each rank's own), so ``_entered``
+# scales a block cut over "data" by D, the "data" size
+# (:class:`_DataShares`).
+
+
+class _DataShares(torch.autograd.Function):
+    """Identity; the backward scales the gradient by ``D``."""
+
+    @staticmethod
+    def forward(ctx, t, D):
+        ctx.D = D
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.D, None
 
 
 def _all_reduce(t: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -322,23 +349,57 @@ def _mean_over_mesh(aux: torch.Tensor, mesh) -> torch.Tensor:
     return aux[0] / mesh.size
 
 
-def _entered(p, xf, mesh):
+def _data_cut(w: torch.Tensor, name: str, cfg, mesh) -> Optional[int]:
+    """The dim of a rank's own (1, r, ., .) expert block that is this
+    rank's slice over "data" (``sharding.expert_data_dim``; a block
+    ``place_params`` left whole over "data" has none)."""
+    if w.ndim != 4:
+        return None
+    dim = sharding.expert_data_dim(name, cfg, mesh)
+    if dim is None:
+        return None
+    _, _, r, f_lp = _layout_dims(cfg, mesh.shape["model"])
+    d = cfg.d_model
+    whole = (1, r, f_lp, d) if name == "we_down" else (1, r, d, f_lp)
+    return dim if w.shape[dim] < whole[dim] else None
+
+
+def _entered(p, xf, mesh, cfg, keep_d: bool = False):
     """The layer's replicated inputs behind ``sharding.enter``: the tokens
-    and the router over every axis; an expert stack in the reference's or the
-    hoisted layout also over every axis, a rank's own (1, r, ...) block
-    over the axes other than "model"."""
+    and the router over every axis; an expert stack in the reference's or
+    the hoisted layout also over every axis, a rank's own (1, r, ...)
+    block over the axes other than "model", and a block cut over "data"
+    (D4: the reference's FSDP dim) over those other than "model" and
+    "data", its gradient scaled by D, then all-gathered over "data" (its
+    backward the reduce-scatter).  With ``keep_d`` a block whose "data" cut is its d
+    dim stays cut (the weights-stationary path reads only the rank's d
+    slice); the names of those come back as the second value."""
     everywhere = mesh.axis_names
     block_axes = tuple(ax for ax in everywhere if ax != "model")
+    rest = tuple(ax for ax in block_axes if ax != "data")
     M = mesh.shape["model"]
     q = dict(p)
+    local_d = set()
     q["router"] = sharding.enter(p["router"], mesh, everywhere)
     for name in ("we_up", "we_down", "we_gate"):
-        if name in p:
-            w = p[name]
-            own = w.ndim == 4 and w.shape[0] != M
-            q[name] = sharding.enter(w, mesh,
-                                     block_axes if own else everywhere)
-    return q, sharding.enter(xf, mesh, everywhere)
+        if name not in p:
+            continue
+        w = p[name]
+        cut = _data_cut(w, name, cfg, mesh)
+        if cut is not None:
+            w = sharding.enter(w, mesh, rest)
+            if w.requires_grad and torch.is_grad_enabled():
+                w = _DataShares.apply(w, mesh.shape["data"])
+            d_dim = 3 if name == "we_down" else 2
+            if keep_d and cut == d_dim:
+                local_d.add(name)
+            else:
+                w = sharding.all_gather(w, mesh, "data", cut)
+            q[name] = w
+            continue
+        own = w.ndim == 4 and w.shape[0] != M
+        q[name] = sharding.enter(w, mesh, block_axes if own else everywhere)
+    return q, sharding.enter(xf, mesh, everywhere), local_d
 
 
 def _my_rows(xf, mesh, dp_axes, groups: int):
@@ -372,7 +433,7 @@ def _apply_moe_sharded(p, cfg, xf, ctx, groups: int = 1
     M = mesh.shape["model"]
     _, f_par, r, _ = _layout_dims(cfg, M)
     j = mesh.local_rank("model")
-    p, xf = _entered(p, xf, mesh)
+    p, xf, _ = _entered(p, xf, mesh, cfg)
     wu, wd, wg = _weights(p, cfg, M, j)
     dp_axes = _dp_axes(ctx)
     x_loc, g_loc = _my_rows(xf, mesh, dp_axes, groups)
@@ -417,7 +478,7 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
     j = mesh.local_rank("model")
     di = mesh.local_rank("data") * d_lp
     cut = slice(di, di + d_lp)
-    p, xf = _entered(p, xf, mesh)
+    p, xf, local_d = _entered(p, xf, mesh, cfg, keep_d=True)
     wu, wd, wg = _weights(p, cfg, M, j)
     dp_axes = _dp_axes(ctx)
     x_loc, _ = _my_rows(xf, mesh, dp_axes, groups)
@@ -431,19 +492,26 @@ def _apply_moe_stationary(p, cfg, xf, ctx, groups: int = 1
                            device=xf.device)
     wu, wd = wu.unbind(0), wd.unbind(0)
     wg = None if wg is None else wg.unbind(0)
+    def mine(w, name, rows=False):
+        """Expert q's slice of the local d dim (the block itself where
+        ``place_params`` cut it there over "data")."""
+        if name in local_d:
+            return w
+        return w[:, cut] if rows else w[cut]
+
     for q in range(r):
         e = my_e_par * r + q
         w_col = w_dense[:, e]
         rows, valid = _fifo(w_col, C, groups)
         xb = x_slice[rows] * valid[:, None].to(x_slice.dtype)
         # partial pre-activations over the local d-slice, summed over data
-        up = _all_reduce(xb @ wu[q][cut], mesh, ("data",))
+        up = _all_reduce(xb @ mine(wu[q], "we_up"), mesh, ("data",))
         if wg is not None:
-            g = _all_reduce(xb @ wg[q][cut], mesh, ("data",))
+            g = _all_reduce(xb @ mine(wg[q], "we_gate"), mesh, ("data",))
             h = F.silu(g) * up
         else:
             h = F.gelu(up, approximate="tanh")
-        yb = h @ wd[q][:, cut]                       # (C, d_lp)
+        yb = h @ mine(wd[q], "we_down", rows=True)   # (C, d_lp)
         yb = yb * (w_col[rows] * valid).to(yb.dtype)[:, None]
         out_full[:, cut].index_add_(0, rows, yb.float())
     # disjoint d-slices sum over 'data'; disjoint experts over 'model'

@@ -187,8 +187,10 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
         if mode == "decode":
             mix, new_state = step(p["mixer"], cfg, h, state)
         elif blk.mixer == "rglru":
+            # a train forward keeps no state (on a mesh: no gather of it)
             mix, new_state = scan(p["mixer"], cfg, h,
-                                  use_assoc_scan=cfg.use_assoc_scan)
+                                  use_assoc_scan=cfg.use_assoc_scan,
+                                  with_state=mode != "train")
         else:
             mix, new_state = scan(p["mixer"], cfg, h)
     elif mode == "train":

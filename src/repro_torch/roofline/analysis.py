@@ -18,7 +18,9 @@ sees every aten op the step dispatches and tallies per op:
   ``FlopCounterMode`` counts: matmuls, convolutions, attention);
 * bytes written: every non-view op's outputs once (an in-place or
   ``out=`` op at most the bytes of its largest input, e.g. the values an
-  ``index_put_`` scatters; allocations that write nothing count 0).
+  ``index_put_`` scatters; allocations that write nothing count 0; a
+  collective, a ``c10d`` op, its outputs on this rank: an all-gather
+  the gathered tensor).
 
 ``bytes`` is then the written bytes plus the arguments read once: a
 lower bound on the eager step's HBM traffic.  Python loops whose
@@ -38,7 +40,8 @@ runs the kernel, which keeps scores and probabilities on chip.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import json
+from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -67,6 +70,8 @@ def written_bytes(func, args, kwargs, out) -> int:
     if func.is_view or func.overloadpacket.__name__ in _NO_WRITE:
         return 0
     n = sum(nbytes(t) for t in _tensors(out))
+    if func.namespace == "c10d":
+        return n
     schema = func._schema
     mutated = {a.name for a in schema.arguments
                if a.alias_info is not None and a.alias_info.is_write}
@@ -89,6 +94,13 @@ class CountingMode(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.tallies: Dict[str, List[int]] = {}
+        # kernel name -> {its call's shapes (JSON) -> calls}
+        self.calls: Dict[str, Dict[str, int]] = {}
+
+    def call(self, name: str, desc: dict) -> None:
+        key = json.dumps(desc, sort_keys=True)
+        seen = self.calls.setdefault(name, {})
+        seen[key] = seen.get(key, 0) + COUNT.scale
 
     def add(self, name: str, flops: int, written: int) -> None:
         w = COUNT.scale
@@ -109,20 +121,24 @@ class CountingMode(TorchDispatchMode):
         return out
 
 
-def count_ops(fn, *args, shortcut: bool = True, **kwargs):
+def count_ops(fn, *args, shortcut: bool = True, calls=None, **kwargs):
     """Run ``fn(*args, **kwargs)`` under :class:`CountingMode` with the
     loop shortcut on (``shortcut``) or off; returns (its output, the
-    tallies).  Fake-tensor inputs must be used inside their own mode:
-    call this inside it."""
+    tallies).  ``calls`` (a dict) receives the kernel calls' shapes:
+    kernel name -> {shapes as JSON -> calls, trip-weighted}.  Fake-tensor
+    inputs must be used inside their own mode: call this inside it."""
     if COUNT.add is not None:
         raise RuntimeError("a counting pass is already running")
     mode = CountingMode()
-    COUNT.add, COUNT.shortcut = mode.add, shortcut
+    COUNT.add, COUNT.call, COUNT.shortcut = mode.add, mode.call, shortcut
     try:
         with mode:
             out = fn(*args, **kwargs)
     finally:
-        COUNT.add, COUNT.shortcut, COUNT.scale = None, False, 1
+        COUNT.add, COUNT.call = None, None
+        COUNT.shortcut, COUNT.scale = False, 1
+    if calls is not None:
+        calls.update(mode.calls)
     return out, mode.tallies
 
 
@@ -150,20 +166,16 @@ def model_flops(cfg, shape) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
 
 
-def roofline_terms(flops: float, bytes_: float,
-                   coll_bytes: Optional[float], chips: int,
-                   peak_flops: float, hbm_bw: float,
+def roofline_terms(flops: float, bytes_: float, coll_bytes: float,
+                   chips: int, peak_flops: float, hbm_bw: float,
                    link_bw: float) -> Dict[str, object]:
     """Three roofline terms in seconds, from one rank's work (``chips``
-    is kept for the reference's signature).  ``coll_bytes`` None (not
-    known) gives a collective term of None, left out of the
-    bottleneck."""
+    is kept for the reference's signature), and the largest."""
     compute = flops / peak_flops
     memory = bytes_ / hbm_bw
-    collective = None if coll_bytes is None else coll_bytes / link_bw
-    dom = max([("compute", compute), ("memory", memory)]
-              + ([] if collective is None else [("collective", collective)]),
-              key=lambda kv: kv[1])
+    collective = coll_bytes / link_bw
+    dom = max([("compute", compute), ("memory", memory),
+               ("collective", collective)], key=lambda kv: kv[1])
     return {
         "compute_s": compute,
         "memory_s": memory,

@@ -3,7 +3,8 @@ pass (``roofline/analysis.py``); inert outside it.
 
 :func:`trips` lets a Python loop whose iterations run the same ops count
 one iteration trip-count times; :func:`kernel_call` makes a kernel's
-plain version count as the kernel does on the card.
+plain version count as the kernel does on the card (and tells the pass
+its shapes).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch.utils._pytree import tree_leaves
 
 class _Count(threading.local):
     add = None         # the running counting pass's tally callback
+    call = None        # its callback for a kernel call's shapes
     shortcut = False   # run one iteration of a :func:`trips` loop
     scale = 1          # the weight of the ops dispatched now
     in_kernel = False  # inside :func:`kernel_call`'s plain version
@@ -115,4 +117,11 @@ def kernel_call(name: str, plain, *args, **kwargs):
     outs = out if isinstance(out, tuple) else (out,)
     COUNT.add(f"kernel.{name}", 0,
               sum(t.numel() * t.element_size() for t in outs))
+    if COUNT.call is not None:
+        tensors = [t for t in args if isinstance(t, torch.Tensor)]
+        COUNT.call(name, {
+            "shapes": [list(t.shape) for t in tensors],
+            "dtype": str(tensors[0].dtype).replace("torch.", ""),
+            **{k: v for k, v in kwargs.items()
+               if v is None or isinstance(v, (bool, int, float))}})
     return out

@@ -55,7 +55,7 @@ def main(argv=None):
         print(f"{rec['arch']:24s} {rec['shape']:12s} {rec['mesh']:8s} "
               f"{rec['bottleneck']:10s} c={rec['compute_s']:.2e} "
               f"m={rec['memory_s']:.2e} "
-              f"x={'n/a' if coll is None else f'{coll:.2e}'}")
+              f"x={coll:.2e}")
     if args.out:
         with open(args.out, "w") as f:
             for rec in recs:

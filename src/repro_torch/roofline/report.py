@@ -63,7 +63,7 @@ def dryrun_table(recs: Dict[tuple, dict]) -> str:
             f"({fmt_bytes(r.get('argument_bytes_total'))}) "
             f"| {'yes' if r.get('fits_hbm') else 'no'} "
             f"| {r['flops']:.3e} | {fmt_bytes(r['bytes'])} "
-            f"| {'not counted' if coll is None else fmt_bytes(coll)} |")
+            f"| {fmt_bytes(coll)} |")
     return "\n".join(lines)
 
 
@@ -76,7 +76,7 @@ def roofline_table(recs: Dict[tuple, dict]) -> str:
         c = r.get("collective_s")
         lines.append(
             f"| {arch} | {shape} | {r['compute_s']:.2e} "
-            f"| {r['memory_s']:.2e} | {'-' if c is None else f'{c:.2e}'} "
+            f"| {r['memory_s']:.2e} | {c:.2e} "
             f"| **{r['bottleneck']}** "
             f"| {'-' if u is None else f'{u:.2f}'} |")
     return "\n".join(lines)
@@ -92,7 +92,8 @@ def main(argv=None):
             args.results, f"torch_dryrun_{mesh}.jsonl")), args.tag)
         if not recs:
             continue
-        title = f"{mesh} ({shape.size} H100 rank(s))"
+        title = (f"{mesh} ({shape.size} H100 rank(s)"
+                 f"{'; rank 0' if shape.size > 1 else ''})")
         print(f"\n### Dry run — {title}: {len(recs)} combos\n")
         print(dryrun_table(recs))
         print(f"\n### Roofline — {title}, H100 peaks\n")

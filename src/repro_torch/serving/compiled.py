@@ -100,6 +100,15 @@ def pool_insert() -> Callable:
 
 def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
                      mesh=None, max_len: Optional[int] = None) -> Callable:
+    """:func:`make_pool_decode`'s step, cached per key."""
+    key = ("pool_decode", cfg, kv_slots, sample, temperature, mesh)
+    return _get(key if mesh is None else key + (max_len,),
+                lambda: make_pool_decode(cfg, kv_slots, sample, temperature,
+                                         mesh, max_len))
+
+
+def make_pool_decode(cfg, kv_slots: int, sample: bool, temperature: float,
+                     mesh=None, max_len: Optional[int] = None) -> Callable:
     """One-token decode round over the dense slot pool, written out as
     one batched decode: (params, toks (slots, 1), pool_states,
     generator) -> (tokens (slots,) int32, new pool_states).
@@ -117,39 +126,38 @@ def pool_decode_step(cfg, kv_slots: int, sample: bool, temperature: float,
     over them, so every rank returns every slot's token; a sampled round
     gathers the logits instead and draws for every slot from
     ``generator``, the meshless engine's stream."""
-    def build():
-        dec = make_decode_step(cfg, sample=sample, temperature=temperature)
-        if mesh is None:
-            def pool_step(params, toks: torch.Tensor, states: List[dict],
-                          generator: Optional[torch.Generator] = None):
-                _, tok, new_states = dec(params, {"tokens": toks}, states,
-                                         generator)
-                return tok, new_states
-
-            return pool_step
-        ctx = sharding.ShardingContext(mesh)
-        axes = sharding.batch_axes_for(mesh, kv_slots)
-        rows = ctx.split_rows(axes)
-
+    dec = make_decode_step(cfg, sample=sample, temperature=temperature)
+    if mesh is None:
         def pool_step(params, toks: torch.Tensor, states: List[dict],
                       generator: Optional[torch.Generator] = None):
-            with sharding.use(rows):
-                mine = sharding.my_rows(toks, mesh, axes)
-                out = forward(params, cfg, {"tokens": mine}, mode="decode",
-                              states=states, max_len=max_len)
-                logits = out["logits"]
-                if axes and sample:
-                    logits = sharding.gather_rows(logits, mesh, axes)
-                tok = pick_tokens(logits, sample, temperature, generator)
-                if axes and not sample:
-                    tok = sharding.gather_rows(tok, mesh, axes)
-            return tok, out["states"]
+            _, tok, new_states = dec(params, {"tokens": toks}, states,
+                                     generator)
+            return tok, new_states
 
-        pool_step.sharding = ctx
         return pool_step
+    axes = sharding.batch_axes_for(mesh, kv_slots)
+    # slots the data axes do not divide stay whole on every rank: the MoE
+    # layers then route every row on every rank too
+    ctx = sharding.ShardingContext(mesh, rules=None if axes
+                                   else {"batch": None})
+    rows = ctx.split_rows(axes)
 
-    key = ("pool_decode", cfg, kv_slots, sample, temperature, mesh)
-    return _get(key if mesh is None else key + (max_len,), build)
+    def pool_step(params, toks: torch.Tensor, states: List[dict],
+                  generator: Optional[torch.Generator] = None):
+        with sharding.use(rows):
+            mine = sharding.my_rows(toks, mesh, axes)
+            out = forward(params, cfg, {"tokens": mine}, mode="decode",
+                          states=states, max_len=max_len)
+            logits = out["logits"]
+            if axes and sample:
+                logits = sharding.gather_rows(logits, mesh, axes)
+            tok = pick_tokens(logits, sample, temperature, generator)
+            if axes and not sample:
+                tok = sharding.gather_rows(tok, mesh, axes)
+        return tok, out["states"]
+
+    pool_step.sharding = ctx
+    return pool_step
 
 
 # ---------------------------------------------------------------------------

@@ -42,8 +42,9 @@ engine holds this rank's block of every weight
 mesh's ``ShardingContext``.  Every rank runs the same engine on the same
 requests and keeps the same host books.  A dense slot pool is cut
 (``launch.sharding.place_states``): slots over "data", each K/V ring's
-positions over "model"; a prefill runs on every rank and only the rank
-holding the slot keeps it (its slice of the rings), and a decode round
+positions and the mLSTM's ``C`` / ``n`` rows over "model"; a prefill
+runs on every rank and only the rank holding the slot keeps it (its
+slice of the rings), and a decode round
 computes each rank's own slots, its tokens all-gathered over "data".  A
 page pool stays whole on every rank, every lane on every rank (the
 reference cuts its pages over "data").  :meth:`placement_report` names

@@ -306,3 +306,91 @@ def checkpoint_rank(rank: int, cfg, params_file: str, batch_file: str,
     np.savez(os.path.join(out_dir, f"restored.{rank}.npz"), step=step,
              **{f"p{i}": p.numpy() for i, p in enumerate(tree_leaves(back))},
              **{f"m{i}": p.numpy() for i, p in enumerate(tree_leaves(mu))})
+
+
+def each(rank: int, calls) -> None:
+    """Every ``(fn, args)`` of ``calls`` on this rank in turn:
+    ``fn(rank, *args)``."""
+    for fn, args in calls:
+        fn(rank, *args)
+
+
+def recurrent_block_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, inputs file, mesh shape) case: ``cfg``'s layer
+    0 mixer (RG-LRU or mLSTM) on this rank's ``place_params`` block of
+    the file's params, inside the mesh's context and with no gradient:
+    the prompt's scan (RG-LRU: the time loop and the prefix scan) and
+    one decode step from the file's whole state, placed by
+    ``state_pspecs`` with the batch whole.  Writes the outputs and this
+    rank's states to ``out_dir/<name>.<rank>.npz``."""
+    from repro_torch.launch import sharding
+    from repro_torch.models import rglru, xlstm
+    meshes = {}
+    for name, cfg, inputs, shape in cases:
+        data = np.load(inputs)
+        p = {k[2:]: torch.from_numpy(data[k]) for k in data.files
+             if k.startswith("p:")}
+        st = {k[2:]: torch.from_numpy(data[k]) for k in data.files
+              if k.startswith("s:")}
+        mesh = _mesh_of(meshes, shape)
+        placed = sharding.place_params(mesh, {"mixer": p}, cfg)["mixer"]
+        spec = sharding.state_pspecs([st], mesh, batch_axes=None)
+        st = sharding.place_states(mesh, [st], spec)[0]
+        x, xt = (torch.from_numpy(data[k]) for k in ("x", "xt"))
+        out = {}
+        with torch.no_grad(), sharding.use(sharding.ShardingContext(mesh)):
+            if cfg.layer_pattern()[0].mixer == "rglru":
+                y, s = rglru.rglru_scan(placed, cfg, x)
+                ya, sa = rglru.rglru_scan(placed, cfg, x,
+                                          use_assoc_scan=True)
+                out.update(assoc=ya.numpy(), assoc_h=sa["h"].numpy())
+                y1, s1 = rglru.rglru_step(placed, cfg, xt, st)
+            else:
+                y, s = xlstm.mlstm_scan(placed, cfg, x)
+                y1, s1 = xlstm.mlstm_step(placed, cfg, xt, st)
+        out.update(scan=y.numpy(), step=y1.numpy(),
+                   **{f"scan_{k}": v.numpy() for k, v in s.items()},
+                   **{f"step_{k}": v.numpy() for k, v in s1.items()})
+        np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"), **out)
+
+
+def dry_count_rank(rank: int, cases, out_dir: str) -> None:
+    """For each (name, cfg, shape) case: rank 0's program of the dry run
+    (``launch.dryrun.rank_program``) on this real gloo mesh, on real
+    tensors of the dry run's shapes (zeros) and with the loop shortcut
+    off, under the counting pass; rank 0 writes its collective tallies
+    and its placed params' bytes to ``out_dir/<name>.json``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, sharding, specs
+    from repro_torch.roofline import analysis as ra
+    from repro_torch.train.optimizer import AdamWState
+    meshes = {}
+
+    def real(tree):
+        if isinstance(tree, torch.Tensor):
+            return torch.zeros(tree.shape, dtype=tree.dtype)
+        if isinstance(tree, AdamWState):
+            return AdamWState(*(real(t) for t in tree))
+        if isinstance(tree, dict):
+            return {k: real(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(real(v) for v in tree)
+        return tree
+
+    for name, cfg, shape, mesh_shape in cases:
+        mesh = _mesh_of(meshes, mesh_shape)
+        fake = FakeTensorMode()
+        args, kwargs, _ = specs.input_specs(cfg, shape, specs.MeshShape(
+            ("data", "model"), mesh_shape), fake)
+        args = real(args)
+        placed = sharding.place_params(mesh, args[0], cfg)
+        held = []
+        sharding._walk(placed, lambda _, t: held.append(
+            t.numel() * t.element_size()))
+        step, args = dryrun.rank_program(cfg, shape, mesh, args)
+        _, tallies = ra.count_ops(step, *args, shortcut=False, **kwargs)
+        if rank == 0:
+            with open(os.path.join(out_dir, f"{name}.json"), "w") as fh:
+                json.dump({"collectives": {k: v for k, v in tallies.items()
+                                           if k.startswith("c10d.")},
+                           "placed_bytes": sum(held)}, fh)

@@ -253,15 +253,30 @@ def test_main_path_tables_hold_phase_22s_shapes(monkeypatch):
 
 
 def test_roofline_bench_reads_the_dry_run(tmp_path):
+    """A 16 x 16 record (traced in a process of its own: the dry run
+    starts a fake process group of 256 ranks there) read back as one
+    row with its collective term."""
+    import os
+    import subprocess
+    import sys
     assert bench_roofline(str(tmp_path))[0].startswith(
         "roofline_1x1/missing,0,")
-    rec = dryrun.run_one("xlstm-350m", "decode_32k", "16x16", verbose=False)
-    with open(tmp_path / "torch_dryrun_16x16.jsonl", "w") as f:
-        f.write(json.dumps(rec) + "\n")
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "xlstm-350m", "--shape", "decode_32k", "--mesh", "16x16", "--out",
+         str(tmp_path / "torch_dryrun_16x16.jsonl")], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
     rows = bench_roofline(str(tmp_path))
     (row,) = [r for r in rows if r.startswith("roofline_16x16/")]
     assert row.startswith("roofline_16x16/xlstm-350m/decode_32k,")
-    assert ROW.match(row) and "collective=;" in row and "fits=1" in row
+    coll = re.search(r"collective=([^;]*);", row).group(1)
+    assert ROW.match(row) and float(coll) > 0 and "fits=1" in row
 
 
 def test_runner_writes_bench_files_and_trajectory(tmp_path, capsys,

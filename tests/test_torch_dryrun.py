@@ -377,39 +377,59 @@ def test_counting_pass_touches_no_storage():
 
 def test_cli_reanalyze_and_report(tmp_path, capsys):
     """One full-width combo through ``main`` on two meshes: the record's
-    terms under the H100 peaks, no collective term past one rank; the
-    saved tallies re-derive each record exactly; the report renders."""
-    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    terms under the H100 peaks; on 16 x 16 (in a process of its own: the
+    trace starts a fake process group there) rank 0's own FLOPs and a
+    collective term over NVLink; the saved tallies re-derive each record
+    exactly; the report renders."""
+    import os
+    import subprocess
+    import sys
+    from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16
     out = tmp_path / "torch_dryrun_1x1.jsonl"
     counts = tmp_path / "counts"
     dryrun.main(["--arch", "qwen2-1.5b", "--shape", "prefill_32k",
                  "--out", str(out), "--save-counts", str(counts),
                  "--tag", "t", "--set", "microbatches=4"])
     out16 = tmp_path / "torch_dryrun_16x16.jsonl"
-    dryrun.main(["--arch", "qwen2-1.5b", "--shape", "prefill_32k",
-                 "--mesh", "16x16", "--out", str(out16), "--save-counts",
-                 str(counts)])
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                       "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [src] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), OMP_NUM_THREADS="1")
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2-1.5b", "--shape", "prefill_32k", "--mesh", "16x16", "--out",
+         str(out16), "--save-counts", str(counts)], env=env,
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
     (one,) = report.load(str(out))
     (big,) = report.load(str(out16))
-    assert one["flops"] == big["flops"] and one["chips"] == 1
+    assert one["chips"] == 1
     assert one["compute_s"] == one["flops"] / PEAK_FLOPS_BF16
     assert one["memory_s"] == one["bytes"] / HBM_BW
     assert one["tag"] == "t" and one["overrides"] == {"microbatches": "4"}
-    assert big["chips"] == 256 and big["collective_bytes"] is None
-    assert big["collective_s"] is None and "A7c" in big["collective_note"]
+    assert big["chips"] == 256 and big["collective_bytes"] > 0
+    assert big["collective_s"] == big["collective_bytes"] / NVLINK_BW
+    assert big["collective_note"] == dryrun.RANK_ZERO
     assert big["argument_bytes"] < one["argument_bytes"]
-    assert big["compute_s"] == pytest.approx(one["compute_s"] / 256)
+    # rank 0 prefills 2 of the 32 rows (its "data" share): more than its
+    # 1 / 256 share of the work (qwen2's 12 heads do not divide 16 "model"
+    # ranks: it attends every head of its rows), less than its rows' all
+    assert one["flops"] / 256 < big["flops"] < one["flops"] / 16
+    assert big["flops_per_rank"] == big["flops"]
     re_recs = {r["mesh"]: r for r in
                (reanalyze.reanalyze_file(str(p))
                 for p in sorted(counts.glob("*.counts.json.gz")))}
     assert re_recs == {"1x1": one, "16x16": big}
     with gzip.open(next(counts.glob("*1x1*")), "rt") as f:
         assert json.load(f)["tallies"]["kernel.flash_attention"][0] == 28
+    (call,) = big["kernel_calls"]["flash_attention"]
+    assert json.loads(call)["shapes"][0] == [2, 12, 32768, 128]
     capsys.readouterr()
     report.main(["--results", str(tmp_path)])
     text = capsys.readouterr().out
     assert "| qwen2-1.5b | prefill_32k |" in text
-    assert "not counted" in text and "**compute**" in text
+    assert "rank 0" in text and "**compute**" in text
 
 
 def test_skipped_combo_is_recorded(tmp_path, monkeypatch):

@@ -12,13 +12,19 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist import _flat, placement_rank, run_ranks
+from _torch_dist import (_flat, each, placement_rank, run_ranks,
+                         train_step_rank)
 from _torch_parity import configs, params_pair
+from _torch_train import OPT, train_case
 from repro.kernels import ref as jref
 from repro.launch import sharding as jsh
+from repro_torch.configs import MoEConfig
+from repro_torch.core.optim import tree_leaves
 from repro_torch.kernels import decode_attention, ops, ref
-from repro_torch.launch import specs
+from repro_torch.launch import sharding, specs
+from repro_torch.models import moe
 from repro_torch.models.transformer import init_layer_states
+from repro_torch.train.steps import make_grad_step
 
 MESHES = [(1, 4), (2, 2), (4, 1)]
 SLOTS = 4
@@ -53,10 +59,11 @@ def _block(a: np.ndarray, spec, sizes, coords) -> np.ndarray:
 
 
 def _pool_spec(path, shape, sizes):
-    """The reference's spec of a ring leaf; a recurrent state or ``pos``
-    (the slot axis of the reference's pool) cut over "data" only."""
+    """The reference's spec of a ring leaf and of the mLSTM's ``C`` /
+    ``n`` (rows over "model"); another recurrent state or ``pos`` (the
+    slot axis of the reference's pool) cut over "data" only."""
     name = path[-1]
-    if name in _RINGS:
+    if name in _RINGS or name in ("C", "n"):
         return jsh._state_leaf_spec(path, shape, "data", sizes)
     spec = [None] * len(shape)
     if shape and shape[0] % sizes["data"] == 0:
@@ -129,6 +136,79 @@ def test_each_rank_holds_its_blocks_and_their_bytes(tmp_path):
                     held += block.nbytes
             assert held == want_bytes, f"{key} rank {r}: {held} bytes " \
                                        f"placed, the dry run {want_bytes}"
+
+
+# MoE configs for the experts' "data" cut, with capacity for every token
+# and no balance term (the whole batch's function on any split): mixtral
+# with 2 experts (on 4 "model" ranks the experts' FFN columns split too,
+# so "data" cuts we_down's d) and dbrx with 4 (expert-parallel: "data"
+# cuts we_down's f)
+MOE = {"mixtral_e2": ("mixtral-8x22b", MoEConfig(
+           num_experts=2, top_k=1, capacity_factor=2.0,
+           router_aux_weight=0.0)),
+       "dbrx_e4": ("dbrx-132b", MoEConfig(
+           num_experts=4, top_k=2, capacity_factor=2.0,
+           router_aux_weight=0.0))}
+
+
+def test_moe_experts_are_cut_over_data_too(tmp_path):
+    """On each mesh, every rank's expert blocks are the hoisted layout's
+    block cut over "data" on the reference's FSDP dim (``sharding.
+    expert_data_dim``: d for ``we_up`` / ``we_gate``; f for ``we_down``
+    where "model" leaves f whole, else d); the rank's placed bytes of
+    every leaf equal the dry run's ``argument_bytes`` under
+    ``param_pspecs``; ``unplace_params`` round-trips; and a train step's
+    gradients on the placed params, gathered whole, equal the meshless
+    step's within 1e-5 of each leaf's largest."""
+    place_cases, step_cases, want = [], [], {}
+    for name, (arch, moe_cfg) in MOE.items():
+        _, tcfg, _, tp, _, tb = train_case(arch, batch=4, moe=moe_cfg)
+        pf, bf = (str(tmp_path / f"{name}.{k}.pt") for k in ("p", "b"))
+        torch.save(tp, pf)
+        torch.save(tb, bf)
+        grads, _ = make_grad_step(tcfg)(tp, tb)
+        for D, M in MESHES:
+            key = f"{name}_{D}x{M}"
+            place_cases.append((key, tcfg, pf, (D, M), SLOTS, 16))
+            step_cases.append((f"step_{key}", tcfg, pf, bf, (D, M), OPT))
+        want[name] = (tcfg, [g.numpy() for g in tree_leaves(grads)])
+    run_ranks(each, 4, tmp_path, [
+        (placement_rank, (place_cases, str(tmp_path))),
+        (train_step_rank, (step_cases, str(tmp_path)))])
+    cut_dims = set()
+    for name, (tcfg, grads) in want.items():
+        for D, M in MESHES:
+            key = f"{name}_{D}x{M}"
+            mesh = specs.MeshShape(("data", "model"), (D, M))
+            p_fake, p_spec = specs.param_specs(tcfg, mesh)
+            _, want_bytes = specs.argument_bytes(p_fake, p_spec, mesh)
+            _, _, r_exp, f_lp = moe._layout_dims(tcfg, M)
+            for r in range(4):
+                got = np.load(tmp_path / f"{key}.{r}.npz")
+                assert bool(got["roundtrip"]), f"{key} rank {r}"
+                held = sum(got[k].nbytes for k in got.files
+                           if k.startswith("p:"))
+                assert held == want_bytes, f"{key} rank {r}: {held} B " \
+                                           f"placed, dry run {want_bytes}"
+                for leaf in ("we_up", "we_down"):
+                    block = got[f"p:layers/0/ffn/{leaf}"]
+                    whole = ((1, r_exp, f_lp, tcfg.d_model)
+                             if leaf == "we_down"
+                             else (1, r_exp, tcfg.d_model, f_lp))
+                    dim = sharding.expert_data_dim(leaf, tcfg, mesh)
+                    assert dim is not None, key
+                    cut = list(whole)
+                    cut[dim] //= D
+                    assert block.shape == tuple(cut), f"{key} {leaf}"
+                    cut_dims.add((leaf, "d" if (dim == 3) == (
+                        leaf == "we_down") else "f"))
+                step = np.load(tmp_path / f"step_{key}.{r}.npz")
+                for i, g in enumerate(grads):
+                    err = float(np.abs(step[f"g{i}"] - g).max())
+                    # (the top-1 router's gradient is 0 up to rounding)
+                    assert err <= 1e-5 * float(np.abs(g).max()) + 1e-8, \
+                        f"{key} rank {r} grad {i}: {err:.2e}"
+    assert cut_dims == {("we_up", "d"), ("we_down", "d"), ("we_down", "f")}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

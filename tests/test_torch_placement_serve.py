@@ -120,20 +120,23 @@ def test_mesh_engines_serve_the_reference_tokens(tmp_path):
     assert rep["embed"]["embed"] == "model=vocab data=gathered"
     layer = rep["layers.0"]
     assert layer["wq"] == "data=gathered model=tp"      # 4 heads over 4
+    assert layer["heads"] == "model=tp"                 # 1 query head each
     assert layer["wk"] == "data=gathered model=gathered"   # 2 KV heads
     assert layer["wo"] == "model=tp data=gathered"
     assert layer["w_up"] == "data=gathered model=tp"
     mid = _report(tmp_path, "qwen2_h2_1x4", 0)["layers.1"]  # 2 over 4
     assert mid["wq"] == mid["wk"] == "data=gathered model=gathered"
     assert mid["wo"] == "model=gathered data=gathered"
+    assert mid["heads"] == "model=gathered"
     assert _report(tmp_path, "qwen2_h2_2x2", 0)["layers.1"]["wq"] == \
         "data=gathered model=tp"                        # 2 heads over 2
     for mesh, ring in (("1x4", "model=split"), ("2x2", "model=split"),
                        ("4x1", "model=split")):
         rg = _report(tmp_path, f"rg_cut_{mesh}", 0)
         assert rg["layers.2"]["kv_ring"] == ring
-        assert "model=gathered" in rg["layers.0"]["w_in"]
-        assert "model=gathered" in rg["layers.0"]["w_out"]
+        # the RG-LRU block is tensor-parallel: its channels on each rank
+        assert "model=tp" in rg["layers.0"]["w_in"]
+        assert "model=tp" in rg["layers.0"]["w_out"]
     assert _report(tmp_path, "rg_whole_1x4", 0)["layers.2"]["kv_ring"] == \
         "whole"                                          # 41 over 4
     xl = _report(tmp_path, "xlstm_2x2", 3)

@@ -29,6 +29,8 @@ from repro.configs import reduced as jax_reduced
 from repro.models import moe as jmoe
 from repro_torch.configs import MoEConfig, get_config, reduced
 from repro_torch.core.optim import tree_leaves
+from repro_torch.launch import sharding
+from repro_torch.launch.specs import MeshShape
 from repro_torch.models import moe
 from repro_torch.train import optimizer as opt
 from repro_torch.train.steps import make_grad_step, make_train_step
@@ -131,6 +133,17 @@ def _check_layer(key, want, tmp_path, world):
             if placed:
                 want_k = moe.expert_block(full, tcfg, M, j,
                                           rows=k == "we_down").numpy()
+                # the block is the rank's slice over "data" too (D4);
+                # like any leaf cut over "data" it carries the sum of the
+                # "data" ranks' objectives' gradients, and here each
+                # rank's objective is the whole one: D times the slice
+                dim = sharding.expert_data_dim(
+                    k, tcfg, MeshShape(("data", "model"), (D, M)))
+                if dim is not None:
+                    size = want_k.shape[dim - 1] // D
+                    want_k = D * np.take(want_k, range((r // M) * size,
+                                                       (r // M + 1) * size),
+                                         axis=dim - 1)
                 got_k = got[k][0]
             else:
                 want_k, got_k = grads[k], got[k]
