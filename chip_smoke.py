@@ -195,8 +195,9 @@ Phases, in order; the script exits non-zero at the first that fails:
    recurrentgemma-9b (dense) at published width and depth in bf16
    through ``build_sharded_engine``: 8 and 4 greedy requests with the
    tokens of a meshless engine on the same weights, no KV held, exact
-   launches (23c: both new entries = attention layers x decode rounds
-   with the warm-up), placed bytes = the dry run's argument bytes for
+   launches (both: a split-only entry and the merge = attention layers
+   x decode rounds with the warm-up), placed bytes (the page pool's
+   block or the rings included) = the dry run's argument bytes for
    the same mesh, and a decode round's host and device ms with the mesh
    and without; 23d a reduced qwen2-1.5b train step (f32) on placed
    params = the meshless step within 1e-5;
@@ -219,6 +220,19 @@ Phases, in order; the script exits non-zero at the first that fails:
    CUDA tensors (the fake collectives move nothing): placed bytes = the
    dry run's, device time against the dry run's compute and memory
    terms (bound / measured <= 1.05), ``flash_attention`` = layers;
+25. the paged pool cut into page blocks over the data ranks, as the
+   reference places it: 25a ``paged_flash_decode``'s split-only entry
+   (``ops.paged_flash_decode_partials``) then ``decode_merge`` at phase
+   2's serve shape, 8 lanes of 2048 tokens and the dbrx-132b round, bf16
+   and f32: over one page block bit for bit the one-call kernel's
+   output, over 4 blocks (each rank's partials on the card in turn,
+   through its compacted table) the plain decode's within the tolerance,
+   a planted fault (one rank's partials dropped) above it, each pass's
+   time beside its bound and the plain version's; 25b rank 0 of 16 x 16
+   under a fake group over CUDA tensors: a qwen2-1.5b paged engine at
+   published width and depth with 1024 pages holds 64 of them, bytes =
+   the dry run's count, 1/16 of the whole pool (23b and 20c now run the
+   split pass and the merge over the 1 x 1 mesh's one page block);
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -1573,7 +1587,8 @@ def _closed_loop_launches(rec: dict) -> dict:
                                    for e in paged),
             "ladn_denoise": (CL_REQUESTS + 1 if rec["scheduler"] == "lad-ts"
                              else 0),
-            "flash_decode": 0, "flash_decode_partials": 0, "decode_merge": 0}
+            "flash_decode": 0, "flash_decode_partials": 0, "decode_merge": 0,
+            "paged_flash_decode_partials": 0}
 
 
 def phase_closed_loop() -> dict:
@@ -2044,7 +2059,8 @@ def _paged_launches(engines: list) -> dict:
             "flash_attention": sum(e["layers"] * e["prefills"]
                                    for e in paged),
             "ladn_denoise": 0, "flash_decode": 0,
-            "flash_decode_partials": 0, "decode_merge": 0}
+            "flash_decode_partials": 0, "decode_merge": 0,
+            "paged_flash_decode_partials": 0}
 
 
 def phase_chaos_serve() -> dict:
@@ -2563,10 +2579,11 @@ def phase_moe_serve(arch: str) -> dict:
         fail(f"{label}: the engine holds {eng.kv_leak} slots or pages idle")
     prefills, rounds = eng.prefills + warm[0], eng.decode_rounds + warm[1]
     n = MOE_LAYERS
-    # the dense engine's rings are cut over the mesh's one "model" rank:
-    # a round is the split pass and the merge pass, apart
-    decode_kernels = (("paged_flash_decode",) if eng.paged
-                      else ("flash_decode_partials", "decode_merge"))
+    # the dense engine's rings are cut over the mesh's one "model" rank,
+    # the paged engine's pool into one page block over its one "data"
+    # rank: a round is the split pass and the merge pass, apart
+    decode_kernels = (("paged_flash_decode_partials" if eng.paged
+                       else "flash_decode_partials"), "decode_merge")
     want = {"flash_attention": n * prefills,
             **{k: n * rounds for k in decode_kernels}}
     for k, v in launches.items():
@@ -2577,10 +2594,13 @@ def phase_moe_serve(arch: str) -> dict:
     if moe.collectives["all_reduce"] == 0:
         fail(f"{label}: the MoE layers issued no collective on the mesh")
     # phase 24a: the placed blocks (the experts' hoisted block, the dense
-    # pool's rings) are the dry run's argument bytes
-    placed = _placed_bytes(eng.params, None if eng.paged
+    # pool's rings or the page pool's block) are the dry run's argument
+    # bytes
+    placed = _placed_bytes(eng.params, eng._paged_states if eng.paged
                            else eng._pool_states)
-    dry = _dry_bytes(cfg, "1x1", 0 if eng.paged else MOE_SLOTS, max_len)
+    dry = _dry_bytes(cfg, "1x1", MOE_SLOTS, max_len,
+                     pages=eng.num_pages if eng.paged else 0,
+                     page_size=eng.page_size)
     if placed != dry:
         fail(f"{label}: placed bytes {placed} != the dry run's argument "
              f"bytes {dry}")
@@ -3098,7 +3118,8 @@ def phase_tooling_tablev(card: str) -> dict:
                 "flash_attention": sum(e["layers"] * e["prefills"]
                                        for e in r["engines"]),
                 "ladn_denoise": 0, "flash_decode": 0,
-                "flash_decode_partials": 0, "decode_merge": 0}
+                "flash_decode_partials": 0, "decode_merge": 0,
+                "paged_flash_decode_partials": 0}
         if r["launches"] != want:
             fail(f"22c: {r['mode']} N={r['requests']}: launches "
                  f"{r['launches']}, the run implies {want}")
@@ -3314,34 +3335,50 @@ def phase_split_kernels() -> dict:
     return rows
 
 
+_KV_LEAVES = ("k", "v", "k_scale", "v_scale", "k_pages", "v_pages")
+
+
 def _placed_bytes(placed, states=None) -> int:
+    """Bytes of a rank's placed params and of the K/V leaves of its
+    slot pool or page pool block."""
     n = _tree_bytes(placed)
     for layer in states or []:
         n += sum(t.numel() * t.element_size() for k, t in layer.items()
-                 if k in ("k", "v", "k_scale", "v_scale"))
+                 if k in _KV_LEAVES)
     return n
 
 
-def _dry_bytes(cfg, mesh_tag: str, slots: int = 0, max_len: int = 0) -> int:
-    """One rank's argument bytes of ``cfg``'s params (and, with
-    ``slots``, a dense pool's K/V rings) as the dry run counts them."""
+def _dry_bytes(cfg, mesh_tag: str, slots: int = 0, max_len: int = 0,
+               pages: int = 0, page_size: int = 0,
+               params: bool = True) -> int:
+    """One rank's argument bytes of ``cfg``'s params (unless not
+    ``params``), and, with ``slots``, a dense pool's K/V rings or, with
+    ``pages``, a page pool of ``pages`` x ``page_size``, as the dry run
+    counts them (each leaf cut by ``state_pspecs``)."""
+    import torch
     from repro_torch.launch import sharding, specs
-    from repro_torch.models.transformer import init_layer_states
+    from repro_torch.models.transformer import (init_layer_states,
+                                                init_paged_states)
     from torch._subclasses.fake_tensor import FakeTensorMode
     mesh = specs.mesh_shape(mesh_tag)
     fake = FakeTensorMode()
-    p, p_spec = specs.param_specs(cfg, mesh, fake)
-    args, sp = [p], [p_spec]
-    if slots:
-        import torch
-        with fake:
-            st = init_layer_states(cfg, slots, max_len, torch.device("cpu"))
-        s_spec = sharding.state_pspecs(st, mesh)
-        keep = ("k", "v", "k_scale", "v_scale")
-        args.append([{k: t for k, t in layer.items() if k in keep}
-                     for layer in st])
-        sp.append([{k: t for k, t in layer.items() if k in keep}
-                   for layer in s_spec])
+    args, sp = [], []
+    if params:
+        p, p_spec = specs.param_specs(cfg, mesh, fake)
+        args, sp = [p], [p_spec]
+    cpu = torch.device("cpu")
+    with fake:
+        if pages:
+            st = init_paged_states(cfg, pages, page_size, cpu)
+        elif slots:
+            st = init_layer_states(cfg, slots, max_len, cpu)
+        else:
+            st = []
+    s_spec = sharding.state_pspecs(st, mesh)
+    args.append([{k: t for k, t in layer.items() if k in _KV_LEAVES}
+                 for layer in st])
+    sp.append([{k: t for k, t in layer.items() if k in _KV_LEAVES}
+               for layer in s_spec])
     return specs.argument_bytes(args, sp, mesh)[1]
 
 
@@ -3399,13 +3436,12 @@ def _placement_serve(label, arch, paged, n_req, plen, max_len, slots):
         fail(f"{label}: mesh tokens differ from the meshless engine's at "
              f"(request, step) {bad[:4].tolist()}")
     launches, prefills, rounds, coll = launched["mesh"]
-    if paged:
-        want = {"flash_attention": n_attn * prefills,
-                "paged_flash_decode": n_attn * rounds}
-    else:
-        want = {"flash_attention": n_attn * prefills,
-                "flash_decode_partials": n_attn * rounds,
-                "decode_merge": n_attn * rounds}
+    # a round is the split pass and the merge pass apart: over the 1 x 1
+    # mesh's one page block, or the ring cut over its one "model" rank
+    want = {"flash_attention": n_attn * prefills,
+            ("paged_flash_decode_partials" if paged
+             else "flash_decode_partials"): n_attn * rounds,
+            "decode_merge": n_attn * rounds}
     want = {k: v for k, v in want.items() if v}      # xLSTM: no attention
     if {k: v for k, v in launches.items() if v} != want:
         fail(f"{label}: launches {launches}, expected {want} ({n_attn} "
@@ -3414,9 +3450,11 @@ def _placement_serve(label, arch, paged, n_req, plen, max_len, slots):
     if not (coll["all_gather"] > 0 and coll["all_reduce"] > 0):
         fail(f"{label}: the mesh run issued collectives {coll}")
     report = eng.placement_report()
-    placed = _placed_bytes(eng.params, None if paged else
+    placed = _placed_bytes(eng.params, eng._paged_states if paged else
                            eng._pool_states)
-    dry = _dry_bytes(cfg, "1x1", 0 if paged else slots, max_len)
+    dry = _dry_bytes(cfg, "1x1", slots, max_len,
+                     pages=eng.num_pages if paged else 0,
+                     page_size=eng.page_size)
     if placed != dry:
         fail(f"{label}: placed bytes {placed} != the dry run's argument "
              f"bytes {dry}")
@@ -3641,6 +3679,210 @@ def phase_rank_program(card: str, rec: dict) -> dict:
             "argument_bytes": held, "launches": launches, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the paged pool cut into page blocks over the data ranks
+# ---------------------------------------------------------------------------
+
+# paged_flash_decode's split pass alone at phase 2's serve shape, 8 lanes
+# of 2048 tokens and the dbrx-132b round, over 4 page blocks as 4 data
+# ranks would hold them
+PAGED_CUT_SHAPES = ("serve", "long_2048", "dbrx_round")
+PAGED_CUT_RANKS = 4
+# 25b: a qwen2-1.5b engine's pool of 1024 pages (16 x 64) on 16 x 16
+PAGED_CUT_PAGES = 1024
+
+
+def _paged_split_bound(q, kp, tables, lens, n: int, dt: str):
+    """(partials bound, merge bound) of the paged split pass and the
+    merge at one call's inputs: each input read once (q, the K/V rows of
+    the valid positions, the table, the lengths), each output written
+    once (the f32 partials; the merge's output), at HBM rate, or the
+    arithmetic at the dtype's peak (as ``_split_bound``)."""
+    B, H, hd = q.shape
+    KV, ps = kp.shape[1], kp.shape[2]
+    G, W = H // KV, tables.shape[1]
+    elem = q.element_size()
+    valid = int(sum(min(int(x), W * ps) for x in lens.tolist()))
+    part_out = B * KV * n * G * (hd + 2) * 4
+    part = bound(B * H * hd * elem + 2 * valid * KV * hd * elem
+                 + tables.numel() * 4 + 4 * B + part_out,
+                 4 * valid * H * hd, dt)
+    merge = bound(part_out + B * H * hd * elem,
+                  B * KV * n * G * (2 * hd + 3), "float32")
+    return part, merge
+
+
+def phase_paged_cut_kernels() -> dict:
+    """25a. ``paged_flash_decode_partials`` then ``decode_merge`` at
+    ``PAGED_CUT_SHAPES`` in bf16 and f32: over one page block (the
+    table compacted by ``attention._owned_table``, as the 1 x 1 mesh
+    runs it) the merged output equals the one-call ``paged_flash_decode``
+    bit for bit; over ``PAGED_CUT_RANKS`` blocks (the pool padded to a
+    multiple of them, each rank's partials on the card in turn,
+    concatenated) it is the plain decode's within ``TOL`` on live lanes
+    and zero on idle ones; dropping one rank's partials must break that
+    (a planted fault).  Each pass's time (CUDA-graph replay), its plain
+    version's and its bound."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    rows = {}
+    for shape in PAGED_CUT_SHAPES:
+        spec = PAGED_SHAPES[shape]
+        Bs, Hs, KVs, hd, ps, Ps, Ws, _ = spec
+        for dt in ("bfloat16", "float32"):
+            tol = TOL[dt]
+            q, kp, vp, tables, lens = paged_decode_case(spec,
+                                                        getattr(torch, dt))
+            per, n = da.split_plan(Bs, KVs, Ws * ps, ps)
+            table, length = attention._owned_table(tables, lens, ps, 0, Ps)
+            acc, m, l = da.paged_flash_decode_partials(q, kp, vp, table,
+                                                       length)
+            two = da.decode_merge(acc, m, l, q.dtype)
+            one = da.paged_flash_decode(q, kp, vp, tables, lens)
+            torch.cuda.synchronize()
+            if not torch.equal(two, one):
+                fail(f"25a {shape} {dt}: one page block's partials merged "
+                     f"differ from the one-call kernel by "
+                     f"{(two.float() - one.float()).abs().max().item():.3e}")
+            pa, pm, pl = ref.paged_decode_partials_ref(
+                q, kp, vp, table, length, per_split=per, n_splits=n)
+            if not torch.equal(torch.isinf(m), torch.isinf(pm)):
+                fail(f"25a {shape} {dt}: the empty partials differ from the "
+                     f"plain version's")
+            err_acc = (acc - pa).abs().max().item()
+            if not err_acc <= tol * max(pa.abs().max().item(), 1.0):
+                fail(f"25a {shape} {dt}: partials differ from the plain "
+                     f"version's by {err_acc:.3e}")
+            # the pool dealt to PAGED_CUT_RANKS ranks by page block
+            D = PAGED_CUT_RANKS
+            pad = -Ps % D
+            kq = torch.cat([kp, kp.new_zeros((pad,) + kp.shape[1:])])
+            vq = torch.cat([vp, vp.new_zeros((pad,) + vp.shape[1:])])
+            Pl = (Ps + pad) // D
+            lanes = torch.clamp(lens, max=Ws * ps)
+            parts, held = [], []
+            for d in range(D):
+                tb, ln = attention._owned_table(tables, lanes, ps, d * Pl, Pl)
+                parts.append(da.paged_flash_decode_partials(
+                    q, kq[d * Pl:(d + 1) * Pl], vq[d * Pl:(d + 1) * Pl], tb,
+                    ln))
+                held.append(int(ln.sum()))
+            want = ref.paged_decode_ref(q, kp, vp, tables, lens).float()
+            live = lens > 0
+
+            def merged(ps_):
+                a, m_, l_ = (torch.cat([p_[i] for p_ in ps_], 2)
+                             for i in range(3))
+                return da.decode_merge(a, m_, l_, q.dtype).float()
+
+            out = merged(parts)
+            err = (out[live] - want[live]).abs().max().item()
+            if not (err <= tol and not out[~live].any()):
+                fail(f"25a {shape} {dt}: {D} page blocks merged differ from "
+                     f"the plain decode by {err:.3e} (tol {tol:.0e}), idle "
+                     f"lanes zero {not out[~live].any()}")
+            drop = max(range(D), key=lambda d: held[d])
+            fault = (merged(parts[:drop] + parts[drop + 1:])[live]
+                     - want[live]).abs().max().item()
+            if not fault > tol:
+                fail(f"25a {shape} {dt}: rank {drop}'s partials dropped, "
+                     f"yet the merge is within {fault:.3e} of the plain "
+                     f"decode")
+            times = {
+                "partials_ms": time_ms(lambda: da.paged_flash_decode_partials(
+                    q, kp, vp, table, length)),
+                "merge_ms": time_ms(lambda: da.decode_merge(acc, m, l,
+                                                            q.dtype)),
+                "one_call_ms": time_ms(lambda: da.paged_flash_decode(
+                    q, kp, vp, tables, lens)),
+                "table_eager_ms": eager_ms(lambda: attention._owned_table(
+                    tables, lens, ps, 0, Ps)),
+                "plain_partials_ms": time_ms(
+                    lambda: ref.paged_decode_partials_ref(
+                        q, kp, vp, table, length, per_split=per,
+                        n_splits=n), iters=10, reps=3),
+                "plain_merge_ms": time_ms(lambda: ref.decode_merge_ref(
+                    acc, m, l, q.dtype), iters=10, reps=3)}
+            (pb, pby), (mb, mby) = _paged_split_bound(q, kp, tables, lens,
+                                                      n, dt)
+            rows[f"{shape}_{dt}"] = {
+                "shape": {"B": Bs, "H": Hs, "KV": KVs, "hd": hd, "ps": ps,
+                          "P": Ps, "W": Ws, "lens": list(spec[7]),
+                          "dtype": dt, "n_splits": n, "per_split": per},
+                "max_abs_err": err, "partials_err": err_acc,
+                "fault_err": fault, "ranks": D, "rank_positions": held,
+                **times, "partials_bound_ms": pb, "partials_bound_by": pby,
+                "merge_bound_ms": mb, "merge_bound_by": mby}
+            log(f"  25a {shape} {dt} ({n} splits of {per}): one block = the "
+                f"one-call kernel bit for bit; {D} blocks (positions "
+                f"{held}) = plain to {err:.2e}, one dropped {fault:.2e}; "
+                f"partials {times['partials_ms']:.4f} ms (plain "
+                f"{times['plain_partials_ms']:.4f}, bound {pb:.6f} {pby}), "
+                f"merge {times['merge_ms']:.4f} (plain "
+                f"{times['plain_merge_ms']:.4f}, bound {mb:.6f} {mby}), "
+                f"compacted table {times['table_eager_ms']:.4f} (eager), "
+                f"one call "
+                f"{times['one_call_ms']:.4f}")
+            del q, kp, vp, kq, vq, parts, acc, pa
+            torch.cuda.empty_cache()
+    log("phase 25a ok: the paged split-only entry and the merge = the "
+        "one-call kernel over one page block and the plain decode over "
+        f"{PAGED_CUT_RANKS}")
+    return rows
+
+
+def phase_paged_cut_rank(card: str) -> dict:
+    """25b. Rank 0 of 16 x 16 under a fake process group over CUDA
+    tensors: a qwen2-1.5b paged engine at published width and depth in
+    bf16 with ``PAGED_CUT_PAGES`` pages, its pool built (no round runs:
+    the fake collectives move nothing).  Its block is 1/16 of the pool,
+    and its placed params and pool are the dry run's argument bytes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, sharding
+    from repro_torch.launch.specs import mesh_shape
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import ServeEngine
+    dev = torch.device("cuda")
+    cfg = get_config(QWEN)
+    t0 = time.perf_counter()
+    with dryrun.rank_zero(mesh_shape(RANK_MESH), device=dev) as mesh:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(25),
+                             dev)
+        eng = ServeEngine(cfg, params, max_len=2048, kv_slots=8,
+                          num_pages=PAGED_CUT_PAGES, mesh=mesh, device=dev,
+                          arch_id=QWEN)
+        del params
+        eng._ensure_paged_states()
+        block = sharding.page_block(mesh, PAGED_CUT_PAGES)
+        pool = _placed_bytes({}, eng._paged_states)
+        placed = _placed_bytes(eng.params, eng._paged_states)
+        del eng
+    _free_card()
+    D = mesh.shape["data"]
+    whole = _dry_bytes(cfg, "1x1", pages=PAGED_CUT_PAGES, page_size=16,
+                       params=False)
+    dry_pool = _dry_bytes(cfg, RANK_MESH, pages=PAGED_CUT_PAGES,
+                          page_size=16, params=False)
+    dry = _dry_bytes(cfg, RANK_MESH, pages=PAGED_CUT_PAGES, page_size=16)
+    if not (block == (0, PAGED_CUT_PAGES // D) and pool == dry_pool
+            and pool * D == whole and placed == dry):
+        fail(f"25b: rank 0 holds pages {block} of {PAGED_CUT_PAGES}, pool "
+             f"{pool} B (the dry run's {dry_pool} B, the whole pool "
+             f"{whole} B over {D} data ranks), placed {placed} B (the dry "
+             f"run's {dry} B)")
+    log(f"phase 25b ok: {QWEN} paged engine at published width and depth "
+        f"on rank 0 of {RANK_MESH} ({card}; fake collectives): pages "
+        f"{block[0]}..{block[0] + block[1] - 1} of {PAGED_CUT_PAGES}, pool "
+        f"{pool} B = the dry run's = 1/{D} of {whole} B; params and pool "
+        f"{placed} B = the dry run's argument bytes "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"pages": block[1], "pool_bytes": pool, "whole_pool_bytes": whole,
+            "placed_bytes": placed, "dry_run_bytes": dry}
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -3726,6 +3968,12 @@ def main() -> None:
     rank["24c"] = phase_rank_program(card, rank_recs[(LLAVA, "prefill_32k")])
     rank["seconds"] = time.perf_counter() - t24
     log(f"phase 24 ok in {rank['seconds']:.1f} s ({card})")
+    t25 = time.perf_counter()
+    cut = {"25a": phase_paged_cut_kernels()}
+    _free_card()
+    cut["25b"] = phase_paged_cut_rank(card)
+    cut["seconds"] = time.perf_counter() - t25
+    log(f"phase 25 ok in {cut['seconds']:.1f} s ({card})")
 
     def tooling(name):
         """Phase 22's launches of one kernel, and its 22b rows."""
@@ -3859,6 +4107,9 @@ def main() -> None:
             # phase 23c's mesh run (recurrentgemma-9b, warm-up included)
             "launches": place["23c"]["launches"][name],
             "launches_moe": by_moe_arch(name),
+            # the merge also ends each paged round of phase 23b's run
+            **({"launches_paged": place["23b"]["launches"][name]}
+               if name == "decode_merge" else {}),
             "max_abs_err": max(r["max_abs_err"][what] if isinstance(
                 r["max_abs_err"], dict) else r["max_abs_err"]
                 for r in place["23a"].values()),
@@ -3868,6 +4119,24 @@ def main() -> None:
             "one_call_ms": split["one_call_ms"],
             "shapes": {k: v for k, v in place["23a"].items()},
             "check": "ok"})
+    pcut = cut["25a"]["serve_bfloat16"]
+    kernels.append({
+        "name": "paged_flash_decode_partials", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:220",
+        # phase 23b's mesh run (qwen2-1.5b, warm-up included)
+        "launches": place["23b"]["launches"][
+            "paged_flash_decode_partials"],
+        "launches_moe": by_moe_arch("paged_flash_decode_partials"),
+        "max_abs_err": max(r["max_abs_err"] for k, r in cut["25a"].items()
+                           if k.endswith("bfloat16")),
+        "max_abs_err_f32": max(r["max_abs_err"] for k, r in
+                               cut["25a"].items() if k.endswith("float32")),
+        "ms": pcut["partials_ms"], "plain_ms": pcut["plain_partials_ms"],
+        "bound_ms": pcut["partials_bound_ms"],
+        "bound_by": pcut["partials_bound_by"], "library_ms": None,
+        "merge_ms": pcut["merge_ms"], "one_call_ms": pcut["one_call_ms"],
+        "shapes": cut["25a"], "check": "ok"})
     log("phase 20: " + json.dumps({"moe_layer": moe_layer, "moe_serve": {
         a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
                               "prefill_flips", "prefill_rel_f32")}
@@ -3879,6 +4148,8 @@ def main() -> None:
                                    if k != "23a"}))
     log("phase 24: " + json.dumps({k: v for k, v in rank.items()
                                    if k != "24b"}))
+    log("phase 25: " + json.dumps({k: v for k, v in cut.items()
+                                   if k != "25a"}))
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

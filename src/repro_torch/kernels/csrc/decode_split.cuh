@@ -16,10 +16,12 @@
 //       out = sum_s exp(m_s - M) * acc_s / sum_s exp(m_s - M) * l_s,
 //     M = max_s m_s, and never reads the partial of a split that returned
 //     early (its memory is uninitialised).  A lane of length 0 writes zeros.
-// flash_decode.cu also launches each pass alone, for a ring cut along its
-// positions over several ranks: the split kernel with kEmpty, which leaves
-// an empty partial (m = -inf, l = 0, acc = 0) for every split it skips, and
-// the merge with kAll, which reads every partial it is given.
+// Each pass also launches alone, for a cache cut over several ranks (a
+// ring along its positions in flash_decode.cu, a page pool by page blocks
+// in paged_decode.cu): the split kernel with kEmpty, which leaves an empty
+// partial (m = -inf, l = 0, acc = 0) for every split it skips, and the
+// merge with kAll (flash_decode.cu's entry, for both), which reads every
+// partial it is given.
 //
 // Inside a split block K/V come in 32-position tiles by 16-byte cp.async
 // straight into shared memory in the cache's own type (rows padded by 16
@@ -563,6 +565,31 @@ __device__ __forceinline__ void merge_body(const Params& p) {
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
+
+// The split pass alone (a kEmpty split kernel: the partials of one rank's
+// part of a cache cut over several ranks), on one stream; *configured as
+// for launch_pair below.
+template <typename SplitKernel>
+int launch_split(SplitKernel split_kernel, size_t* configured,
+                 const Params& p, int B, int elem, cudaStream_t stream) {
+  if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
+      p.hd > kMaxHeadDim || p.per_split <= 0 || p.n_splits <= 0 ||
+      p.n_splits > 65535 ||
+      (long long)p.per_split * p.n_splits < p.n_positions) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = layout(p.hd, elem, stages_for(p.per_split)).total;
+  if (smem > *configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    *configured = smem;
+  }
+  const int tiles_g = (p.G + kRows - 1) / kRows;
+  split_kernel<<<dim3(B * p.KV * tiles_g, p.n_splits), kThreads, smem,
+                 stream>>>(p);
+  return (int)cudaGetLastError();
+}
 
 // The split and merge launches of one call, on one stream.  split_kernel
 // needs layout(...).total bytes of dynamic shared memory; *configured is

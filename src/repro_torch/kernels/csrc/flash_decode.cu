@@ -101,28 +101,8 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 template <typename T>
 int launch_partials(const Params& p, int B, cudaStream_t stream) {
   static size_t configured = 48 * 1024;
-  if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
-      p.hd > decode_split::kMaxHeadDim || p.per_split <= 0 ||
-      p.n_splits <= 0 || p.n_splits > 65535 ||
-      (long long)p.per_split * p.n_splits < p.n_positions) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem =
-      decode_split::layout(p.hd, sizeof(T),
-                           decode_split::stages_for(p.per_split))
-          .total;
-  if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_partials_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = smem;
-  }
-  const int tiles_g = (p.G + decode_split::kRows - 1) / decode_split::kRows;
-  flash_decode_partials_kernel<T>
-      <<<dim3(B * p.KV * tiles_g, p.n_splits), decode_split::kThreads, smem,
-         stream>>>(p);
-  return (int)cudaGetLastError();
+  return decode_split::launch_split(flash_decode_partials_kernel<T>,
+                                    &configured, p, B, sizeof(T), stream);
 }
 
 template <typename T>

@@ -47,9 +47,16 @@
 // an upper bound).  What is left is latency: two dependent launches, and
 // three or four dependent trips to memory a block.
 //
+// A pool cut over the data ranks of a mesh (models/attention.py
+// paged_decode) takes the two passes apart: each rank runs the split pass
+// alone over its block of pages (repro_paged_decode_partials, through a
+// compacted table of the lane's pages in that block), the partials are
+// all-gathered over the data ranks, and flash_decode.cu's merge pass alone
+// (repro_decode_merge) combines every rank's.
+//
 // Built by repro_torch/kernels/decode_attention.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// and called through ctypes: the C entry point launches both kernels,
+// and called through ctypes: each C entry point launches its kernels,
 // returns the CUDA error of the launches (0 on success) and never
 // synchronises.
 
@@ -71,12 +78,27 @@ paged_decode_merge_kernel(const Params p) {
   decode_split::merge_body<T>(p);
 }
 
+// the split pass alone over one rank's block of a pool cut over the data
+// ranks of a mesh (merged by flash_decode.cu's repro_decode_merge)
+template <typename T>
+__global__ void __launch_bounds__(decode_split::kThreads)
+paged_decode_partials_kernel(const Params p) {
+  decode_split::split_body<T, /*kPaged=*/true, /*kEmpty=*/true>(p);
+}
+
 template <typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   static size_t configured = 48 * 1024;
   return decode_split::launch_pair(paged_decode_split_kernel<T>,
                                    paged_decode_merge_kernel<T>, &configured,
                                    p, B, sizeof(T), stream);
+}
+
+template <typename T>
+int launch_partials(const Params& p, int B, cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  return decode_split::launch_split(paged_decode_partials_kernel<T>,
+                                    &configured, p, B, sizeof(T), stream);
 }
 
 }  // namespace
@@ -118,6 +140,47 @@ int repro_paged_decode(int dtype, const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split pass alone, for one rank's block of a page pool cut over the
+// data ranks of a mesh: tables (B, W) hold the lane's pages in this block
+// as local ids in [0, P), in position order, and lengths (B,) the valid
+// positions they hold.  Writes the partials of every (lane, KV head,
+// split) into acc (B, KV, n_splits, G, hd), m and l (B, KV, n_splits, G),
+// an empty partial (m = -inf, l = 0, acc = 0) for each split at or past
+// the lane's length.  Returns the launch's cudaError_t.
+int repro_paged_decode_partials(int dtype, const void* q, const void* k_pages,
+                                const void* v_pages, const int* tables,
+                                const int* lengths, float* acc, float* m,
+                                float* l, int B, int H, int KV, int P,
+                                int ps, int hd, int W, int per_split,
+                                int n_splits, float scale, void* stream) {
+  if (KV <= 0 || H % KV || P <= 0 || ps <= 0 || W <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.lengths = lengths;
+  p.tables = tables;
+  p.KV = KV;
+  p.G = H / KV;
+  p.hd = hd;
+  p.n_positions = W * ps;
+  p.per_split = per_split;
+  p.n_splits = n_splits;
+  p.P = P;
+  p.ps = ps;
+  p.W = W;
+  p.scale = scale;
+  p.acc = acc;
+  p.m = m;
+  p.l = l;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_partials<float>(p, B, s);
+  if (dtype == 1) return launch_partials<__nv_bfloat16>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

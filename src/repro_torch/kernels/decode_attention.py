@@ -23,12 +23,15 @@ lane's length).
 passes of :func:`flash_decode` apart, for a ring cut along its positions
 over several ranks: each rank's partials (an empty one for every split it
 skips) are all-gathered and merged all together.
+:func:`paged_flash_decode_partials` is the split pass of
+:func:`paged_flash_decode` alone, for a page pool cut into page blocks
+over the data ranks, merged the same way.
 
-:func:`paged_flash_decode` and :func:`flash_decode` launch their kernels
-on CUDA tensors only and raise on anything they do not take.  Their plain
-versions are ``repro_torch.kernels.ref.paged_decode_ref`` and
-``decode_ref``; the dispatch between kernel and plain version lives in
-``repro_torch.kernels.ops``.
+Every entry launches its kernels on CUDA tensors only and raises on
+anything it does not take.  The plain versions are in
+``repro_torch.kernels.ref`` (``paged_decode_ref``, ``decode_ref``, and
+the partials and merge of each); the dispatch between kernel and plain
+version lives in ``repro_torch.kernels.ops``.
 """
 from __future__ import annotations
 
@@ -92,6 +95,10 @@ def _library() -> ctypes.CDLL:
                                            ci, ci, ci, ci, ci, ci, ci, ci,
                                            ci, ctypes.c_float, vp]
         lib.repro_paged_decode.restype = ci
+        lib.repro_paged_decode_partials.argtypes = [
+            ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+            ci, ci, ctypes.c_float, vp]
+        lib.repro_paged_decode_partials.restype = ci
         lib.repro_paged_decode_smem_bytes.argtypes = [ci, ci, ci]
         lib.repro_paged_decode_smem_bytes.restype = ctypes.c_longlong
         lib.repro_cuda_error_string.argtypes = [ci]
@@ -180,23 +187,9 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     One call is two kernel launches on the current stream (the split
     blocks of :func:`split_plan` over the table's W x ps positions, then
     the merge), made by one ``ctypes`` call, without synchronising."""
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"paged_flash_decode takes float32 or bfloat16, "
-                        f"got {q.dtype}")
-    for t, name in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
-        _check(t, name, q.dtype)
-    _check(block_tables, "block_tables", torch.int32)
+    _paged_checks(q, k_pages, v_pages, block_tables, "paged_flash_decode")
     B, H, hd = q.shape
-    P, KV, ps, hd_k = k_pages.shape
-    if v_pages.shape != k_pages.shape or hd_k != hd:
-        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} do not fit q "
-                         f"{tuple(q.shape)}")
-    if H % KV:
-        raise ValueError(f"{H} query heads are not a multiple of {KV}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != B:
-        raise ValueError(f"block_tables must be ({B}, W), got "
-                         f"{tuple(block_tables.shape)}")
+    P, KV, ps, _ = k_pages.shape
     lengths = _lengths(lengths, B, q.device, "lengths")
     out = torch.empty_like(q)
     W = block_tables.shape[1]
@@ -218,6 +211,73 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         raise RuntimeError(f"paged_flash_decode launch failed: CUDA error "
                            f"{err} ({msg})")
     return out
+
+
+def _paged_checks(q, k_pages, v_pages, block_tables, name: str) -> None:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    for t, what in ((q, "q"), (k_pages, "k_pages"), (v_pages, "v_pages")):
+        _check(t, what, q.dtype)
+    _check(block_tables, "block_tables", torch.int32)
+    B, H, hd = q.shape
+    P, KV, ps, hd_k = k_pages.shape
+    if v_pages.shape != k_pages.shape or hd_k != hd:
+        raise ValueError(f"pool shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    if H % KV:
+        raise ValueError(f"{H} query heads are not a multiple of {KV}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"block_tables must be ({B}, W), got "
+                         f"{tuple(block_tables.shape)}")
+
+
+def paged_flash_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                block_tables: torch.Tensor, lengths
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The split pass of :func:`paged_flash_decode` alone, for one
+    rank's block of a page pool cut over the data ranks of a mesh: q
+    (B,H,hd); this rank's pools (P,KV,ps,hd); tables (B,W) int32 of page
+    ids in the block (a lane's pages there in position order, the rest
+    padding); lengths (B,) int32 positions they hold (or a scalar).
+    Returns the f32 partials of :func:`split_plan`'s splits over the W x
+    ps positions, acc (B,KV,n_splits,G,hd), m and l (B,KV,n_splits,G), as
+    :func:`flash_decode_partials` gives them; a split at or past the
+    lane's length gives m = -inf, l = 0, acc = 0 and reads nothing.  One
+    kernel launch on the current stream, without synchronising."""
+    _paged_checks(q, k_pages, v_pages, block_tables,
+                  "paged_flash_decode_partials")
+    B, H, hd = q.shape
+    P, KV, ps, _ = k_pages.shape
+    W = block_tables.shape[1]
+    G = H // KV
+    lengths = _lengths(lengths, B, q.device, "lengths")
+    if B == 0 or W == 0:
+        raise ValueError(f"paged_flash_decode_partials needs lanes and "
+                         f"pages, got B {B}, W {W}")
+    lib = _library()
+    per_split, n_splits, _ = _split_setup(
+        q, k_pages, v_pages, KV, W * ps, ps,
+        lib.repro_paged_decode_smem_bytes, workspace=False)
+    acc = torch.empty((B, KV, n_splits, G, hd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.empty((B, KV, n_splits, G), dtype=torch.float32,
+                    device=q.device)
+    l = torch.empty_like(m)  # noqa: E741
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_paged_decode_partials(
+            _DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+            acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, H, KV, P, ps, hd,
+            W, per_split, n_splits, 1.0 / math.sqrt(hd), stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"paged_flash_decode_partials launch failed: "
+                           f"CUDA error {err} ({msg})")
+    return acc, m, l
 
 
 def _dense_checks(q, k_cache, v_cache, name: str):

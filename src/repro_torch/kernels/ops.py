@@ -26,7 +26,8 @@ from repro_torch.roofline.hooks import kernel_call
 
 launches = {"paged_flash_decode": 0, "ladn_denoise": 0,
             "flash_attention": 0, "flash_decode": 0,
-            "flash_decode_partials": 0, "decode_merge": 0}
+            "flash_decode_partials": 0, "decode_merge": 0,
+            "paged_flash_decode_partials": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +48,32 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = decode_attention.paged_flash_decode(q, k_pages, v_pages,
                                               block_tables, lengths)
     launches["paged_flash_decode"] += 1
+    return out
+
+
+def paged_flash_decode_partials(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                block_tables: torch.Tensor, lengths):
+    """The split pass of :func:`paged_flash_decode` alone, over one
+    rank's block of a page pool cut over the data ranks
+    (``kernels/decode_attention.py``): q (B,H,hd); k/v_pages (P,KV,ps,hd);
+    block_tables (B,W) int32 of the lanes' pages in the block, in position
+    order; lengths (B,) int32 positions they hold.  Returns the f32
+    partials (acc (B,KV,n,G,hd), m, l (B,KV,n,G)) of
+    ``decode_attention.split_plan``'s n splits over W x ps positions, an
+    empty one (m = -inf, l = 0, acc = 0) for each split past the length;
+    :func:`decode_merge` combines them."""
+    if q.device.type == "cpu":
+        KV, ps = k_pages.shape[1], k_pages.shape[2]
+        per, n = decode_attention.split_plan(
+            q.shape[0], KV, block_tables.shape[1] * ps, ps)
+        return kernel_call("paged_flash_decode_partials",
+                           ref.paged_decode_partials_ref, q, k_pages,
+                           v_pages, block_tables, lengths, per_split=per,
+                           n_splits=n)
+    out = decode_attention.paged_flash_decode_partials(
+        q, k_pages, v_pages, block_tables, lengths)
+    launches["paged_flash_decode_partials"] += 1
     return out
 
 

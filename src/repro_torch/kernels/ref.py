@@ -131,15 +131,31 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
 
     q (B,H,hd); k/v_pages (P,KV,ps,hd); block_tables (B,npages), entries
     clamped to [0, P-1]; lengths () or (B,)."""
-    B = q.shape[0]
+    return decode_ref(q, *_dense_pages(k_pages, v_pages, block_tables),
+                      lengths)
+
+
+def paged_decode_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor, lengths, *,
+                              per_split: int, n_splits: int):
+    """The split pass of :func:`paged_decode_ref`: the pages gathered
+    dense as there, then :func:`decode_partials_ref` over splits of
+    ``per_split`` positions.  q (B,H,hd); k/v_pages (P,KV,ps,hd);
+    block_tables (B,W), entries clamped to [0, P-1]; lengths () or (B,);
+    W * ps <= per_split * n_splits."""
+    return decode_partials_ref(q, *_dense_pages(k_pages, v_pages,
+                                                block_tables), lengths,
+                               per_split=per_split, n_splits=n_splits)
+
+
+def _dense_pages(k_pages, v_pages, block_tables):
+    """Each lane's pages gathered dense: (B, KV, W * ps, hd) K and V."""
+    B, npages = block_tables.shape
     P, KV, ps, hd = k_pages.shape
-    npages = block_tables.shape[1]
     tbl = block_tables.long().clamp(0, P - 1)
-    k = k_pages[tbl]                              # (B, npages, KV, ps, hd)
-    v = v_pages[tbl]
-    k = k.permute(0, 2, 1, 3, 4).reshape(B, KV, npages * ps, hd)
-    v = v.permute(0, 2, 1, 3, 4).reshape(B, KV, npages * ps, hd)
-    return decode_ref(q, k, v, lengths)
+    return tuple(pool[tbl].permute(0, 2, 1, 3, 4).reshape(
+        B, KV, npages * ps, hd) for pool in (k_pages, v_pages))
 
 
 def ladn_denoise_ref(x_I, s, noise, temb_w1, w1x, w1s, b1, w2, b2, w3, b3,

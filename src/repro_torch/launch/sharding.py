@@ -19,6 +19,8 @@ for leaf, the reference's ``PartitionSpec`` as a tuple of mesh-axis names
 * :func:`place_states` cuts a dense slot pool: slots over "data", the K/V
   rings' sequence dim and the mLSTM ``C`` / ``n`` rows over "model";
   the other recurrent states take the slot cut only.
+* :func:`page_block` names this rank's block of a paged pool: its pages
+  over the data axes, nothing over "model".
 
 The layers read their weights through :func:`weight`, which all-gathers
 every axis a layer does not compute on in place (FSDP's "data" always;
@@ -145,7 +147,8 @@ def placement_report(ctx: Optional[ShardingContext] = None) -> dict:
     with each weight and ring: per tag, leaf -> "axis=how ..." with how
     one of ``tp`` (computed on the shard), ``vocab`` (vocab-parallel
     lookup), ``gathered`` (all-gathered before use) or ``split`` (a ring
-    cut along its sequence); ``whole`` where no axis cuts it."""
+    cut along its sequence, ``kv_ring``; a page pool cut into page blocks,
+    ``kv_pages``); ``whole`` where no axis cuts it."""
     ctx = ctx or current()
     return {} if ctx is None else {k: dict(v) for k, v in ctx.report.items()}
 
@@ -319,6 +322,22 @@ def pool_pspecs(states, mesh):
         return spec
 
     return _zip(states, specs, fix)
+
+
+def page_block(mesh, num_pages: int) -> Optional[Tuple[int, int]]:
+    """(first page, pages) of this rank's block of a paged pool of
+    ``num_pages`` pages on ``mesh``, as :func:`state_pspecs` cuts the
+    ``k_pages`` / ``v_pages`` leaves (their leading dim over the data
+    axes, "pod" x "data", nothing over "model"): block i of the data
+    ranks holds pages [i P / D, (i + 1) P / D).  None where the pool stays
+    whole on every rank (the divisibility guard: D does not divide P, or
+    the mesh has no data axis).  A one-rank data axis cuts it into one
+    block, the whole pool."""
+    dp = data_axes(mesh)
+    if not dp or num_pages % axes_size(mesh, dp):
+        return None
+    i, n = rank_over(mesh, dp)
+    return i * (num_pages // n), num_pages // n
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,10 @@ On a mesh whose "model" ranks cut the query heads between heads, the
 full-sequence paths are head-parallel, as the reference keeps its
 "heads" on "model": each rank attends only its own H / M query heads
 against the K/V heads they read, and ``wo`` is row-parallel
-(``_own_heads``).  The decode paths attend every head on every rank: a
-dense ring cut over its positions needs every head's query on each
-rank, and the page pool is whole.
+(``_own_heads``).  The decode paths attend every head on every rank,
+as the reference does: a dense ring cut over its positions, or a page
+pool cut into page blocks over the data ranks, needs every head's query
+on each rank.
 """
 from __future__ import annotations
 
@@ -539,29 +540,145 @@ def _gather_pages(pages: torch.Tensor, block_table: torch.Tensor,
     return pages[page, :, pos % ps]
 
 
-def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int
+def _pages(cache, num_pages: Optional[int]) -> Optional[Tuple[int, int]]:
+    """(first page, pages) of this rank's block of a page pool its mesh's
+    data ranks cut (``launch.sharding.page_block``, a one-rank data axis
+    included); None outside a mesh and for a pool kept whole on every
+    rank.  ``num_pages`` is the whole pool's size (on a mesh of one data
+    rank the pool held here).  Records the layout as ``kv_pages``."""
+    ctx = sharding.current()
+    if ctx is None:
+        return None
+    held = cache["k_pages"].shape[0]
+    if num_pages is None:
+        if sharding.axes_size(ctx.mesh, sharding.data_axes(ctx.mesh)) > 1:
+            raise ValueError("a paged step on a mesh of more than one data "
+                             "rank needs num_pages to place the pool")
+        num_pages = held
+    block = sharding.page_block(ctx.mesh, num_pages)
+    if held != (num_pages if block is None else block[1]):
+        raise ValueError(f"{held} pages on this rank; a pool of {num_pages} "
+                         f"pages on this mesh holds "
+                         f"{num_pages if block is None else block[1]}")
+    sharding.note("kv_pages", "whole" if block is None else "data=split")
+    return block
+
+
+def _put_owned(pool: torch.Tensor, page: torch.Tensor, slot: torch.Tensor,
+               vals: torch.Tensor, lo: int) -> None:
+    """``pool[page - lo, :, slot] = vals`` for the rows whose global page
+    lies in this rank's block [lo, lo + Pl) of the pool; pool (Pl, KV, ps,
+    hd), page and slot (n,), vals (n, KV, hd).  In place and without a
+    host sync: a row this rank does not own repeats the first owned row's
+    write (where it owns none, the first row's place is written with its
+    own value), so rows that meet at one place write one value."""
+    Pl = pool.shape[0]
+    local = page.long() - lo
+    mine = (local >= 0) & (local < Pl)
+    local = torch.clamp(local, 0, Pl - 1)
+    slot = slot.long()
+    vals = torch.where(mine[:, None, None], vals.to(pool.dtype),
+                       pool[local, :, slot])
+    j = torch.argmax(mine.to(torch.int32))
+    pool[torch.where(mine, local, local[j]), :,
+         torch.where(mine, slot, slot[j])] = torch.where(
+             mine[:, None, None], vals, vals[j])
+
+
+def _gather_owned(pages: torch.Tensor, block_table: torch.Tensor,
+                  max_ctx: int, lo: int) -> torch.Tensor:
+    """:func:`_gather_pages` over this rank's block [lo, lo + Pl) of the
+    pool: (max_ctx, KV, hd), zeros at the positions whose page another
+    rank holds."""
+    Pl, _, ps, _ = pages.shape
+    pos = torch.arange(max_ctx, device=pages.device)
+    local = _page_of(block_table, pos, ps) - lo
+    mine = ((local >= 0) & (local < Pl))[:, None, None]
+    got = pages[torch.clamp(local, 0, Pl - 1), :, pos % ps]
+    return torch.where(mine, got, torch.zeros_like(got))
+
+
+def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int,
+                        num_pages: Optional[int] = None
                         ) -> Tuple[torch.Tensor, dict]:
     """One prompt chunk through paged attention.  x (1, C, d) holds tokens
     at absolute positions start..start+C-1 (the tail may be padding).
 
     Writes the chunk's KV into the pool, then attends the chunk's queries
     against the full gathered context with absolute causal masking, through
-    ``ops.flash_attention`` with ``q_offset=start``."""
+    ``ops.flash_attention`` with ``q_offset=start``.
+
+    On a mesh whose data ranks cut the pool into page blocks
+    (``num_pages`` the whole pool's size; :func:`_pages`), each rank
+    writes the chunk's positions whose pages it holds, gathers the
+    context's positions it holds with zeros elsewhere (the K/V heads it
+    attends), and the gathers are summed over the data axes: each
+    position has one owner, so the sum is exact."""
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)[None]   # (1, C)
     own = _attn_heads(cfg)
     q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own)
-    k_pages = _scatter_pages(cache["k_pages"], k[0], block_table, start)
-    v_pages = _scatter_pages(cache["v_pages"], v[0], block_table, start)
-    max_ctx = block_table.shape[-1] * k_pages.shape[2]
-    kd = _gather_pages(k_pages, block_table, max_ctx)[None]   # (1,ctx,KV,hd)
-    vd = _gather_pages(v_pages, block_table, max_ctx)[None]
-    kd, vd = _kv_of(own, kd, vd)
+    block = _pages(cache, num_pages)
+    ps = cache["k_pages"].shape[2]
+    max_ctx = block_table.shape[-1] * ps
+    if block is None:
+        k_pages = _scatter_pages(cache["k_pages"], k[0], block_table, start)
+        v_pages = _scatter_pages(cache["v_pages"], v[0], block_table, start)
+        kd = _gather_pages(k_pages, block_table, max_ctx)[None]
+        vd = _gather_pages(v_pages, block_table, max_ctx)[None]
+        kd, vd = _kv_of(own, kd, vd)                 # (1, ctx, KV, hd)
+    else:
+        pos = positions[0]
+        page = _page_of(block_table, pos, ps)
+        _put_owned(cache["k_pages"], page, pos % ps, k[0], block[0])
+        _put_owned(cache["v_pages"], page, pos % ps, v[0], block[0])
+        kd, vd = _kv_of(own, *(_gather_owned(cache[name], block_table,
+                                             max_ctx, block[0])[None]
+                               for name in ("k_pages", "v_pages")))
+        mesh = sharding.current().mesh
+        kv = sharding.all_reduce(torch.stack([kd, vd]), mesh,
+                                 sharding.data_axes(mesh))
+        kd, vd = kv[0], kv[1]
     out = _out(p, cfg, _attend(q, kd, vd, None, q_offset=start))
     return out, cache
 
 
-def paged_decode(p, cfg, blk, x, cache, block_tables, lengths
+def _owned_table(block_tables: torch.Tensor, n: torch.Tensor, ps: int,
+                 lo: int, Pl: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's compacted table (B, W) int32 and local lengths (B,)
+    int32 for lanes holding ``n`` (B,) positions: each lane's pages among
+    its first ceil(n / ps) that lie in the block [lo, lo + Pl), as local
+    ids in table order (so a partial last page stays last), padded with
+    page 0, and the positions they hold.  On the device, from shapes."""
+    W = block_tables.shape[1]
+    j = torch.arange(W, device=block_tables.device)
+    local = block_tables.long() - lo
+    fill = torch.clamp(n.long()[:, None] - j * ps, 0, ps)
+    owned = (fill > 0) & (local >= 0) & (local < Pl)
+    order = torch.argsort(torch.where(owned, j, j + W), dim=1)
+    table = torch.gather(torch.clamp(local, 0, Pl - 1), 1, order)
+    table = torch.where(j < owned.sum(1, keepdim=True), table, 0)
+    length = torch.where(owned, fill, 0).sum(1)
+    return table.to(torch.int32), length.to(torch.int32)
+
+
+def _cut_pool_decode(q, cache, block_tables, n, lo: int):
+    """Decode of lanes holding ``n`` positions against this rank's page
+    block from ``lo``: the split pass over its compacted table, the
+    partials all-gathered over the data axes, the merge pass over every
+    rank's."""
+    Pl, _, ps, _ = cache["k_pages"].shape
+    table, length = _owned_table(block_tables, n, ps, lo, Pl)
+    acc, m, l = kernel_ops.paged_flash_decode_partials(
+        q, cache["k_pages"], cache["v_pages"], table, length)
+    mesh = sharding.current().mesh
+    for ax in sharding.data_axes(mesh):
+        acc, m, l = (sharding.all_gather(t, mesh, ax, 2) for t in (acc, m, l))
+    return kernel_ops.decode_merge(acc, m, l, q.dtype)
+
+
+def paged_decode(p, cfg, blk, x, cache, block_tables, lengths,
+                 num_pages: Optional[int] = None
                  ) -> Tuple[torch.Tensor, dict]:
     """One-token decode over the shared page pool.
 
@@ -570,18 +687,34 @@ def paged_decode(p, cfg, blk, x, cache, block_tables, lengths
     lengths[b] in place, then attends lengths[b]+1 tokens through
     ``ops.paged_flash_decode`` (the CUDA kernel on the card).  Inactive
     lanes pass a null table and length 0: their writes and reads hit the
-    reserved null page and the engine discards their outputs."""
+    reserved null page and the engine discards their outputs.
+
+    On a mesh whose data ranks cut the pool into page blocks
+    (``num_pages`` the whole pool's size; :func:`_pages`) every lane runs
+    on every rank: the new K/V go only to the rank holding the page, each
+    rank runs the split pass alone (``ops.paged_flash_decode_partials``)
+    over the lane's pages in its block, the f32 partials are all-gathered
+    over the data axes, and the merge pass alone (``ops.decode_merge``)
+    combines them.  Rank 0 holds the null page."""
     B = x.shape[0]
     hd = cfg.head_dim
     q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)
     ps = cache["k_pages"].shape[2]
     page = _page_of(block_tables, lengths[:, None], ps)[:, 0]   # (B,)
     slot = lengths.long() % ps
-    dtype = cache["k_pages"].dtype
-    cache["k_pages"][page, :, slot] = k[:, 0].to(dtype)
-    cache["v_pages"][page, :, slot] = v[:, 0].to(dtype)
-    out = kernel_ops.paged_flash_decode(q[:, 0].contiguous(),
-                                        cache["k_pages"], cache["v_pages"],
-                                        block_tables, lengths + 1)
+    q = q[:, 0].contiguous()
+    block = _pages(cache, num_pages)
+    if block is None:
+        dtype = cache["k_pages"].dtype
+        cache["k_pages"][page, :, slot] = k[:, 0].to(dtype)
+        cache["v_pages"][page, :, slot] = v[:, 0].to(dtype)
+        out = kernel_ops.paged_flash_decode(q, cache["k_pages"],
+                                            cache["v_pages"], block_tables,
+                                            lengths + 1)
+    else:
+        _put_owned(cache["k_pages"], page, slot, k[:, 0], block[0])
+        _put_owned(cache["v_pages"], page, slot, v[:, 0], block[0])
+        n = torch.clamp(lengths + 1, max=block_tables.shape[1] * ps)
+        out = _cut_pool_decode(q, cache, block_tables, n, block[0])
     out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
     return _out(p, cfg, out), cache

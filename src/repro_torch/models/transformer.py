@@ -204,11 +204,11 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
     elif mode == "paged_prefill":
         mix, new_state = attention.paged_prefill_chunk(
             p["mixer"], cfg, blk, h, state, paged["block_table"],
-            paged["start"])
+            paged["start"], num_pages=paged["num_pages"])
     else:
         mix, new_state = attention.paged_decode(
             p["mixer"], cfg, blk, h, state, paged["block_tables"],
-            paged["lengths"])
+            paged["lengths"], num_pages=paged["num_pages"])
     x = x + mix
     if blk.ffn == "none":
         return x, new_state, None
@@ -353,6 +353,8 @@ def forward(params, cfg, inputs: dict, mode: str,
                                                      aux}
     paged_decode  : inputs {tokens (B,1), block_tables (B,W) int32,
                     lengths (B,) int32} + states -> {logits, states, aux}
+                    (both paged modes take ``num_pages``, the whole
+                    pool's size, where a mesh's data ranks may cut it)
 
     ``aux`` is the f32 sum of the MoE layers' load-balance terms (0
     without MoE; in decode mode each layer's term is the mean of its
@@ -396,11 +398,13 @@ def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
     pos_offset = 0
     if mode == "paged_prefill":
         paged = {"block_table": inputs["block_table"],
-                 "start": int(inputs["start"])}
+                 "start": int(inputs["start"]),
+                 "num_pages": inputs.get("num_pages")}
         pos_offset = paged["start"]
     elif mode == "paged_decode":
         paged = {"block_tables": inputs["block_tables"],
-                 "lengths": inputs["lengths"]}
+                 "lengths": inputs["lengths"],
+                 "num_pages": inputs.get("num_pages")}
         pos_offset = inputs["lengths"][:, None]
     elif mode == "decode":
         # each row's own position, where the reference vmaps a scalar; a

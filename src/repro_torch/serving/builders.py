@@ -113,6 +113,7 @@ def build_sharded_engine(arch: str, max_len: int, *, mesh=None,
                          full_scale: bool = False, num_layers: int = 2,
                          kv_slots: int = 4, sample: bool = False,
                          paged: Optional[bool] = None, page_size: int = 16,
+                         num_pages: Optional[int] = None,
                          max_lanes: Optional[int] = None,
                          prefill_chunk: int = 64,
                          prefix_cache: Optional[bool] = None,
@@ -125,7 +126,10 @@ def build_sharded_engine(arch: str, max_len: int, *, mesh=None,
     ``full_scale=False`` serves the reduced config at ``num_layers``, as
     the reference does; ``full_scale=True`` keeps the published config
     whole.  Weights are random, drawn on the device from a generator
-    seeded ``seed`` (the same on every rank)."""
+    seeded ``seed`` (the same on every rank).  A paged engine's pool is
+    cut over the data ranks where they divide ``num_pages`` (the
+    engine's default, 1 + kv_slots x pages of max_len, is often odd:
+    whole then, as in the reference)."""
     device = resolve_device(device)
     if mesh is None:
         mesh = make_smoke_mesh(device)
@@ -134,8 +138,9 @@ def build_sharded_engine(arch: str, max_len: int, *, mesh=None,
         cfg = dataclasses.replace(reduced(cfg), num_layers=num_layers)
     return _engine(arch, cfg, 0, seed, device, max_len, kv_slots=kv_slots,
                    sample=sample, paged=paged, page_size=page_size,
-                   max_lanes=max_lanes, prefill_chunk=prefill_chunk,
-                   prefix_cache=prefix_cache, mesh=mesh)
+                   num_pages=num_pages, max_lanes=max_lanes,
+                   prefill_chunk=prefill_chunk, prefix_cache=prefix_cache,
+                   mesh=mesh)
 
 
 def warmup(engines: Sequence[ServeEngine], prompt_len: int,

@@ -9,8 +9,10 @@ to each step; here every step writes them in place.  ``mesh`` joins every
 key, and a step built for a mesh runs inside that mesh's
 ``ShardingContext`` (kept as the step's ``sharding`` attribute, whose
 report names the layout each layer used): the layers compute on the
-rank's placed weights, and the dense decode round on the rank's block
-of a slot pool cut over "data" (``launch.sharding.pool_pspecs``).
+rank's placed weights, the dense decode round on the rank's block
+of a slot pool cut over "data" (``launch.sharding.pool_pspecs``), and
+the paged steps on the rank's block of pages
+(``launch.sharding.page_block``).
 """
 from __future__ import annotations
 
@@ -169,7 +171,8 @@ def paged_prefill_step(cfg, num_pages: int, page_size: int,
                        mesh=None) -> Callable:
     """One-chunk paged prefill; writes the shared page pools in place."""
     return _get(("paged_prefill", cfg, num_pages, page_size, mesh),
-                lambda: _on(mesh, make_paged_prefill_step(cfg)))
+                lambda: _on(mesh, make_paged_prefill_step(
+                    cfg, num_pages=num_pages)))
 
 
 def paged_decode_step(cfg, num_pages: int, page_size: int, sample: bool,
@@ -178,8 +181,9 @@ def paged_decode_step(cfg, num_pages: int, page_size: int, sample: bool,
     return _get(
         ("paged_decode", cfg, num_pages, page_size, sample, temperature,
          mesh),
-        lambda: _on(mesh, make_paged_decode_step(cfg, sample=sample,
-                                                 temperature=temperature)))
+        lambda: _on(mesh, make_paged_decode_step(
+            cfg, sample=sample, temperature=temperature,
+            num_pages=num_pages)))
 
 
 def page_copy_step(cfg, num_pages: int, page_size: int,
@@ -188,12 +192,39 @@ def page_copy_step(cfg, num_pages: int, page_size: int,
     page ``src`` onto page ``dst`` in place.  Used when a lane's prompt
     diverges mid-block from a cached prefix: the matched head of the
     cached page is duplicated so the lane can overwrite its private tail
-    without touching the shared original."""
+    without touching the shared original.
+
+    On a mesh whose data ranks cut the pool into page blocks
+    (``launch.sharding.page_block``) the host knows each page's owner
+    (``src`` and ``dst`` are host ints): a rank holding both copies in
+    its block; otherwise ``src`` of every layer goes to ``dst``'s owner in
+    one sum over the data axes, to which the other ranks add zeros.  Every
+    rank keeps the same books, so every rank issues the same
+    collectives."""
     def build():
+        block = None if mesh is None else sharding.page_block(mesh,
+                                                              num_pages)
+
         def copy(states: List[dict], src: int, dst: int) -> List[dict]:
-            for layer in states:
-                for pool in layer.values():
+            pools = [pool for layer in states for pool in layer.values()]
+            if block is None:
+                for pool in pools:
                     pool[dst].copy_(pool[src])
+                return states
+            lo, Pl = block
+            mine = range(lo, lo + Pl)
+            if src // Pl == dst // Pl:
+                if src in mine:
+                    for pool in pools:
+                        pool[dst - lo].copy_(pool[src - lo])
+                return states
+            page = torch.stack([pool[src - lo] if src in mine
+                                else torch.zeros_like(pool[0])
+                                for pool in pools])
+            sharding.all_reduce(page, mesh, sharding.data_axes(mesh))
+            if dst in mine:
+                for pool, sent in zip(pools, page):
+                    pool[dst - lo].copy_(sent)
             return states
 
         return copy

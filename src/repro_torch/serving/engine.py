@@ -46,9 +46,15 @@ positions and the mLSTM's ``C`` / ``n`` rows over "model"; a prefill
 runs on every rank and only the rank holding the slot keeps it (its
 slice of the rings), and a decode round
 computes each rank's own slots, its tokens all-gathered over "data".  A
-page pool stays whole on every rank, every lane on every rank (the
-reference cuts its pages over "data").  :meth:`placement_report` names
-the layout each layer used.
+page pool is cut as the reference cuts it: each data rank holds a block
+of ``num_pages / D`` pages of every layer (``launch.sharding.page_block``;
+whole on every rank where the D data ranks do not divide ``num_pages``),
+nothing is cut over "model", and every lane runs on every rank with the
+same host books; a decode round merges each rank's partials over its
+pages, a prefill chunk sums each rank's share of the context, and a
+copy-on-write fork sends a page between data ranks where its copies lie
+in two blocks.  :meth:`placement_report` names the layout each layer
+used.
 
 Health (``repro_torch.faults``): :meth:`fail` crashes the engine (DOWN:
 queued and in-flight requests are orphaned, an uncollected dispatch is
@@ -815,7 +821,12 @@ class ServeEngine:
         return report
 
     def _ensure_paged_states(self) -> None:
+        """Build the page pool at first use: every layer's k/v pages; on
+        a mesh only this rank's block of them, never the whole pool."""
         if self._paged_states is None:
             from repro_torch.models.transformer import init_paged_states
+            block = (None if self.mesh is None
+                     else sharding.page_block(self.mesh, self.num_pages))
             self._paged_states = init_paged_states(
-                self.cfg, self.num_pages, self.page_size, self.device)
+                self.cfg, self.num_pages if block is None else block[1],
+                self.page_size, self.device)

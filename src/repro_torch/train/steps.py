@@ -255,30 +255,34 @@ def make_decode_step(cfg, sample: bool = False, temperature: float = 1.0):
     return decode_step
 
 
-def make_paged_prefill_step(cfg):
+def make_paged_prefill_step(cfg, num_pages: Optional[int] = None):
     """One prompt chunk into the shared page pool (batch 1).
 
     batch = {tokens (1, C), start int, block_table (W,)}; returns
-    (chunk_logits (1, C, V), page pools written in place)."""
+    (chunk_logits (1, C, V), page pools written in place).  ``num_pages``
+    (the whole pool's size) places the pool on a mesh."""
     def paged_prefill_step(params, batch, states):
-        out = forward(params, cfg, batch, mode="paged_prefill",
-                      states=states)
+        out = forward(params, cfg, dict(batch, num_pages=num_pages),
+                      mode="paged_prefill", states=states)
         return out["chunk_logits"], out["states"]
 
     return paged_prefill_step
 
 
 def make_paged_decode_step(cfg, sample: bool = False,
-                           temperature: float = 1.0):
+                           temperature: float = 1.0,
+                           num_pages: Optional[int] = None):
     """One decode token per lane over the shared page pool.
 
     batch = {tokens (B, 1), block_tables (B, W) int32, lengths (B,) int32};
     inactive lanes carry all-null tables and length 0.  Greedy decoding
     takes the argmax; sampled decoding draws with ``torch.multinomial``
-    from ``generator`` (the engine's)."""
+    from ``generator`` (the engine's).  ``num_pages`` (the whole pool's
+    size) places the pool on a mesh."""
     def paged_decode_step(params, batch, states,
                           generator: Optional[torch.Generator] = None):
-        out = forward(params, cfg, batch, mode="paged_decode", states=states)
+        out = forward(params, cfg, dict(batch, num_pages=num_pages),
+                      mode="paged_decode", states=states)
         logits = out["logits"]
         return (logits, pick_tokens(logits, sample, temperature, generator),
                 out["states"])

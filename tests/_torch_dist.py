@@ -250,7 +250,9 @@ def placement_serve_rank(rank: int, cases, out_dir: str) -> None:
     params, its greedy tokens of ``generate(prompts, n_new)`` (n_new, B,
     ...), its KV left held, prefix hits and placement report, and the
     first prompt's prefill last logits through the mesh's forward,
-    written to ``out_dir/<name>.<rank>.npz`` (the report as JSON)."""
+    written to ``out_dir/<name>.<rank>.npz`` (the report as JSON); a
+    paged engine adds the pages and bytes of its pool and the (src, dst)
+    pages of its copy-on-write forks."""
     from repro_torch.launch import sharding
     from repro_torch.models.transformer import forward
     from repro_torch.serving.engine import ServeEngine
@@ -259,7 +261,23 @@ def placement_serve_rank(rank: int, cases, out_dir: str) -> None:
         params = torch.load(params_file, weights_only=True)
         mesh = _mesh_of(meshes, shape)
         eng = ServeEngine(cfg, params, device="cpu", mesh=mesh, **kw)
+        copies = []
+        if eng.paged and eng._page_copy is not None:
+            copy = eng._page_copy
+
+            def logged(states, src, dst, _copy=copy):
+                copies.append((src, dst))
+                return _copy(states, src, dst)
+
+            eng._page_copy = logged
         res = eng.generate(np.asarray(prompts, np.int32), n_new)
+        pool = {}
+        if eng.paged:
+            pool = dict(pool_pages=eng._paged_states[0]["k_pages"].shape[0],
+                        pool_bytes=sum(t.numel() * t.element_size()
+                                       for layer in eng._paged_states
+                                       for t in layer.values()),
+                        copies=np.asarray(copies, np.int64).reshape(-1, 2))
         toks = np.stack([np.asarray(t) for t in res.tokens])
         with sharding.use(sharding.ShardingContext(mesh)):
             logits = forward(eng.params, cfg,
@@ -270,7 +288,7 @@ def placement_serve_rank(rank: int, cases, out_dir: str) -> None:
         np.savez(os.path.join(out_dir, f"{name}.{rank}.npz"),
                  tokens=toks, logits=logits.numpy(), kv_leak=eng.kv_leak,
                  prefix_hits=eng.prefix_hits,
-                 report=json.dumps(eng.placement_report()))
+                 report=json.dumps(eng.placement_report()), **pool)
 
 
 def checkpoint_rank(rank: int, cfg, params_file: str, batch_file: str,
