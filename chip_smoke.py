@@ -68,10 +68,14 @@ Phases, in order; the script exits non-zero at the first that fails:
    keys, and the f32 pass's 4 x 143-token train-mode forwards) and
    phase 22's (22a's qwen2-1.5b prefill of 32768 tokens, whose plain
    version runs in 1024 x 1024 tiles, and 22c's 64-token Table V chunk
-   against 112 keys), bf16 and f32, with
-   its time, its bound, the plain version's and SDPA's; a profiler trace
-   of one call per shape must show one kernel with the grid its tile
-   plan gives; the compiler's registers and spills per instantiation;
+   against 112 keys), and the default entry point's f32 calls (``serve``
+   without ``--full-scale``: qwen2-1.5b's reduced 64-query chunk,
+   recurrentgemma-9b's reduced 32-token prefill), bf16 and f32, with
+   its time, its bound (f32 at the tensor cores' 3xTF32 rate, and at the
+   CUDA cores' beside it), the plain version's and SDPA's; a profiler
+   trace of one call per shape must show one kernel with the grid, block
+   and shared memory its tile plan gives; the compiler's registers and
+   spills per instantiation, none of the f32 kernel's six may spill;
 10. ``flash_decode`` against its plain version at the dense decode
    round's shapes (4 slots of recurrentgemma-9b, a 160-slot ring with
    per-slot lengths, and a wrapped 2048-slot ring) and phase 15's rounds
@@ -262,7 +266,8 @@ try:
     from repro_torch.bench.kernels import (
         ATTN_SHAPES, DECODE_SHAPES, LADN_SHAPES, LADN_TOL, LADN_WIDE,
         PAGED_SHAPES, PS, TOL, attention_case, attention_library,
-        attention_plain, attention_timing, attn_pairs, bound,
+        attention_bound, attention_plain, attention_timing, attn_pairs,
+        bound,
         flash_decode_case, ladn_bound, ladn_case, paged_decode_case,
         sdpa_paged_inputs, time_ms)
     from repro_torch.launch.mesh import HBM_BW
@@ -395,6 +400,7 @@ def traced_launches(fn, calls: int = 4, pad: int = 64):
                      key=lambda e: e.get("ts", 0))
     spin = ["spin_kernel" in e["name"] for e in kernels]
     mine = [{"kernel": e["name"], "grid": e.get("args", {}).get("grid"),
+             "block": e.get("args", {}).get("block"),
              "smem": e.get("args", {}).get("shared memory")}
             for e, is_spin in zip(kernels, spin) if not is_spin]
     if not (kernels and spin[0] and spin[-1]) or len(mine) % calls:
@@ -1093,7 +1099,7 @@ def phase_live_ladts() -> int:
 def ptxas_report(log: str) -> list:
     """Each kernel's registers, stack and spill bytes from an
     ``nvcc -Xptxas -v`` log, the template arguments read from the mangled
-    name (``flash_attention_mma<hd, split>``, ``..._fma<hd>``,
+    name (``flash_attention_mma<hd, split>``, ``..._tf32<hd, split>``,
     ``ladn_regs_kernel<width>``)."""
     import re
     rows, name = [], None
@@ -1114,7 +1120,7 @@ def ptxas_report(log: str) -> list:
             rows[-1]["registers"] = int(m.group(1))
     for row in rows:
         mangled = row.pop("mangled")
-        base = re.search(r"([a-z_]+(?:mma|fma|kernel))[IE]", mangled)
+        base = re.search(r"([a-z_]+(?:mma|tf32|kernel))[IE]", mangled)
         args = re.findall(r"Li(\d+)E", mangled)
         row["kernel"] = (f"{base.group(1) if base else mangled}"
                          + (f"<{', '.join(args)}>" if args else ""))
@@ -1123,15 +1129,15 @@ def ptxas_report(log: str) -> list:
 
 def check_attention_launch(label: str, fn, plan):
     """Trace one ``flash_attention`` call (``traced_launches``): one
-    kernel, of the grid and shared memory ``plan`` gives (the C entry point
-    derives both from the plan's split on its own).  Returns the traced
-    launches (None where the trace was incomplete)."""
+    kernel, of the grid, block and shared memory ``plan`` gives (the C
+    entry point derives them from the plan's split on its own).  Returns
+    the traced launches (None where the trace was incomplete)."""
     import re
     launched = traced_launches(fn)
     seen = "not measured (incomplete trace)" if launched is None else [
         {"kernel": (re.findall(r"flash_attention_\w+<[^>]*>", r["kernel"])
                     or [r["kernel"][:60]])[0], "grid": r["grid"],
-         "smem": r["smem"]}
+         "block": r["block"], "smem": r["smem"]}
         for r in launched]
     log(f"    {label}: plan {plan.rows} rows x {plan.bk}-key tiles, "
         f"{plan.stages} stage(s), {plan.blocks} blocks of {plan.threads} "
@@ -1145,6 +1151,10 @@ def check_attention_launch(label: str, fn, plan):
         if grid is not None and list(grid) != [plan.blocks, 1, 1]:
             fail(f"{label}: grid {grid}, the tile plan gives "
                  f"[{plan.blocks}, 1, 1]")
+        block = launched[0]["block"]
+        if block is not None and list(block) != [plan.threads, 1, 1]:
+            fail(f"{label}: block {block}, the tile plan gives "
+                 f"[{plan.threads}, 1, 1]")
         smem = launched[0]["smem"]
         if smem is not None and smem != plan.smem:
             fail(f"{label}: {smem} B of shared memory, the tile plan gives "
@@ -1244,7 +1254,8 @@ def attention_row(name: str, spec) -> dict:
     pairs = attn_pairs(Sq, Skv, win, off)
     size = q.element_size()
     nbytes = size * (2 * q.numel() + k.numel() + v.numel())
-    bound_ms, bound_by = bound(nbytes, 4 * B * Hq * hd * pairs, dt)
+    flops = 4 * B * Hq * hd * pairs
+    bound_ms, bound_by = attention_bound(nbytes, flops, dt)
     row = {
         "shape": dict(B=B, H=Hq, KV=KVh, Sq=Sq, Skv=Skv, hd=hd,
                       window=win, q_offset=off, dtype=dt),
@@ -1256,6 +1267,8 @@ def attention_row(name: str, spec) -> dict:
         "plain_ms": plain_ms, "library_ms": library_ms,
         "library_err": lib_err, "bound_ms": bound_ms,
         "bound_by": bound_by, "launched": launched}
+    if dt == "float32":     # the same work at the CUDA cores' f32 rate
+        row["bound_ms_cuda_cores"] = bound(nbytes, flops, dt)[0]
     planted = ("no planted fault applies" if fault is None else
                f"{fault[0]}: {fault[1]:.3e}")
     log(f"  flash_attention {name} {dt}: err={err:.3e} (tol "
@@ -1278,6 +1291,18 @@ def phase_flash_attention() -> dict:
             f"{row['stack']} B stack, spills {row['spill_stores']} B stored"
             f" / {row['spill_loads']} B loaded"
             f"{' (a cached build)' if info['cached'] else ''}")
+    # the f32 kernel keeps a warp's 16 x hd output in registers beside its
+    # tf32 fragments: every instantiation must be there, none spilling
+    tf32 = {r["kernel"]: r for r in ptxas if "tf32" in r["kernel"]}
+    want = {f"flash_attention_tf32<{hd}, {s}>" for hd in (64, 128, 256)
+            for s in (1, 4)}
+    if ptxas and set(tf32) != want:
+        fail(f"phase 9: ptxas reports f32 kernels {sorted(tf32)}, expected "
+             f"{sorted(want)}")
+    spilled = [k for k, r in tf32.items()
+               if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        fail(f"phase 9: {spilled} spill registers")
     # only this run's compiler report goes into the kernels line
     result = {} if info["cached"] else {"ptxas": ptxas}
     for name, spec in ATTN_SHAPES.items():

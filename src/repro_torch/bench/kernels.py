@@ -8,7 +8,8 @@ tokens, page 64; the LADN chain at T 256, I 5, S 22, A 20, hidden
 ``chip_smoke.py`` reads from here too (one copy).  Each row gives the
 kernel's time, the plain version's time, the bound (each input read and
 the output written once at the HBM rate, or the FLOPs at the dtype's
-peak, whichever is longer) and, for the attention kernels, SDPA's time
+peak, whichever is longer; f32 ``flash_attention`` at the tensor cores'
+3xTF32 rate, its arithmetic) and, for the attention kernels, SDPA's time
 on the same inputs.
 
 Each row labels what it ran, as the reference labels ``interpret_mode``:
@@ -21,13 +22,14 @@ the CPU from the wall clock.
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, PEAK_FLOPS_F32
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                     PEAK_FLOPS_F32, PEAK_FLOPS_F32_TC)
 
 PEAK_FLOPS = {"bfloat16": PEAK_FLOPS_BF16, "float32": PEAK_FLOPS_F32}
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}    # tests/test_kernels.py:45
@@ -138,6 +140,14 @@ ATTN_SHAPES = {
     "dbrx_chunk_f32": (1, 48, 8, 64, 224, 128, None, 64, "float32"),
     "mixtral_forced_f32": (4, 48, 8, 143, 143, 128, 4096, 0, "float32"),
     "dbrx_forced_f32": (4, 48, 8, 143, 143, 128, None, 0, "float32"),
+    # the default entry point's, recorded from the ops.flash_attention
+    # calls of ``python -m repro_torch.launch.serve --arch <arch> --device
+    # cpu`` (without --full-scale it serves the reduced f32 configs):
+    # qwen2-1.5b's paged 64-query chunk against 128 keys (H 4, KV 2, hd
+    # 64) and recurrentgemma-9b's dense 32-token prefill (H 4, KV 1,
+    # window 64)
+    "serve_reduced_qwen2_f32": (1, 4, 2, 64, 128, 64, None, 0, "float32"),
+    "serve_reduced_rg_f32": (1, 4, 1, 32, 32, 64, 64, 0, "float32"),
     # qwen2-1.5b's train step, one 512-token row a microbatch
     "qwen2_train": (1, 12, 2, 512, 512, 128, None, 0, "bfloat16"),
     # the dry run's qwen2-1.5b prefill at prefill_32k's length, and Table
@@ -218,12 +228,26 @@ def wall_ms(fn, reps: int = 3) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def bound(nbytes: int, flops: int, dtype: str) -> Tuple[float, str]:
-    """The least time for a call, in ms, and what sets it."""
+def bound(nbytes: int, flops: int, dtype: str,
+          peak: Optional[float] = None) -> Tuple[float, str]:
+    """The least time for a call, in ms, and what sets it: ``nbytes`` at
+    the HBM rate or ``flops`` at ``peak`` (default the dtype's data-sheet
+    peak)."""
     bytes_ms = nbytes / HBM_BW * 1e3
-    flops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    flops_ms = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms
                                      else "operations")
+
+
+def attention_bound(nbytes: int, flops: int,
+                    dtype: str) -> Tuple[float, str]:
+    """``flash_attention``'s bound: an f32 call's products are f32-exact
+    on the tensor cores through 3xTF32, so its flops go at
+    ``PEAK_FLOPS_F32_TC``, not the CUDA cores' rate."""
+    if dtype != "float32":
+        return bound(nbytes, flops, dtype)
+    ms, by = bound(nbytes, flops, dtype, PEAK_FLOPS_F32_TC)
+    return ms, by if by == "bytes" else "operations (3xTF32)"
 
 
 def ladn_bound(G, T, I, A, S, H) -> Tuple[float, str]:  # noqa: E741
@@ -452,7 +476,7 @@ def _attention_rows(shapes: Dict[str, tuple], dev):
         pairs = attn_pairs(Sq, Skv, win, off)
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         yield ("flash_attention", name, dt, err, ms, plain_ms, lib_ms,
-               bound(nbytes, 4 * Bs * Hq * hd * pairs, dt),
+               attention_bound(nbytes, 4 * Bs * Hq * hd * pairs, dt),
                f"causal_gflop={4 * Bs * Hq * hd * pairs / 1e9:.3f}")
 
 

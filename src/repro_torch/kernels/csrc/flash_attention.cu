@@ -23,7 +23,14 @@
 // queries at offset 64 against 240 keys, H 12, KV 2, hd 128) 0.64 MB
 // (0.19 us); in practice both are bound by latency, a few dependent tiles
 // a block.  At 4096 tokens with the 2048 window, operations: 103 GFLOP
-// against 33.6 MB, 0.104 ms on the tensor cores.
+// against 33.6 MB, 0.104 ms on the tensor cores.  In f32 the bytes double
+// and f32-exact products go at 495 / 3 = 165 TFLOP/s through 3xTF32, not
+// at the CUDA cores' 67: the f32 128-token recurrentgemma prefill moves
+// 4.5 MB (1.33 us) for 0.135 GFLOP (0.82 us at 165 TFLOP/s), bytes; the
+// reference's bench shape (S 512, H 4, KV 2, hd 64) 1.6 MB (0.47 us) for
+// 0.134 GFLOP (0.82 us), operations; the 4 x 143-token MoE forwards
+// operations (15 us at 67 TFLOP/s, 6.1 at 165).  Latency bounds all of
+// them in practice, as in bf16.
 //
 // The design (kernels/flash_attention.py tile_plan picks the shapes):
 //   * bf16: one block of 4 warps per (batch, KV head, tile of 64 / split
@@ -57,9 +64,48 @@
 //     through ldmatrix (Q too at hd 256), 255 registers leave two blocks
 //     an SM, and hi + lo makes PV two products; wgmma with operands in
 //     shared memory is the next step.
-//   * f32: the first design, kept for exactness (TF32 would break the
-//     1e-4 tolerance): 64 query rows a block, 32-key tiles, f32 FMAs on
-//     the CUDA cores out of shared memory, a warp per row for the softmax.
+//   * f32: the bf16 kernel's frame (packed 16-row groups, the plan's
+//     key split over 1 or 4 warps with the f32 merge, latest blocks
+//     first, the online softmax on the fragments in log2 units, K/V by
+//     cp.async in two stages, key tiles outside the range never loaded)
+//     with each product on mma.sync m16n8k8 in tf32 three times: an f32
+//     x = hi + lo, both rounded by cvt.rna, and a * b = hi * hi + hi * lo
+//     + lo * hi with f32 accumulators.  The dropped lo * lo and the
+//     rounding of lo leave ~2^-22 relative a product (the CPU mirror
+//     shows 6.7e-7 to 2.2e-6 against the f32 oracle); one TF32 product
+//     alone (~2^-11) misses the 1e-4 gate by 8-14x.  Q is split once, as
+//     it is loaded, into hi and lo tiles (every warp reads it at every
+//     key tile); K, V and P are split at each fragment load: at split 4,
+//     the plan of every short main-path shape, each K/V element is split
+//     once either way, and a split as the tile lands would add a store,
+//     a load and a barrier a tile and double the K/V shared memory (no
+//     two-stage hd 256 plan then fits the card; a variant built so was
+//     slower at every shape that fits, S 512 0.0272 against 0.0183 ms
+//     on an NVIDIA H100 80GB HBM3 at 700.00 W).  ldmatrix
+//     is b16 only, so fragments are 32-bit shared loads, paired where
+//     the layout allows: a k8 step takes its columns in the order (2u,
+//     2u + 1) for lane u of a quad, so Q's and K's a0 / a2 and b0 / b1
+//     are one 8-byte load (rows of hd + 8 floats: a half-warp's eight
+//     rows x four lanes cover the 32 banks once), and P V takes its keys
+//     the same way, so the score accumulators are the A operand as they
+//     stand and V's b0 / b1 are rows 2u and 2u + 1 at column g (rows of
+//     hd + 4 floats: banks 8u + g, free of conflicts).  The tiles are
+//     twice bf16's bytes, so a warp takes the most keys (up to 64) whose
+//     two stages leave room for a second block on the SM: 64 / 16 keys
+//     at hd 64 (split 1 / 4), 16 / 8 at 128; at hd 256 no two-stage plan
+//     leaves room for two, and a warp takes 16 / 8 (202 / 168 KB).  Q's
+//     hi and lo fragments are read from shared memory at each k-step at
+//     every hd (in registers they would take hd of them a thread; at hd
+//     256 the warp's 16 x 256 output already takes 128); ptxas reports
+//     124-246 registers and no spill.  Measured on an NVIDIA H100 80GB
+//     HBM3 at 700.00 W (chip_smoke.py phase 9 and 22b,
+//     tools/turns.py; CUDA-graph replay): 0.0212 ms at the f32
+//     128-token prefill (the first design 0.0634, SDPA 0.0428), 0.0183
+//     ms at the reference's bench shape (0.0981; SDPA 0.0569), 0.0722 ms
+//     at the 4 x 143-token MoE forwards (0.1194; SDPA 0.2184) and 0.0054
+//     ms at each of the default serve path's calls (0.0153 and 0.0095;
+//     SDPA 0.0312 and 0.0266): 0.5-14 % of the bound, short walks bound
+//     by latency as in bf16.
 //   * Both: key tiles wholly outside the causal / window range of a block
 //     are never loaded (the TPU kernel's @pl.when(relevant)); ragged edges
 //     (Sq, Skv not multiples of the tiles) are masked here, where the TPU
@@ -119,6 +165,7 @@ __device__ __forceinline__ bool key_ok(const Args& a, int key, int qpos) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMmaWarps = 4;
+constexpr int kMaxGroup = 64;   // query heads per KV head (MAX_GROUP)
 
 // Keys one warp takes from each key tile at head dim hd, when the keys of
 // a 16-row group are split over `split` warps (tile_plan's rule).  A
@@ -462,199 +509,357 @@ flash_attention_mma(const Args a, int ntq, int stages) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: tensor cores, 3xTF32
 // ---------------------------------------------------------------------------
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
-constexpr int kRows = 64;   // query rows (position x head) per block
-constexpr int kBK = 32;     // keys per tile
-constexpr int kLP = kBK + 1;
-
-// Shared memory (f32): the query tile, one K and one V tile (rows padded
-// to hd + 1), the tile's scores / probabilities, and the running max,
-// denominator and rescale factor of each row.
-__host__ __device__ constexpr size_t fma_smem(int hd) {
-  return ((size_t)(kRows + 2 * kBK) * (hd + 1) + (size_t)kRows * kLP +
-          3 * kRows) *
-         sizeof(float);
+// Keys one warp of the f32 kernel takes from each key tile (tile_plan's
+// rule): the most, up to 64, whose two stages leave room for a second
+// block on the SM, else the most that fit one block.
+__host__ __device__ constexpr int tf32_warp_keys(int hd, int split) {
+  return split == 1 ? (hd == 64 ? 64 : 16) : (hd == 64 ? 16 : 8);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_attention_fma(const Args a, int BQ, int nqt) {
-  constexpr int LD = HD + 1;
-  constexpr int PARTS = HD / 4;   // 16-byte chunks per row
-  constexpr int TD = HD / 16;     // output dims per thread
-  extern __shared__ float smem_f[];
-  float* q_s = smem_f;
-  float* k_s = q_s + kRows * LD;
-  float* v_s = k_s + kBK * LD;
-  float* p_s = v_s + kBK * LD;
-  float* m_s = p_s + kRows * kLP;
-  float* l_s = m_s + kRows;
-  float* c_s = l_s + kRows;
+// shared memory of an f32 block: the query tile as tf32 hi and lo (rows
+// of hd + 8 floats) and `stages` K tiles (rows of hd + 8) and V tiles
+// (hd + 4) while it walks the keys; the split's partial outputs and
+// (m, l) when it merges them
+__host__ __device__ constexpr size_t tf32_smem(int hd, int split,
+                                              int stages) {
+  const size_t rows = 64 / split;
+  const size_t bk = (size_t)split * tf32_warp_keys(hd, split);
+  const size_t kv = stages * bk * (2 * hd + 12);
+  const size_t walk = (2 * rows * (hd + 8) + kv) * sizeof(float);
+  const size_t merge =
+      split > 1 ? (64 * (size_t)(hd + 4) + 2 * 64) * sizeof(float) : 0;
+  return walk > merge ? walk : merge;
+}
 
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const int G = a.G;
+// The bf16 kernel's frame with f32 operands: each product is three tf32
+// MMAs, hi * hi + hi * lo + lo * hi.  A thread's fragments are 8-byte
+// loads where it can: the k8 step's columns are taken in the order
+// (2u, 2u + 1) for lane u of a quad, so a0 / a2 (and b0 / b1 of K) are
+// one float2; for P V the keys are taken the same way, which makes the
+// score accumulators (keys 2u, 2u + 1) the A operand as they stand.
+template <int HD, int KS>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_attention_tf32(const Args a, int ntq, int stages) {
+  constexpr int BM = 64 / KS;          // packed query rows per block
+  constexpr int BNW = tf32_warp_keys(HD, KS);
+  constexpr int BN = KS * BNW;         // keys per tile
+  constexpr int LDK = HD + 8;          // Q and K rows, floats
+  constexpr int LDV = HD + 4;          // V rows, floats
+  constexpr int kThreads = kMmaWarps * 32;
+  constexpr int kChunks = HD / 4;      // 16-byte chunks per row
+  constexpr int NB = BNW / 8;          // n8 blocks of a warp's scores
+  constexpr int DB = HD / 8;           // n8 blocks of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qh_s = reinterpret_cast<float*>(smem);
+  float* ql_s = qh_s + BM * LDK;
+  float* k_s = ql_s + BM * LDK;
+  float* v_s = k_s + stages * BN * LDK;
+
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int qt = blockIdx.x % nqt;
-  const int bh = blockIdx.x / nqt;
+  const int grp = warp / KS;           // row group
+  const int sl = warp % KS;            // key slice
+  const int tile = ntq - 1 - (int)(blockIdx.x % ntq);   // latest first
+  const int bh = blockIdx.x / ntq;
   const int b = bh / a.KV;
   const int h = bh % a.KV;
-  const int q0 = qt * BQ;
-  const int nq = min(BQ, a.Sq - q0);   // query positions in this tile
-  const int live = nq * G;             // rows r < live are real; r -> (r / G, r % G)
-
-  for (int c = tid; c < kRows * PARTS; c += kThreads) {
-    const int r = c / PARTS;
-    const int part = c % PARTS;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < live) {
-      f = *reinterpret_cast<const float4*>(
-          q + b * a.qs.b + (long long)(h * G + r % G) * a.qs.h +
-          (long long)(q0 + r / G) * a.qs.s + part * 4);
-    }
-    float* dst = q_s + r * LD + part * 4;
-    dst[0] = f.x;
-    dst[1] = f.y;
-    dst[2] = f.z;
-    dst[3] = f.w;
-  }
-  if (tid < kRows) {
-    m_s[tid] = kNegInf;
-    l_s[tid] = 0.f;
-  }
-
-  // keys any row of this tile may see; tiles outside are skipped
+  const int G = a.G;
+  const int live = a.Sq * G;   // packed row R -> (position R / G, head R % G)
+  const int r0 = tile * BM;
   int kmin, kmax;
-  key_range(a, q0, q0 + nq - 1, kmin, kmax);
-  const int t_lo = kmin / kBK;
-  const int t_hi = kmax >= kmin ? kmax / kBK : t_lo - 1;
+  key_range(a, r0 / G, (min(r0 + BM, live) - 1) / G, kmin, kmax);
+  const int t_lo = kmin / BN;
+  const int ntiles = kmax >= kmin ? kmax / BN - t_lo + 1 : 0;
 
-  const int rg = tid / 16;   // rows 4 rg .. 4 rg + 3
-  const int cg = tid % 16;   // keys cg, cg + 16; dims cg + 16 j
-  float acc[4][TD];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
+  // four values as tf32 hi and lo
+  auto split4 = [](const float4 v, float* hi, float* lo) {
+    uint4 hi4, lo4;
+    split_tf32(v.x, hi4.x, lo4.x);
+    split_tf32(v.y, hi4.y, lo4.y);
+    split_tf32(v.z, hi4.z, lo4.z);
+    split_tf32(v.w, hi4.w, lo4.w);
+    *reinterpret_cast<uint4*>(hi) = hi4;
+    *reinterpret_cast<uint4*>(lo) = lo4;
+  };
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();   // the previous tile's readers of k_s/v_s/p_s are done
-    for (int c = tid; c < kBK * PARTS; c += kThreads) {
-      const int r = c / PARTS;
-      const int part = c % PARTS;
-      const int key = k0 + r;
-      float4 fk = make_float4(0.f, 0.f, 0.f, 0.f), fv = fk;
-      if (key >= kmin && key <= kmax) {
-        fk = *reinterpret_cast<const float4*>(k + b * a.ks.b + h * a.ks.h +
-                                              key * a.ks.s + part * 4);
-        fv = *reinterpret_cast<const float4*>(v + b * a.vs.b + h * a.vs.h +
-                                              key * a.vs.s + part * 4);
+  const float* qg = static_cast<const float*>(a.q) + b * a.qs.b +
+                    (long long)h * G * a.qs.h;
+  const float* kg = static_cast<const float*>(a.k) + b * a.ks.b +
+                    h * a.ks.h;
+  const float* vg = static_cast<const float*>(a.v) + b * a.vs.b +
+                    h * a.vs.h;
+
+  // K/V rows [t * BN, t * BN + BN) into stage st; keys outside
+  // [kmin, kmax] are zero-filled (never read from memory)
+  auto load_kv = [&](int t, int st) {
+    float* kd = k_s + st * BN * LDK;
+    float* vd = v_s + st * BN * LDV;
+    for (int c = tid; c < BN * kChunks; c += kThreads) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      const int key = t * BN + r;
+      const bool ok = key >= kmin && key <= kmax;
+      cp_async16(kd + r * LDK + col, kg + (ok ? key * a.ks.s + col : 0), ok);
+      cp_async16(vd + r * LDV + col, vg + (ok ? key * a.vs.s + col : 0), ok);
+    }
+  };
+
+  if (ntiles > 0) {
+    load_kv(t_lo, 0);
+    // Q is split once, as it lands: every warp reads it at every tile
+    for (int c = tid; c < BM * kChunks; c += kThreads) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      const int R = r0 + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (R < live) {
+        x = *reinterpret_cast<const float4*>(
+            qg + (R % G) * a.qs.h + (long long)(R / G) * a.qs.s + col);
       }
-      float* kd = k_s + r * LD + part * 4;
-      float* vd = v_s + r * LD + part * 4;
-      kd[0] = fk.x;
-      kd[1] = fk.y;
-      kd[2] = fk.z;
-      kd[3] = fk.w;
-      vd[0] = fv.x;
-      vd[1] = fv.y;
-      vd[2] = fv.z;
-      vd[3] = fv.w;
+      split4(x, qh_s + r * LDK + col, ql_s + r * LDK + col);
+    }
+  }
+  cp_async_commit();
+
+  // this warp's rows: wr0 .. wr0 + 15; this thread's: ra and ra + 8
+  const int wr0 = r0 + grp * 16;
+  const bool warp_live = wr0 < live;
+  const int wlo = a.q_offset + wr0 / G;
+  const int whi = a.q_offset + (min(wr0 + 15, live - 1)) / G;
+  const int ra = wr0 + lane / 4;
+  const int qpos[2] = {a.q_offset + ra / G, a.q_offset + (ra + 8) / G};
+  const float sl2 = a.scale * kLog2e;
+  const int u2 = 2 * (lane & 3);
+
+  float o[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};   // this thread's columns; summed over the quad
+  // fragment offsets: Q rows g and g + 8 and K row g at column 2u; V rows
+  // 2u and 2u + 1 at column g (g = lane / 4, u = lane % 4)
+  const int q_off = (grp * 16 + lane / 4) * LDK + u2;
+  const int k_off = (sl * BNW + lane / 4) * LDK + u2;
+  const int v_off = (sl * BNW + u2) * LDV + lane / 4;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = stages > 1 ? (i & 1) : 0;
+    if (i + 1 < ntiles) {
+      load_kv(t_lo + i + 1, (i + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    // scores: a 4 x 2 tile per thread
-    float sc[4][2];
+    const int k0 = (t_lo + i) * BN + sl * BNW;   // this warp's first key
+    // keys none of this warp's rows may see are skipped
+    const bool skip = !warp_live || (a.causal && k0 > whi) ||
+                      (a.window > 0 && k0 + BNW - 1 <= wlo - a.window);
+    if (!skip) {
+      const float* kt = k_s + st * BN * LDK + k_off;
+      const float* vt = v_s + st * BN * LDV + v_off;
+      // hi * hi, and the two cross terms apart: two short chains
+      float s[NB][4], c[NB][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) sc[i][0] = sc[i][1] = 0.f;
-    const float* qrow = q_s + (rg * 4) * LD;
-    const float* krow = k_s + cg * LD;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float k0v = krow[d];
-      const float k1v = krow[16 * LD + d];
+      for (int n = 0; n < NB; ++n) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = qrow[i * LD + d];
-        sc[i][0] += qv * k0v;
-        sc[i][1] += qv * k1v;
+        for (int e = 0; e < 4; ++e) s[n][e] = c[n][e] = 0.f;
       }
-    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg * 4 + i;
-      const int qpos = a.q_offset + q0 + r / G;
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        const float2 h0 = *reinterpret_cast<const float2*>(qh_s + q_off +
+                                                           kk * 8);
+        const float2 h1 = *reinterpret_cast<const float2*>(
+            qh_s + q_off + 8 * LDK + kk * 8);
+        const float2 l0 = *reinterpret_cast<const float2*>(ql_s + q_off +
+                                                           kk * 8);
+        const float2 l1 = *reinterpret_cast<const float2*>(
+            ql_s + q_off + 8 * LDK + kk * 8);
+        const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                                __float_as_uint(h0.y), __float_as_uint(h1.y)};
+        const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                                __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              kt + n * 8 * LDK + kk * 8);
+          uint32_t bh[2], bl[2];
+          split_tf32(kv.x, bh[0], bl[0]);
+          split_tf32(kv.y, bh[1], bl[1]);
+          mma_tf32(s[n], ah, bh);
+          mma_tf32(c[n], ah, bl);
+          mma_tf32(c[n], al, bh);
+        }
+      }
+
+      // scale into log2 units; mask only where the keys cross an edge
+      const bool edge = k0 + BNW > a.Skv ||
+                        (a.causal && k0 + BNW - 1 > wlo) ||
+                        (a.window > 0 && k0 <= whi - a.window);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = (s[n][e] + c[n][e]) * sl2;
+          if (edge && !key_ok(a, k0 + n * 8 + u2 + (e & 1), qpos[e >> 1])) {
+            s[n][e] = -INFINITY;
+          }
+        }
+      }
+
+      // online softmax on the fragments: rows ra (e = 0, 1), ra + 8 (2, 3)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      float base[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int key = k0 + cg + 16 * j;
-        const bool ok = r < live && key_ok(a, key, qpos);
-        p_s[r * kLP + cg + 16 * j] = ok ? sc[i][j] * a.scale : kNegInf;
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+        // a row with no valid key so far keeps p = 0 (not NaN)
+        base[j] = mx[j] == -INFINITY ? 0.f : mx[j];
+        const float alpha = exp2f(m[j] - base[j]);
+        m[j] = mx[j];
+        l[j] *= alpha;
+#pragma unroll
+        for (int d = 0; d < DB; ++d) {
+          o[d][2 * j] *= alpha;
+          o[d][2 * j + 1] *= alpha;
+        }
       }
-    }
-    __syncthreads();
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2f(s[n][e] - base[e >> 1]);
+          l[e >> 1] += s[n][e];
+        }
+      }
 
-    // online softmax, one warp per row, a lane per key
-    for (int r = warp; r < kRows; r += kThreads / 32) {
-      const float s = p_s[r * kLP + lane];
-      const bool ok = s > 0.5f * kNegInf;
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(ok ? s : kNegInf));
-      const float p = ok ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      p_s[r * kLP + lane] = p;
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        c_s[r] = corr;
+      // O += P V over keys [8 n, 8 n + 8): the thread's scores of keys
+      // 2u, 2u + 1 are a0 / a2 (row ra) and a1 / a3 (row ra + 8); V's
+      // rows 2u and 2u + 1 are b0 and b1
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[n][0], ph[0], pl[0]);
+        split_tf32(s[n][2], ph[1], pl[1]);
+        split_tf32(s[n][1], ph[2], pl[2]);
+        split_tf32(s[n][3], ph[3], pl[3]);
+        const float* vn = vt + n * 8 * LDV;
+#pragma unroll
+        for (int d = 0; d < DB; ++d) {
+          uint32_t bh[2], bl[2];
+          split_tf32(vn[d * 8], bh[0], bl[0]);
+          split_tf32(vn[LDV + d * 8], bh[1], bl[1]);
+          mma_tf32(o[d], pl, bh);
+          mma_tf32(o[d], ph, bl);
+          mma_tf32(o[d], ph, bh);
+        }
       }
     }
-    __syncthreads();
-
-    // acc = acc * corr + P V: a 4 x TD tile per thread
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = c_s[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
-    }
-    const float* prow = p_s + (rg * 4) * kLP;
-#pragma unroll 4
-    for (int key = 0; key < kBK; ++key) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = prow[i * kLP + key];
-      const float* vrow = v_s + key * LD + cg;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) {
-        const float vv = vrow[16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += pv[i] * vv;
-      }
-    }
+    __syncthreads();   // every warp is done with this stage
   }
-  __syncthreads();   // final l_s (and, with no tile, its init) visible
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
+  }
+  float* og = static_cast<float*>(a.out) + b * a.os.b +
+              (long long)h * G * a.os.h;
 
+  if constexpr (KS == 1) {
+    // normalise, stage the warp's 16 rows in its own rows of qh_s, then
+    // 16-byte stores; a row with no valid key has l = 0: zeros
+    if (!warp_live) return;
+    const float inv[2] = {l[0] > 0.f ? 1.f / l[0] : 0.f,
+                          l[1] > 0.f ? 1.f / l[1] : 0.f};
+    float* stage = qh_s + grp * 16 * LDK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    if (r >= live) continue;
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* dst = static_cast<float*>(a.out) + b * a.os.b +
-                 (long long)(h * G + r % G) * a.os.h +
-                 (long long)(q0 + r / G) * a.os.s + cg;
+    for (int d = 0; d < DB; ++d) {
+      float* dst = stage + (lane / 4) * LDK + d * 8 + u2;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(o[d][0] * inv[0], o[d][1] * inv[0]);
+      *reinterpret_cast<float2*>(dst + 8 * LDK) =
+          make_float2(o[d][2] * inv[1], o[d][3] * inv[1]);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * kChunks; c += 32) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      const int R = wr0 + r;
+      if (R < live) {
+        *reinterpret_cast<float4*>(og + (R % G) * a.os.h +
+                                   (long long)(R / G) * a.os.s + col) =
+            *reinterpret_cast<const float4*>(stage + r * LDK + col);
+      }
+    }
+  } else {
+    // merge the KS slices of each row as the bf16 kernel does
+    constexpr int LDP = HD + 4;
+    float* part = reinterpret_cast<float*>(smem);   // [KS][BM][LDP]
+    float* m_sh = part + KS * BM * LDP;             // [KS][BM]
+    float* l_sh = m_sh + KS * BM;
+    const int row = grp * 16 + lane / 4;
+    if ((lane & 3) == 0) {
 #pragma unroll
-    for (int j = 0; j < TD; ++j) dst[16 * j] = acc[i][j] * inv;
+      for (int j = 0; j < 2; ++j) {
+        m_sh[sl * BM + row + 8 * j] = m[j];
+        l_sh[sl * BM + row + 8 * j] = l[j];
+      }
+    }
+    __syncthreads();
+    float f[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = row + 8 * j;
+      float M = -INFINITY;
+#pragma unroll
+      for (int x = 0; x < KS; ++x) M = fmaxf(M, m_sh[x * BM + r]);
+      const float Mb = M == -INFINITY ? 0.f : M;
+      float L = 0.f;
+#pragma unroll
+      for (int x = 0; x < KS; ++x) {
+        L += exp2f(m_sh[x * BM + r] - Mb) * l_sh[x * BM + r];
+      }
+      f[j] = L > 0.f ? exp2f(m[j] - Mb) / L : 0.f;
+    }
+    float* mine = part + sl * BM * LDP;
+#pragma unroll
+    for (int d = 0; d < DB; ++d) {
+      float* dst = mine + row * LDP + d * 8 + u2;
+      *reinterpret_cast<float2*>(dst) =
+          make_float2(o[d][0] * f[0], o[d][1] * f[0]);
+      *reinterpret_cast<float2*>(dst + 8 * LDP) =
+          make_float2(o[d][2] * f[1], o[d][3] * f[1]);
+    }
+    __syncthreads();
+    for (int c = tid; c < BM * kChunks; c += kThreads) {
+      const int r = c / kChunks;
+      const int col = (c % kChunks) * 4;
+      const int R = r0 + r;
+      if (R >= live) continue;
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int x = 0; x < KS; ++x) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(part + (x * BM + r) * LDP + col);
+        acc.x += p.x;
+        acc.y += p.y;
+        acc.z += p.z;
+        acc.w += p.w;
+      }
+      *reinterpret_cast<float4*>(og + (R % G) * a.os.h +
+                                 (long long)(R / G) * a.os.s + col) = acc;
+    }
   }
 }
 
@@ -664,56 +869,54 @@ flash_attention_fma(const Args a, int BQ, int nqt) {
 
 // raise a kernel's dynamic shared-memory limit once, at its first launch,
 // to the most any of its launches takes: a launch captured into a CUDA
-// graph later then issues no attribute call
+// graph later then issues no attribute call.  A refusal is returned and
+// cleared, so the next launch's cudaGetLastError does not report it.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t most, bool* configured) {
   if (*configured || most <= 48 * 1024) return cudaSuccess;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
   *configured = e == cudaSuccess;
+  if (e != cudaSuccess) cudaGetLastError();
   return e;
 }
 
 // the tile plan of split KS: 64 / KS packed rows a block, one stage when
 // every key fits one tile (kernels/flash_attention.py mma_plan)
-template <int HD, int KS>
-int launch_mma(const Args& a, int B, cudaStream_t stream) {
+template <bool F32, int HD, int KS>
+int launch(const Args& a, int B, cudaStream_t stream) {
   static bool configured = false;
   constexpr int BM = 64 / KS;
+  constexpr int BN = KS * (F32 ? tf32_warp_keys(HD, KS) : warp_keys(HD, KS));
+  constexpr auto smem = F32 ? tf32_smem : mma_smem;
+  const auto kernel =
+      F32 ? flash_attention_tf32<HD, KS> : flash_attention_mma<HD, KS>;
   const long long ntq = ((long long)a.Sq * a.G + BM - 1) / BM;
   const long long blocks = (long long)B * a.KV * ntq;
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const int stages = a.Skv > KS * warp_keys(HD, KS) ? 2 : 1;
-  const cudaError_t e = allow_smem(flash_attention_mma<HD, KS>,
-                                   mma_smem(HD, KS, 2), &configured);
+  const int stages = a.Skv > BN ? 2 : 1;
+  const cudaError_t e = allow_smem(kernel, smem(HD, KS, 2), &configured);
   if (e != cudaSuccess) return (int)e;
-  flash_attention_mma<HD, KS>
-      <<<(unsigned)blocks, kMmaWarps * 32, mma_smem(HD, KS, stages),
-         stream>>>(a, (int)ntq, stages);
+  kernel<<<(unsigned)blocks, kMmaWarps * 32, smem(HD, KS, stages),
+           stream>>>(a, (int)ntq, stages);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_fma(const Args& a, int B, cudaStream_t stream) {
-  static bool configured = false;
-  const int BQ = kRows / a.G;
-  const int nqt = (a.Sq + BQ - 1) / BQ;
-  const long long blocks = (long long)B * a.KV * nqt;
-  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
-  const cudaError_t e =
-      allow_smem(flash_attention_fma<HD>, fma_smem(HD), &configured);
-  if (e != cudaSuccess) return (int)e;
-  flash_attention_fma<HD>
-      <<<(unsigned)blocks, kThreads, fma_smem(HD), stream>>>(a, BQ, nqt);
-  return (int)cudaGetLastError();
-}
-
-template <int HD>
+template <bool F32, int HD>
 int dispatch_split(const Args& a, int B, int split, cudaStream_t s) {
   switch (split) {
-    case 1: return launch_mma<HD, 1>(a, B, s);
-    case 4: return launch_mma<HD, 4>(a, B, s);
+    case 1: return launch<F32, HD, 1>(a, B, s);
+    case 4: return launch<F32, HD, 4>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool F32>
+int dispatch_hd(const Args& a, int B, int hd, int split, cudaStream_t s) {
+  switch (hd) {
+    case 64: return dispatch_split<F32, 64>(a, B, split, s);
+    case 128: return dispatch_split<F32, 128>(a, B, split, s);
+    default: return dispatch_split<F32, 256>(a, B, split, s);
   }
 }
 
@@ -723,9 +926,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; strides in elements, (batch, head,
 // position) for each of q, k, v, out; window <= 0 means none.  split is
-// the wrapper's tile plan: 1 or 4 warps over each 16-row group's keys in
-// bf16, 1 in f32 (the CUDA-core kernel has one plan); the call refuses any
-// other.  Returns the launch's cudaError_t.
+// the wrapper's tile plan: 1 or 4 warps over each 16-row group's keys; the
+// call refuses any other.  Returns the launch's cudaError_t.
 int repro_flash_attention(int dtype, const void* q, const void* k,
                           const void* v, void* out, long long qsb,
                           long long qsh, long long qss, long long ksb,
@@ -735,27 +937,17 @@ int repro_flash_attention(int dtype, const void* q, const void* k,
                           int Sq, int Skv, int hd, int causal, int window,
                           int q_offset, float scale, int split,
                           void* stream) {
-  if (B <= 0 || KV <= 0 || H % KV || H / KV > kRows || Sq <= 0 || Skv < 0 ||
-      (hd != 64 && hd != 128 && hd != 256) || (dtype != 0 && dtype != 1)) {
+  if (B <= 0 || KV <= 0 || H % KV || H / KV > kMaxGroup || Sq <= 0 ||
+      Skv < 0 || (hd != 64 && hd != 128 && hd != 256) ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, k, v, out, {qsb, qsh, qss}, {ksb, ksh, kss},
                {vsb, vsh, vss}, {osb, osh, oss}, KV, H / KV, Sq, Skv, causal,
                window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (split != 1) return (int)cudaErrorInvalidValue;
-    switch (hd) {
-      case 64: return launch_fma<64>(a, B, s);
-      case 128: return launch_fma<128>(a, B, s);
-      default: return launch_fma<256>(a, B, s);
-    }
-  }
-  switch (hd) {
-    case 64: return dispatch_split<64>(a, B, split, s);
-    case 128: return dispatch_split<128>(a, B, split, s);
-    default: return dispatch_split<256>(a, B, split, s);
-  }
+  return dtype == 0 ? dispatch_hd<true>(a, B, hd, split, s)
+                    : dispatch_hd<false>(a, B, hd, split, s);
 }
 
 const char* repro_flash_attention_error_string(int code) {

@@ -28,7 +28,7 @@
 // empty kernel of this library, as the floor: 0.86 us in a CUDA graph on
 // an H100 80GB HBM3 at 700 W), one round of ~130 loads a lane, then I
 // dependent steps of three dependent 20 x 20 matrix-vector products
-// (~0.26 us a step at width 24: tools/ladn_turns.py sweeps I).
+// (~0.26 us a step at width 24: tools/turns.py sweeps I).
 //
 // What the design does about that: everything of a row stays in one
 // warp's registers for the whole chain, and every width is known to the

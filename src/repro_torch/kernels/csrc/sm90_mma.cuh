@@ -1,7 +1,8 @@
 // PTX building blocks shared by the port's attention kernels
 // (decode_split.cuh, flash_attention.cu): 16-byte cp.async into shared
-// memory, ldmatrix, bf16 mma.sync m16n8k16 with f32 accumulation, and
-// warp reductions.  Every function is inline; the header holds no kernel.
+// memory, ldmatrix, bf16 mma.sync m16n8k16 and tf32 mma.sync m16n8k8 with
+// f32 accumulation, the tf32 rounding, and warp reductions.  Every
+// function is inline; the header holds no kernel.
 //
 // Fragment layouts of mma.sync.m16n8k16 (thread t of a warp, g = t / 4,
 // c = 2 * (t % 4)):
@@ -11,6 +12,12 @@
 //   C (16 x 8, f32):        c0, c1 = C[g][c..c+1], c2, c3 = C[g+8][c..c+1].
 // Each register of A or B holds two bf16 values, the lower index in the
 // low half (pack_bf16).
+//
+// mma.sync.m16n8k8 with tf32 operands, one value a register (u = t % 4):
+//   A (16 x 8, row-major):  a0 = A[g][u], a1 = A[g+8][u], a2 = A[g][u+4],
+//                           a3 = A[g+8][u+4];
+//   B (8 x 8, col-major):   b0 = B[u][g], b1 = B[u+4][g];
+//   C (16 x 8, f32):        as above.
 
 #pragma once
 
@@ -71,6 +78,32 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
                  "r"(b1));
+}
+
+// c += a (16x8 tf32, row) * b (8x8 tf32, col), f32 accumulate; the MMA
+// reads the top 19 bits of each operand register and ignores the rest
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+                 "r"(b[1]));
+}
+
+// x rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, the 13 bits below cleared: an f32 bit pattern
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), both tf32: 3xTF32's operand split
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
 // (x, y) rounded to bf16 in one register, x in the low half

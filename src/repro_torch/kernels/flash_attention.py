@@ -33,13 +33,13 @@ from repro_torch.kernels import build as _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
-MAX_GROUP = 64       # query heads per KV head: the f32 block's 64 rows
+MAX_GROUP = 64       # query heads per KV head: a block's 64 rows
 # an H100 block may use at most this much shared memory
 MAX_SMEM = 232_448
-# The bf16 plan's rule, from a sweep on an H100 (PERF.md section 6): a
-# block is 4 warps over 64 / split packed query rows, the keys of each
-# 16-row group split over `split` warps; split 1 where it gives a wave of
-# blocks (one per SM), else 4.
+# The plan's rule, from a sweep of the bf16 kernel on an H100 (PERF.md
+# section 6): a block is 4 warps over 64 / split packed query rows, the
+# keys of each 16-row group split over `split` warps; split 1 where it
+# gives a wave of blocks (one per SM), else 4.
 WAVE = 132
 SPLITS = (1, 4)
 
@@ -48,49 +48,64 @@ _lib: Optional[ctypes.CDLL] = None
 
 class TilePlan(NamedTuple):
     """How one call is cut into blocks.  A packed query row is (position,
-    one of the G query heads of a KV head); a block holds ``rows`` of them
-    and walks its keys in tiles of ``bk``, ``stages`` tiles in flight.
-    ``mma``: the tensor-core (bf16) kernel, 4 warps, each 16-row group's
-    keys split over ``split`` warps (each takes ``bk // split`` keys of a
-    tile); else the CUDA-core (f32) kernel, whose 64 rows are
-    ``64 // G`` whole positions."""
+    one of the G query heads of a KV head); a block of 4 warps holds
+    ``rows`` of them, in groups of 16 whose keys are split over ``split``
+    warps (each takes ``bk // split`` keys of a tile), and walks its keys
+    in tiles of ``bk``, ``stages`` tiles in flight."""
     rows: int
     bk: int
     stages: int
     blocks: int
     smem: int        # dynamic shared-memory bytes per block
-    mma: bool
 
     @property
     def split(self) -> int:
-        return 64 // self.rows if self.mma else 1
+        return 64 // self.rows
 
     @property
     def threads(self) -> int:
-        return 128 if self.mma else 256
+        return 128
 
 
-def warp_keys(hd: int, split: int) -> int:
-    """Keys one warp of the bf16 kernel takes from each tile
-    (``csrc/flash_attention.cu`` warp_keys): 64 at hd <= 128 and 32 at 256
-    (a warp's 16 x 256 output already holds 128 registers a thread) at
-    split 1, 16 at split 4."""
-    return (64 if hd <= 128 else 32) if split == 1 else 16
+def walk_smem(hd: int, split: int, keys: int, stages: int,
+              dtype: torch.dtype) -> int:
+    """Shared memory of a block while it walks its keys, with ``keys``
+    keys a warp: bf16 keeps the Q tile and ``stages`` K and V tiles in
+    rows of hd + 8 values; f32 keeps Q as tf32 hi and lo (rows of hd + 8
+    floats), K in rows of hd + 8 and V in rows of hd + 4."""
+    rows, bk = 64 // split, split * keys
+    if dtype == torch.float32:
+        return 4 * (2 * rows * (hd + 8) + stages * bk * (2 * hd + 12))
+    return 2 * (rows + 2 * stages * bk) * (hd + 8)
+
+
+def warp_keys(hd: int, split: int, dtype: torch.dtype = torch.bfloat16
+              ) -> int:
+    """Keys one warp takes from each tile (``csrc/flash_attention.cu``
+    warp_keys, tf32_warp_keys).  bf16: 64 at hd <= 128 and 32 at 256 (a
+    warp's 16 x 256 output already holds 128 registers a thread) at split
+    1, 16 at split 4.  f32, twice bf16's bytes: the most keys whose two
+    stages leave room for a second block on an SM (64 / 16 at hd 64, 16 /
+    8 at 128), and at hd 256, where none do, 16 / 8 (202 / 168 KB)."""
+    if dtype != torch.float32:
+        return (64 if hd <= 128 else 32) if split == 1 else 16
+    return (64 if hd == 64 else 16) if split == 1 else (16 if hd == 64
+                                                        else 8)
 
 
 def mma_plan(B: int, KV: int, Sq: int, G: int, Skv: int, hd: int,
-             split: int) -> TilePlan:
-    """The bf16 plan with each 16-row group's keys over ``split`` warps:
-    64 // split rows a block, tiles of split x :func:`warp_keys` keys, two
-    stages unless every key fits one tile; shared memory for the walk (Q
-    tile, K and V stages) or the split's f32 merge, whichever is more."""
+             split: int, dtype: torch.dtype = torch.bfloat16) -> TilePlan:
+    """The plan with each 16-row group's keys over ``split`` warps: 64 //
+    split rows a block, tiles of split x :func:`warp_keys` keys, two
+    stages unless every key fits one tile; shared memory for the walk
+    (:func:`walk_smem`) or the split's f32 merge, whichever is more."""
     rows = 64 // split
-    bk = split * warp_keys(hd, split)
-    stages = 1 if Skv <= bk else 2
-    walk = 2 * (rows + 2 * stages * bk) * (hd + 8)
+    keys = warp_keys(hd, split, dtype)
+    stages = 1 if Skv <= split * keys else 2
     merge = 4 * (64 * (hd + 4) + 128) if split > 1 else 0
-    return TilePlan(rows, bk, stages, B * KV * -(-(Sq * G) // rows),
-                    max(walk, merge), True)
+    return TilePlan(rows, split * keys, stages,
+                    B * KV * -(-(Sq * G) // rows),
+                    max(walk_smem(hd, split, keys, stages, dtype), merge))
 
 
 def tile_plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
@@ -98,10 +113,8 @@ def tile_plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
               q_offset: int = 0, causal: bool = True) -> TilePlan:
     """The grid of one call, from shapes only: never from tensor values.
 
-    bf16 (tensor cores): :func:`mma_plan` with the smallest split of
-    :data:`SPLITS` that keeps a wave of :data:`WAVE` blocks (else the
-    largest).  f32 (CUDA cores): 64 rows of ``64 // G`` whole positions a
-    block, 32-key tiles, one stage.
+    :func:`mma_plan` with the smallest split of :data:`SPLITS` that keeps
+    a wave of :data:`WAVE` blocks (else the largest), in either dtype.
 
     The mask's arguments (``window``, ``q_offset``, ``causal``) are
     checked but do not change the plan: each block computes its own key
@@ -126,15 +139,9 @@ def _shape_plan(B: int, H: int, KV: int, Sq: int, Skv: int, hd: int,
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if min(B, Sq, Skv) < 0:
         raise ValueError(f"bad sizes: B {B}, Sq {Sq}, Skv {Skv}")
-    G = H // KV
-    if dtype == torch.float32:
-        rows, bk = 64, 32
-        plan = TilePlan(rows, bk, 1, B * KV * -(-Sq // (rows // G)),
-                        4 * ((rows + 2 * bk) * (hd + 1) + rows * (bk + 1)
-                             + 3 * rows), False)
-    else:
-        plans = [mma_plan(B, KV, Sq, G, Skv, hd, s) for s in SPLITS]
-        plan = next((p for p in plans if p.blocks >= WAVE), plans[-1])
+    plans = [mma_plan(B, KV, Sq, H // KV, Skv, hd, s, dtype)
+             for s in SPLITS]
+    plan = next((p for p in plans if p.blocks >= WAVE), plans[-1])
     if plan.smem > MAX_SMEM or plan.blocks >= 2 ** 31:
         raise ValueError(f"no plan fits the card: {plan.blocks} blocks of "
                          f"{plan.smem} bytes of shared memory")

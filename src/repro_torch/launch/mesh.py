@@ -30,6 +30,9 @@ from repro_torch import DeviceLike, resolve_device
 # data sheet (dense, no sparsity); per card
 PEAK_FLOPS_BF16 = 989e12        # FLOP/s, bf16 on the tensor cores
 PEAK_FLOPS_F32 = 67e12          # FLOP/s, f32 on the CUDA cores
+# f32-accurate products on the tensor cores: 3xTF32, three TF32 products
+# (495 TFLOP/s) for each f32 one
+PEAK_FLOPS_F32_TC = 495e12 / 3
 HBM_BW = 3.35e12                # bytes/s, HBM3
 NVLINK_BW = 450e9               # bytes/s per direction (the reference's ICI_BW)
 HBM_BYTES = 80e9                # bytes of HBM3 a card

@@ -1,8 +1,9 @@
 """Helpers for the flash-attention tile tests: a plain PyTorch mirror of
-the bf16 tensor-core kernel's arithmetic (``csrc/flash_attention.cu``),
-the kernel's per-warp tile rules written out in Python, and a check that
-a tile plan covers the mask.  PyTorch only, so that the ``cuda`` tests
-that use it also collect on a machine without JAX.
+the tensor-core kernels' arithmetic (``csrc/flash_attention.cu``: bf16,
+and f32 through 3xTF32), the kernels' per-warp tile rules written out in
+Python, and a check that a tile plan covers the mask.  PyTorch only, so
+that the ``cuda`` tests that use it also collect on a machine without
+JAX.
 """
 from __future__ import annotations
 
@@ -12,6 +13,32 @@ from typing import Optional, Tuple
 import torch
 
 LOG2E = 1.4426950408889634
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to tf32 as ``cvt.rna.tf32.f32`` rounds it (to
+    nearest, ties away from zero) with the 13 bits below cleared: add half
+    the dropped range to the bit pattern and clear it."""
+    bits = x.contiguous().view(torch.int32)
+    return torch.bitwise_and(bits + 0x1000, -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32's operand split: x = hi + lo + O(2^-22 |x|), both tf32."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor,
+                 three: bool = True) -> torch.Tensor:
+    """a @ b as the f32 kernel forms it on the tensor cores: hi * hi,
+    plus the cross terms hi * lo + lo * hi summed apart (``three``);
+    without them, one TF32 product."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    if not three:
+        return ah @ bh
+    return ah @ bh + (ah @ bl + al @ bh)
 
 
 def allowed(qpos: int, key: int, Skv: int, causal: bool,
@@ -28,17 +55,10 @@ def block_keys(plan, block: int, H: int, KV: int, Sq: int, Skv: int,
     (``csrc/flash_attention.cu``) decides it: the packed rows it holds
     within its (batch, KV head), and the key tiles it loads, in order."""
     G = H // KV
-    if not plan.mma:
-        per = plan.rows // G                       # f32: whole positions
-        ntq = -(-Sq // per)
-        t = block % ntq
-        first, last = t * per, min(t * per + per, Sq) - 1
-        rows = range(first * G, (last + 1) * G)
-    else:
-        ntq = -(-(Sq * G) // plan.rows)
-        t = ntq - 1 - block % ntq                  # latest first
-        rows = range(t * plan.rows, min(t * plan.rows + plan.rows, Sq * G))
-        first, last = rows[0] // G, rows[-1] // G
+    ntq = -(-(Sq * G) // plan.rows)
+    t = ntq - 1 - block % ntq                      # latest first
+    rows = range(t * plan.rows, min(t * plan.rows + plan.rows, Sq * G))
+    first, last = rows[0] // G, rows[-1] // G
     kmin = max(0, q_offset + first - window + 1) if window else 0
     kmax = min(Skv - 1, q_offset + last) if causal else Skv - 1
     if kmax < kmin:
@@ -63,8 +83,8 @@ def check_plan_covers_mask(fa, plan, B, H, KV, Sq, Skv, window=None,
     """``plan``'s blocks' rows cover the ``Sq * G`` packed rows of every
     (batch, KV head) once, the key tiles a block loads cover every
     (row, key) pair the mask allows exactly once, no tile it loads lies
-    wholly outside the mask, and each warp's skip / edge rule (bf16) drops
-    only pairs the mask refuses.  A bf16 warp of row group g and key slice
+    wholly outside the mask, and each warp's skip / edge rule drops only
+    pairs the mask refuses.  A warp of row group g and key slice
     s takes keys [s * w, s * w + w) of each tile, w = bk // split.  Returns
     the number of tiles the grid loads."""
     G = H // KV
@@ -88,20 +108,18 @@ def check_plan_covers_mask(fa, plan, B, H, KV, Sq, Skv, window=None,
             want = {j for j in range(Skv)
                     if allowed(q_offset + r // G, j, Skv, causal, window)}
             assert want <= keys, (block, r)
-        if plan.mma:
-            for w0 in range(rows[0], rows[-1] + 1, 16):
-                wrows = range(w0, min(w0 + 16, rows[-1] + 1))
-                wlo = q_offset + wrows[0] // G
-                whi = q_offset + wrows[-1] // G
-                for k0 in (t * plan.bk + s * w for t in tiles
-                           for s in range(plan.split)):
-                    skip, edge = warp_tile_flags(k0, w, wlo, whi, Skv,
-                                                 causal, window)
-                    ok = [allowed(q_offset + r // G, key, Skv, causal,
-                                  window)
-                          for r in wrows for key in range(k0, k0 + w)]
-                    assert not (skip and any(ok)), (w0, k0)
-                    assert edge or all(ok), (w0, k0)
+        for w0 in range(rows[0], rows[-1] + 1, 16):
+            wrows = range(w0, min(w0 + 16, rows[-1] + 1))
+            wlo = q_offset + wrows[0] // G
+            whi = q_offset + wrows[-1] // G
+            for k0 in (t * plan.bk + s * w for t in tiles
+                       for s in range(plan.split)):
+                skip, edge = warp_tile_flags(k0, w, wlo, whi, Skv, causal,
+                                             window)
+                ok = [allowed(q_offset + r // G, key, Skv, causal, window)
+                      for r in wrows for key in range(k0, k0 + w)]
+                assert not (skip and any(ok)), (w0, k0)
+                assert edge or all(ok), (w0, k0)
     assert sorted(seen_rows) == list(range(Sq * G))
     return loaded * B * KV
 
@@ -109,22 +127,25 @@ def check_plan_covers_mask(fa, plan, B, H, KV, Sq, Skv, window=None,
 def mirror_flash_attention(fa, q, k, v, *, causal=True, window=None,
                            q_offset=0, split_p=True, round_out=True,
                            plan=None) -> torch.Tensor:
-    """The bf16 kernel's arithmetic in plain PyTorch, on the CPU.
+    """The kernels' arithmetic in plain PyTorch, on the CPU.
 
-    q (B,H,Sq,hd), k, v (B,KV,Skv,hd) in bf16; ``plan`` (default: the
-    tile plan) fixes the blocks.  Block by block, for each key slice of the
-    plan's split (its keys of every tile, tiles in the plan's order): f32
-    scores of the bf16 inputs in log2 units, masked to -inf; online max /
-    denominator / rescale in f32 with a row that has seen no valid key
-    kept at p = 0; each probability rounded to bf16 (hi) and, with
-    ``split_p``, its remainder too (lo), both multiplied into V with f32
-    accumulation.  The slices then merge: slice s's output times
-    exp2(m_s - M) / L, M the largest m_s and L = sum_s exp2(m_s - M) l_s,
-    summed in slice order (zeros where no key was valid), rounded to bf16;
-    with ``round_out=False`` the f32 output before that last rounding."""
+    q (B,H,Sq,hd), k, v (B,KV,Skv,hd) in bf16 or f32; ``plan`` (default:
+    the tile plan) fixes the blocks.  Block by block, for each key slice of
+    the plan's split (its keys of every tile, tiles in the plan's order):
+    f32 scores in log2 units, masked to -inf; online max / denominator /
+    rescale in f32 with a row that has seen no valid key kept at p = 0;
+    P V with f32 accumulation.  bf16: the scores of the bf16 inputs; each
+    probability rounded to bf16 (hi) and, with ``split_p``, its remainder
+    too (lo), both multiplied into V.  f32 (3xTF32): Q K^T and P V each as
+    :func:`tf32_product`, with ``split_p`` its three products, without
+    it one.  The slices then merge: slice s's output times exp2(m_s - M) /
+    L, M the largest m_s and L = sum_s exp2(m_s - M) l_s, summed in slice
+    order (zeros where no key was valid), rounded to q's dtype; with
+    ``round_out=False`` the f32 output before that last rounding."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     G = H // KV
+    f32 = q.dtype == torch.float32
     if plan is None:
         plan = fa.tile_plan(B, H, KV, Sq, Skv, hd, q.dtype, window,
                             q_offset, causal)
@@ -155,7 +176,9 @@ def mirror_flash_attention(fa, q, k, v, *, causal=True, window=None,
                     for t in tiles:
                         k0 = t * bk + sl * w
                         keys = torch.arange(k0, k0 + w)[None]
-                        s = (qp[R] @ kf[b, h, k0:k0 + w].T) * sl2
+                        kt = kf[b, h, k0:k0 + w].T
+                        s = (tf32_product(qp[R], kt, split_p) if f32
+                             else qp[R] @ kt) * sl2
                         ok = keys < Skv
                         if causal:
                             ok = ok & (keys <= qpos)
@@ -168,9 +191,13 @@ def mirror_flash_attention(fa, q, k, v, *, causal=True, window=None,
                         m = mx
                         p = torch.exp2(s - base[:, None])
                         l = l * alpha + p.sum(1)  # noqa: E741
-                        hi = p.to(torch.bfloat16).float()
                         vt = vf[b, h, k0:k0 + w]
-                        o = o * alpha[:, None] + hi @ vt
+                        o = o * alpha[:, None]
+                        if f32:
+                            o = o + tf32_product(p, vt, split_p)
+                            continue
+                        hi = p.to(torch.bfloat16).float()
+                        o = o + hi @ vt
                         if split_p:
                             o = o + (p - hi).to(torch.bfloat16).float() @ vt
                     parts.append((m, l, o))

@@ -5,6 +5,7 @@ runner, on the CPU: the helpers equal the reference's
 plain versions and says so (``plain-cpu``); on the card
 ``test_torch_tools_cuda.py`` holds a CUDA tensor to the kernels."""
 import dataclasses
+import itertools
 import json
 import re
 
@@ -240,6 +241,19 @@ def test_main_path_tables_hold_phase_22s_shapes(monkeypatch):
         ("flash_attention", (B, H, Sq, hd, KV, Skv, win, off)),
         ("flash_decode", (Bd, Hd, hdd, KVd, W))}
     calls.clear()
+    # Table V replays its trace on the cluster's clock; a virtual one that
+    # reads 1 us later at each read (the trace's mean arrival gap at 1e6
+    # requests/s) makes which lanes a round holds independent of the
+    # machine's speed and load
+    from repro_torch.bench import serving
+    from repro_torch.cluster.live import EdgeCluster
+
+    def virtual_clock_cluster(*args, **kwargs):
+        reads = itertools.count()
+        return EdgeCluster(*args, clock=lambda: next(reads) * 1e-6,
+                           **kwargs)
+
+    monkeypatch.setattr(serving, "EdgeCluster", virtual_clock_cluster)
     bench_tablev(device="cpu")
     B, _, _, _, ps, P, W, lens = kbench.PAGED_SHAPES["tablev_round"]
     paged = [c for c in calls if c[0] == "paged_flash_decode"]
