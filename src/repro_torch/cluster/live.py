@@ -48,6 +48,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.cluster.request import Request
 from repro_torch.cluster.schedulers import Scheduler
 from repro_torch.faults import FaultEvent, FaultInjector, RetryPolicy
@@ -231,9 +232,10 @@ class EdgeCluster:
             req.t_arrival = self._clock()
         req.attempts += 1
         s = self.observe(req)
-        eng, self.carry = self.scheduler.select_one_masked(
-            self.carry, s, req.origin, self._count % self.n_max, self._gen,
-            avail)
+        with tracing.span("scheduler.select", rid=req.rid):
+            eng, self.carry = self.scheduler.select_one_masked(
+                self.carry, s, req.origin, self._count % self.n_max,
+                self._gen, avail)
         self._count += 1
         self.engines[eng].admit(req)
         return eng
@@ -362,6 +364,10 @@ class EdgeCluster:
         quarantines it (DOWN, KV reclaimed, requests re-offloaded) unless
         it is a kernel or card fault (``kernel_fault``), which
         propagates."""
+        with tracing.span("cluster.step"):
+            return self._step()
+
+    def _step(self) -> List[Request]:
         now_rel = self._now_rel()
         now = self._clock()
         done: List[Request] = []

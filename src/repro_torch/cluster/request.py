@@ -9,9 +9,16 @@ quality demand z_n (denoising steps / tokens to generate), and the four
 timestamps decompose the measured service delay exactly:
 
     queue_s   = t_prefill_start - t_enqueue        (T_wait, Eqn 3)
-    prefill_s = t_prefill_end   - t_prefill_start  (input compute)
+    prefill_s = t_prefill_end   - t_prefill_start  (to the first token)
     decode_s  = t_finish        - t_prefill_end    (generation compute)
     total_s   = queue_s + prefill_s + decode_s     (== t_finish - t_enqueue)
+
+``prefill_s`` is more than the prompt's own compute.  It runs from the
+dispatch of the prompt's prefill (on the paged path its first chunk) to
+the first token on the host: ``t_prefill_end`` is stamped in
+``ServeEngine.collect`` after the step's blocking copy.  On the paged
+path that spans every step the prompt's chunks shared with other lanes'
+chunks and decode rounds.
 
 ``arrival_s`` is the request's offset in a replayed trace; ``t_arrival``
 is stamped by the closed-loop driver so ``service_s`` additionally counts

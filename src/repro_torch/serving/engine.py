@@ -76,7 +76,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike, resolve_device, tracing
 from repro_torch.cluster.request import Request
 from repro_torch.faults.policy import AVAILABILITY, Health
 from repro_torch.launch import sharding
@@ -175,6 +175,7 @@ class ServeEngine:
             dtype=torch.int32, device=self.device)
         self._ewma_tok_s = 0.0         # measured seconds per decode token
         self._next_rid = 0
+        self.engine_id: Optional[int] = None   # set by EdgeCluster
         self.peak_inflight = 0
         self.decode_rounds = 0         # decode rounds dispatched since reset
         # prefill forward passes dispatched since reset: one per chunk on
@@ -241,12 +242,12 @@ class ServeEngine:
         dense slot, or a lane and enough free pages) opens up."""
         if self.health is Health.DOWN:
             raise RuntimeError(
-                f"engine {getattr(self, 'engine_id', '?')} "
+                f"engine {'?' if self.engine_id is None else self.engine_id} "
                 f"({self.arch_id}) is DOWN"
                 f"{f' ({self.fail_reason})' if self.fail_reason else ''}; "
                 f"cannot admit request {req.rid}")
         req.t_enqueue = self._clock()
-        req.engine_id = getattr(self, "engine_id", None)
+        req.engine_id = self.engine_id
         if req.patches is not None:     # onto the device at admission
             req.patches = (
                 req.patches.to(self.device, non_blocking=True)
@@ -286,8 +287,9 @@ class ServeEngine:
                     return False
         if not self._queue and not self._inflight_requests():
             return False
-        self._pending = (self._dispatch_paged() if self.paged
-                         else self._dispatch_dense())
+        with tracing.span("engine.dispatch", engine=self.engine_id):
+            self._pending = (self._dispatch_paged() if self.paged
+                             else self._dispatch_dense())
         return True
 
     def collect(self) -> List[Request]:
@@ -299,6 +301,10 @@ class ServeEngine:
         first."""
         if self._pending is None:
             return []
+        with tracing.span("engine.collect", engine=self.engine_id):
+            return self._collect()
+
+    def _collect(self) -> List[Request]:
         pend, self._pending = self._pending, None
         finished: List[Request] = []
         parts = [tok for _, tok, _, _ in pend.prefill]
@@ -306,7 +312,8 @@ class ServeEngine:
             parts.append(pend.decode[0])
         if not parts:
             return finished
-        host = torch.cat(parts).cpu().numpy()      # blocks until ready
+        with tracing.span("engine.collect_wait", engine=self.engine_id):
+            host = torch.cat(parts).cpu().numpy()  # blocks until ready
         if pend.decode is not None:
             self._note_round(self._round_t0, len(pend.decode[1]))
 
@@ -400,8 +407,45 @@ class ServeEngine:
 
     def _dispatch_paged(self) -> _Pending:
         pend = _Pending()
+        eid = self.engine_id
         # 1. admission — head-of-line, gated on free pages (worst case
         # reserved up front) and a free lane, in queue (EDF/FIFO) order
+        with tracing.span("engine.admission", engine=eid,
+                          lanes=self.max_lanes) as sp:
+            free = self._admit_paged()
+            held = self.max_lanes - len(free)
+            self._note_inflight(held)
+        if sp is not None:
+            # why admission stopped: the queue ran dry, or its head found
+            # no free lane, or not enough free pages
+            sp.set(held=held, stop=("empty" if not self._queue
+                                    else "lanes" if not free else "pages"))
+
+        # 2. one prefill chunk per still-prefilling lane
+        self._ensure_paged_states()
+        C = self.prefill_chunk
+        for i, lane in enumerate(self._lanes):
+            if lane is None or lane.decoding:
+                continue
+            c0 = lane.chunk_pos
+            n = min(C, lane.prompt_len - c0)      # prompt tokens in it
+            with tracing.span("engine.prefill_chunk", engine=eid,
+                              rid=lane.req.rid, start=c0, tokens=n,
+                              padded=C - n):
+                self._prefill_chunk(i, lane, pend)
+
+        # 3. one decode round across the lanes that finished prefilling;
+        # idle/prefilling lanes ride along masked (null table, length 0)
+        active = [i for i, ln in enumerate(self._lanes)
+                  if ln is not None and ln.decoding]
+        if active:
+            with tracing.span("engine.decode_round", engine=eid):
+                pend.decode = self._decode_round_paged(active)
+        return pend
+
+    def _admit_paged(self) -> List[int]:
+        """Move queued requests onto free lanes while pages allow;
+        returns the lanes still free."""
         free = [i for i, ln in enumerate(self._lanes) if ln is None]
         while free and self._queue:
             req = self._queue[0]
@@ -451,84 +495,78 @@ class ServeEngine:
                 req.prefix_tokens = matched
             self._lanes[i] = _Lane(req=req, table=table, prompt_len=plen,
                                    chunk_pos=matched, length=matched)
-        self._note_inflight(sum(ln is not None for ln in self._lanes))
+        return free
 
-        # 2. one prefill chunk per still-prefilling lane
-        self._ensure_paged_states()
-        C = self.prefill_chunk
-        for i, lane in enumerate(self._lanes):
-            if lane is None or lane.decoding:
-                continue
+    def _prefill_chunk(self, i: int, lane: _Lane, pend: _Pending) -> None:
+        """Enqueue lane ``i``'s next prompt chunk; its last chunk also
+        picks the first token."""
+        req, C = lane.req, self.prefill_chunk
+        if req.t_prefill_start is None:
+            req.t_prefill_start = self._clock()
+        c0 = lane.chunk_pos
+        chunk = np.asarray(req.prompt[..., c0:c0 + C], np.int32)
+        pad = C - chunk.shape[-1]
+        if pad:
+            widths = [(0, 0)] * (chunk.ndim - 1) + [(0, pad)]
+            chunk = np.pad(chunk, widths)
+        row = np.asarray(lane.table.row(self._row_width), np.int32)
+        logits, self._paged_states = self._paged_prefill(
+            self.params,
+            {"tokens": self._to_device(chunk), "start": c0,
+             "block_table": self._to_device(row)},
+            self._paged_states)
+        self.prefills += 1
+        lane.chunk_pos = c0 + C
+        lane.length = min(lane.chunk_pos, lane.prompt_len)
+        if lane.decoding:                      # last chunk of prompt
+            last = lane.prompt_len - 1 - c0
+            tok = self._pick(logits[0, last][None])
+            pos = len(req.tokens)
+            req.tokens.append(tok)
+            lane.last_tok = tok
+            fin = len(req.tokens) >= req.max_new_tokens
+            pend.prefill.append((req, tok, pos, fin))
+            # index the completed prompt blocks before any release so
+            # cached pages carry their reference when the lane lets go
+            if self._prefix is not None:
+                self._prefix.insert(req.prompt, lane.table.pages)
+            if fin:
+                self._free_lane(i)
+
+    def _decode_round_paged(self, active: List[int]):
+        """Enqueue one decode round over every lane, ``active`` ones
+        unmasked; returns the round's device tokens and its entries."""
+        L, W = self.max_lanes, self._row_width
+        rows = [self._zero_tok] * L
+        tables = np.zeros((L, W), np.int32)
+        lengths = np.zeros((L,), np.int32)
+        for i in active:
+            lane = self._lanes[i]
+            rows[i] = lane.last_tok
+            tables[i] = lane.table.row(W)
+            lengths[i] = lane.length
+        self._round_t0 = self._clock()
+        _, tok_all, self._paged_states = self._paged_decode(
+            self.params,
+            {"tokens": self._decode_tokens(torch.stack(rows)),
+             "block_tables": self._to_device(tables),
+             "lengths": self._to_device(lengths)},
+            self._paged_states, self._gen)
+        self.decode_rounds += 1
+        entries = []
+        for i in active:
+            lane = self._lanes[i]
             req = lane.req
-            if req.t_prefill_start is None:
-                req.t_prefill_start = self._clock()
-            c0 = lane.chunk_pos
-            chunk = np.asarray(req.prompt[..., c0:c0 + C], np.int32)
-            pad = C - chunk.shape[-1]
-            if pad:
-                widths = [(0, 0)] * (chunk.ndim - 1) + [(0, pad)]
-                chunk = np.pad(chunk, widths)
-            row = np.asarray(lane.table.row(self._row_width), np.int32)
-            logits, self._paged_states = self._paged_prefill(
-                self.params,
-                {"tokens": self._to_device(chunk), "start": c0,
-                 "block_table": self._to_device(row)},
-                self._paged_states)
-            self.prefills += 1
-            lane.chunk_pos = c0 + C
-            lane.length = min(lane.chunk_pos, lane.prompt_len)
-            if lane.decoding:                      # last chunk of prompt
-                last = lane.prompt_len - 1 - c0
-                tok = self._pick(logits[0, last][None])
-                pos = len(req.tokens)
-                req.tokens.append(tok)
-                lane.last_tok = tok
-                fin = len(req.tokens) >= req.max_new_tokens
-                pend.prefill.append((req, tok, pos, fin))
-                # index the completed prompt blocks before any release so
-                # cached pages carry their reference when the lane lets go
-                if self._prefix is not None:
-                    self._prefix.insert(req.prompt, lane.table.pages)
-                if fin:
-                    self._free_lane(i)
-
-        # 3. one decode round across the lanes that finished prefilling;
-        # idle/prefilling lanes ride along masked (null table, length 0)
-        active = [i for i, ln in enumerate(self._lanes)
-                  if ln is not None and ln.decoding]
-        if active:
-            L, W = self.max_lanes, self._row_width
-            rows = [self._zero_tok] * L
-            tables = np.zeros((L, W), np.int32)
-            lengths = np.zeros((L,), np.int32)
-            for i in active:
-                lane = self._lanes[i]
-                rows[i] = lane.last_tok
-                tables[i] = lane.table.row(W)
-                lengths[i] = lane.length
-            self._round_t0 = self._clock()
-            _, tok_all, self._paged_states = self._paged_decode(
-                self.params,
-                {"tokens": self._decode_tokens(torch.stack(rows)),
-                 "block_tables": self._to_device(tables),
-                 "lengths": self._to_device(lengths)},
-                self._paged_states, self._gen)
-            self.decode_rounds += 1
-            entries = []
-            for i in active:
-                lane = self._lanes[i]
-                req = lane.req
-                tk = tok_all[i:i + 1]              # device slice
-                pos = len(req.tokens)
-                req.tokens.append(tk)
-                lane.last_tok = tk
-                lane.length += 1                   # decode wrote one KV
-                fin = len(req.tokens) >= req.max_new_tokens
-                entries.append((i, req, pos, fin))
-                if fin:
-                    self._free_lane(i)
-            pend.decode = (tok_all, entries)
-        return pend
+            tk = tok_all[i:i + 1]              # device slice
+            pos = len(req.tokens)
+            req.tokens.append(tk)
+            lane.last_tok = tk
+            lane.length += 1                   # decode wrote one KV
+            fin = len(req.tokens) >= req.max_new_tokens
+            entries.append((i, req, pos, fin))
+            if fin:
+                self._free_lane(i)
+        return tok_all, entries
 
     def run_to_completion(self, max_steps: int = 1_000_000) -> List[Request]:
         """Step until queue and lanes drain; returns finished requests."""
