@@ -285,16 +285,20 @@ def chunked_causal_attention(q, k, v, *, window: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 
-def _attend(q, k, v, window, q_offset=0):
-    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H*hd) through the
+def _attend_heads(q, k, v, window, q_offset=0):
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd) -> (B,Sq,H,hd) through the
     kernel wrapper, which takes the heads-first layout as views: its
     differentiable form, which is the kernel call itself unless a
     gradient is taken."""
-    B, Sq, H, hd = q.shape
-    out = kernel_ops.flash_attention_grad(
+    return kernel_ops.flash_attention_grad(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=True, window=window, q_offset=q_offset)
-    return out.transpose(1, 2).reshape(B, Sq, H * hd)
+        causal=True, window=window, q_offset=q_offset).transpose(1, 2)
+
+
+def _attend(q, k, v, window, q_offset=0):
+    """:func:`_attend_heads` with the heads flattened: (B,Sq,H*hd)."""
+    B, Sq, H, hd = q.shape
+    return _attend_heads(q, k, v, window, q_offset).reshape(B, Sq, H * hd)
 
 
 def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
@@ -598,15 +602,14 @@ def _gather_owned(pages: torch.Tensor, block_table: torch.Tensor,
     return torch.where(mine, got, torch.zeros_like(got))
 
 
-def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int,
-                        num_pages: Optional[int] = None
-                        ) -> Tuple[torch.Tensor, dict]:
-    """One prompt chunk through paged attention.  x (1, C, d) holds tokens
-    at absolute positions start..start+C-1 (the tail may be padding).
-
-    Writes the chunk's KV into the pool, then attends the chunk's queries
-    against the full gathered context with absolute causal masking, through
-    ``ops.flash_attention`` with ``q_offset=start``.
+def paged_chunk_inputs(p, cfg, blk, x, cache, block_table, start,
+                       num_pages: Optional[int] = None):
+    """One prompt chunk's attention up to its kernel: the chunk's K/V
+    written into the pool, and the kernel's inputs, the queries q
+    (1, C, Hq, hd) and the gathered context kd, vd (1, W * ps, KVk, hd).
+    x (1, C, d) holds tokens at absolute positions start..start+C-1 (the
+    tail may be padding); ``start`` is an int or a 0-d integer tensor on
+    the pool's device (a captured graph reads it there).
 
     On a mesh whose data ranks cut the pool into page blocks
     (``num_pages`` the whole pool's size; :func:`_pages`), each rank
@@ -639,8 +642,31 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int,
         kv = sharding.all_reduce(torch.stack([kd, vd]), mesh,
                                  sharding.data_axes(mesh))
         kd, vd = kv[0], kv[1]
-    out = _out(p, cfg, _attend(q, kd, vd, None, q_offset=start))
-    return out, cache
+    return q, kd, vd
+
+
+def paged_chunk_attend(q, kd, vd, start: int) -> torch.Tensor:
+    """The chunk's causal attention through ``ops.flash_attention`` with
+    ``q_offset=start``: (1, C, Hq, hd)."""
+    return _attend_heads(q, kd, vd, None, q_offset=start)
+
+
+def paged_chunk_out(p, cfg, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of the chunk's attention ``o`` (1, C, Hq,
+    hd): (1, C, d)."""
+    return _out(p, cfg, o.flatten(2))
+
+
+def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int,
+                        num_pages: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, dict]:
+    """One prompt chunk through paged attention: :func:`paged_chunk_inputs`
+    writes the chunk's KV into the pool and gathers the full context, and
+    the chunk's queries attend it with absolute causal masking through
+    ``ops.flash_attention`` with ``q_offset=start``."""
+    q, kd, vd = paged_chunk_inputs(p, cfg, blk, x, cache, block_table, start,
+                                   num_pages)
+    return paged_chunk_out(p, cfg, paged_chunk_attend(q, kd, vd, start)), cache
 
 
 def _owned_table(block_tables: torch.Tensor, n: torch.Tensor, ps: int,
@@ -677,6 +703,40 @@ def _cut_pool_decode(q, cache, block_tables, n, lo: int):
     return kernel_ops.decode_merge(acc, m, l, q.dtype)
 
 
+def paged_decode_query(p, cfg, blk, x, cache, block_tables, lengths,
+                       num_pages: Optional[int] = None):
+    """A decode round's attention up to its kernel: each lane's new K/V
+    written at position lengths[b], and (q (B, H, hd), the rank's page
+    block or None; see :func:`paged_decode`)."""
+    q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)
+    ps = cache["k_pages"].shape[2]
+    page = _page_of(block_tables, lengths[:, None], ps)[:, 0]   # (B,)
+    slot = lengths.long() % ps
+    q = q[:, 0].contiguous()
+    block = _pages(cache, num_pages)
+    if block is None:
+        dtype = cache["k_pages"].dtype
+        cache["k_pages"][page, :, slot] = k[:, 0].to(dtype)
+        cache["v_pages"][page, :, slot] = v[:, 0].to(dtype)
+    else:
+        _put_owned(cache["k_pages"], page, slot, k[:, 0], block[0])
+        _put_owned(cache["v_pages"], page, slot, v[:, 0], block[0])
+    return q, block
+
+
+def paged_decode_attend(q, cache, block_tables, n) -> torch.Tensor:
+    """The round's attention of each lane over its first ``n`` (B,)
+    positions through ``ops.paged_flash_decode``: (B, H, hd)."""
+    return kernel_ops.paged_flash_decode(q, cache["k_pages"],
+                                         cache["v_pages"], block_tables, n)
+
+
+def paged_decode_out(p, cfg, o: torch.Tensor, dtype) -> torch.Tensor:
+    """The output projection of the round's attention ``o`` (B, H, hd):
+    (B, 1, d) in ``dtype``."""
+    return _out(p, cfg, o.reshape(o.shape[0], 1, -1).to(dtype))
+
+
 def paged_decode(p, cfg, blk, x, cache, block_tables, lengths,
                  num_pages: Optional[int] = None
                  ) -> Tuple[torch.Tensor, dict]:
@@ -696,25 +756,12 @@ def paged_decode(p, cfg, blk, x, cache, block_tables, lengths,
     over the lane's pages in its block, the f32 partials are all-gathered
     over the data axes, and the merge pass alone (``ops.decode_merge``)
     combines them.  Rank 0 holds the null page."""
-    B = x.shape[0]
-    hd = cfg.head_dim
-    q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)
-    ps = cache["k_pages"].shape[2]
-    page = _page_of(block_tables, lengths[:, None], ps)[:, 0]   # (B,)
-    slot = lengths.long() % ps
-    q = q[:, 0].contiguous()
-    block = _pages(cache, num_pages)
+    q, block = paged_decode_query(p, cfg, blk, x, cache, block_tables,
+                                  lengths, num_pages)
     if block is None:
-        dtype = cache["k_pages"].dtype
-        cache["k_pages"][page, :, slot] = k[:, 0].to(dtype)
-        cache["v_pages"][page, :, slot] = v[:, 0].to(dtype)
-        out = kernel_ops.paged_flash_decode(q, cache["k_pages"],
-                                            cache["v_pages"], block_tables,
-                                            lengths + 1)
+        out = paged_decode_attend(q, cache, block_tables, lengths + 1)
     else:
-        _put_owned(cache["k_pages"], page, slot, k[:, 0], block[0])
-        _put_owned(cache["v_pages"], page, slot, v[:, 0], block[0])
+        ps = cache["k_pages"].shape[2]
         n = torch.clamp(lengths + 1, max=block_tables.shape[1] * ps)
         out = _cut_pool_decode(q, cache, block_tables, n, block[0])
-    out = out.reshape(B, 1, cfg.num_heads * hd).to(x.dtype)
-    return _out(p, cfg, out), cache
+    return paged_decode_out(p, cfg, out, x.dtype), cache

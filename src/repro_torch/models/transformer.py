@@ -209,17 +209,23 @@ def _apply_block(cfg, blk, p, x, positions, state, mode, max_len=None,
         mix, new_state = attention.paged_decode(
             p["mixer"], cfg, blk, h, state, paged["block_tables"],
             paged["lengths"], num_pages=paged["num_pages"])
-    x = x + mix
+    x, aux = _feed_forward(cfg, blk, p, x + mix, mode)
+    return x, new_state, aux
+
+
+def _feed_forward(cfg, blk, p, x, mode):
+    """The block's residual feed-forward after its mixer: (x_out, aux),
+    ``aux`` None unless the block is MoE."""
     if blk.ffn == "none":
-        return x, new_state, None
+        return x, None
     h2 = rmsnorm(p["norm2"], x, cfg.norm_eps)
     if blk.ffn == "dense":
-        return x + apply_mlp(p["ffn"], h2, cfg.d_ff), new_state, None
+        return x + apply_mlp(p["ffn"], h2, cfg.d_ff), None
     # a decode row is one slot's batch-1 decode in the reference; a step
     # whose rows are split over ranks routes the gathered rows
     groups = x.shape[0] * sharding.batch_ranks() if mode == "decode" else 1
     y, aux = moe.apply_moe(p["ffn"], cfg, h2, groups=groups)
-    return x + y, new_state, aux
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -441,6 +447,48 @@ def _forward(params, cfg, inputs, mode, states, max_len) -> dict:
                 "states": new_states, "aux": aux}
     return {"logits": apply_head(params, cfg, x)[:, 0], "states": new_states,
             "aux": aux}
+
+
+def paged_segment(params, cfg, inputs: dict, mode: str, states, i: int,
+                  x: Optional[torch.Tensor] = None,
+                  o: Optional[torch.Tensor] = None):
+    """Segment ``i`` of the meshless paged forward cut at its L attention
+    kernels, for i in 0..L: layer i-1's attention output projection of
+    its kernel's output ``o``, its residual and feed-forward on the
+    residual stream ``x`` (i > 0), then layer i's norm and attention up to
+    its kernel (i < L), or the final norm and the head (i = L).
+
+    ``inputs`` are the paged mode's (:func:`forward`), with a chunk's
+    ``start`` an int or a 0-d integer tensor on the device.  Returns
+    ``(x, kernel inputs)`` for i < L: a chunk's (q, kd, vd)
+    (``attention.paged_chunk_inputs``), a round's (q,)
+    (``attention.paged_decode_query``); for i = L the chunk's logits
+    (1, C, V) or the round's (B, V).  Segment 0, then each layer's
+    kernel (``attention.paged_chunk_attend`` / ``paged_decode_attend``)
+    followed by the next segment, computes what :func:`forward` does."""
+    layers = cfg.layer_pattern()
+    prefill = mode == "paged_prefill"
+    if i == 0:
+        x = embed_inputs(params, cfg, inputs, inputs["start"] if prefill
+                         else inputs["lengths"][:, None])
+    else:
+        blk, p = layers[i - 1], params["layers"][i - 1]
+        mix = (attention.paged_chunk_out(p["mixer"], cfg, o) if prefill
+               else attention.paged_decode_out(p["mixer"], cfg, o, x.dtype))
+        x, _ = _feed_forward(cfg, blk, p, x + mix, mode)
+    if i == len(layers):
+        logits = apply_head(params, cfg, x)
+        return logits if prefill else logits[:, 0]
+    blk, p = layers[i], params["layers"][i]
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    if prefill:
+        return x, attention.paged_chunk_inputs(
+            p["mixer"], cfg, blk, h, states[i], inputs["block_table"],
+            inputs["start"])
+    q, _ = attention.paged_decode_query(p["mixer"], cfg, blk, h, states[i],
+                                        inputs["block_tables"],
+                                        inputs["lengths"])
+    return x, (q,)
 
 
 def config_for_shape(cfg, shape):

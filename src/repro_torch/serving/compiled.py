@@ -12,7 +12,10 @@ report names the layout each layer used): the layers compute on the
 rank's placed weights, the dense decode round on the rank's block
 of a slot pool cut over "data" (``launch.sharding.pool_pspecs``), and
 the paged steps on the rank's block of pages
-(``launch.sharding.page_block``).
+(``launch.sharding.page_block``).  Without a mesh the paged steps are
+:class:`~repro_torch.serving.graphs.PiecewiseStep`: replayed from CUDA
+graphs cut at the attention kernels on the card, eager elsewhere; their
+calls by kind are ``cache_info()["graphs"]``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.launch import sharding
 from repro_torch.models.transformer import forward
+from repro_torch.serving.graphs import PiecewiseStep
 from repro_torch.train.steps import (make_decode_step,
                                      make_paged_decode_step,
                                      make_paged_prefill_step,
@@ -42,8 +46,11 @@ def _get(key: Tuple, build: Callable[[], Callable]) -> Callable:
 
 
 def cache_info() -> Dict[str, Any]:
-    """Snapshot for tests and diagnostics: entry keys and hit counts."""
-    return {"size": len(_CACHE), "keys": list(_CACHE), **_STATS}
+    """Snapshot for tests and diagnostics: entry keys and hit counts, and
+    each paged step's graph captures, replays and eager calls by key."""
+    return {"size": len(_CACHE), "keys": list(_CACHE), **_STATS,
+            "graphs": {key: dict(fn.counts) for key, fn in _CACHE.items()
+                       if isinstance(fn, PiecewiseStep)}}
 
 
 def clear_cache() -> None:
@@ -170,20 +177,26 @@ def make_pool_decode(cfg, kv_slots: int, sample: bool, temperature: float,
 def paged_prefill_step(cfg, num_pages: int, page_size: int,
                        mesh=None) -> Callable:
     """One-chunk paged prefill; writes the shared page pools in place."""
-    return _get(("paged_prefill", cfg, num_pages, page_size, mesh),
-                lambda: _on(mesh, make_paged_prefill_step(
-                    cfg, num_pages=num_pages)))
+    def build():
+        step = make_paged_prefill_step(cfg, num_pages=num_pages)
+        return (PiecewiseStep(cfg, "paged_prefill", step) if mesh is None
+                else _on(mesh, step))
+
+    return _get(("paged_prefill", cfg, num_pages, page_size, mesh), build)
 
 
 def paged_decode_step(cfg, num_pages: int, page_size: int, sample: bool,
                       temperature: float, mesh=None) -> Callable:
     """Paged decode round; writes the page pools in place."""
-    return _get(
-        ("paged_decode", cfg, num_pages, page_size, sample, temperature,
-         mesh),
-        lambda: _on(mesh, make_paged_decode_step(
-            cfg, sample=sample, temperature=temperature,
-            num_pages=num_pages)))
+    def build():
+        step = make_paged_decode_step(cfg, sample=sample,
+                                      temperature=temperature,
+                                      num_pages=num_pages)
+        return (PiecewiseStep(cfg, "paged_decode", step, sample, temperature)
+                if mesh is None else _on(mesh, step))
+
+    return _get(("paged_decode", cfg, num_pages, page_size, sample,
+                 temperature, mesh), build)
 
 
 def page_copy_step(cfg, num_pages: int, page_size: int,

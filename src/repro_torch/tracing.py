@@ -14,7 +14,9 @@ and collect with its blocking copy)::
 null context whose ``__enter__`` gives ``None``.  No clock is read, no
 span is made and nothing is kept, so a boundary costs a function call
 and the evaluation of its arguments.  Work done only for the tracer
-sits under ``if sp is not None``.
+sits under ``if sp is not None``; code that does not hold the span (a
+step callable inside the engine's) sets attributes on the innermost open
+one with :func:`note`.
 
 **On** (:func:`enable`) each span reads ``time.monotonic_ns()`` at its
 start and end: the clock of ``time.monotonic``, which ``ServeEngine``,
@@ -41,7 +43,7 @@ PREFIX = "rt:"
 
 _on = False
 _spans: List[Dict] = []
-_stack: List[int] = []
+_stack: List["_Span"] = []
 _ids = itertools.count(1)
 
 
@@ -74,8 +76,8 @@ class _Span:
 
     def __enter__(self) -> "_Span":
         self.id = next(_ids)
-        self.parent = _stack[-1] if _stack else None
-        _stack.append(self.id)
+        self.parent = _stack[-1].id if _stack else None
+        _stack.append(self)
         if torch._C._autograd._profiler_enabled():
             self._range = torch.profiler.record_function(PREFIX + self.name)
             self._range.__enter__()
@@ -98,6 +100,14 @@ def span(name: str, **attrs):
     if not _on:
         return _NULL
     return _Span(name, attrs)
+
+
+def note(**attrs) -> None:
+    """Attributes of the innermost open span, set from code that does
+    not hold it (a step callable inside the engine's span); nothing when
+    off or when no span is open."""
+    if _on and _stack:
+        _stack[-1].attrs.update(attrs)
 
 
 def enable() -> None:
