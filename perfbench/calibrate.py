@@ -51,11 +51,12 @@ def main() -> None:
                "sampled_tokens": int(sum(len(r.tokens) for r in sample)),
                "placements": len(rec["placements"])}
         t1 = time.perf_counter()
-        row["logit_gap"] = check.logit_gap(served.weights, served.spec,
-                                           sample)
+        row["logit_gap"] = check.logit_gap(cell.kind, served.weights,
+                                           served.spec, sample)
         row["ref_s"] = time.perf_counter() - t1
         row["control_logit_gap"] = check.logit_gap(
-            served.weights, served.spec, sample, precision="fp8")
+            cell.kind, served.weights, served.spec, sample,
+            precision="fp8")
         sch = cell.conf["scheduler"]
         prog = check.denoise_err(rec["placements"], rec["requests"],
                                  served.actor, sch)

@@ -2,10 +2,10 @@
 timed path, held to the plain references after the window.
 
 * ``logit_gap``: a sample of the finished requests, drawn from the seed,
-  with the longest in it.  The reference reads each prompt with its
-  served tokens and gives the widest gap by which a served (greedy)
-  token's logit lies below its best; infinite where a gap is not
-  finite.
+  with the longest in it.  The reference, the configuration's kind's
+  ``logits_at``, reads each prompt with its served tokens and gives the
+  widest gap by which a served (greedy) token's logit lies below its
+  best; infinite where a gap is not finite.
 * ``denoise_err``: every LAD-TS placement of the window, its reverse
   chain recomputed in float64 from the harness's own actor (drawn from
   the configuration, never read back from the program), a latent store
@@ -58,17 +58,18 @@ def token_inputs(sample: List):
     return seqs, firsts, toks
 
 
-def logit_gap(weights, spec: Dict, sample: List,
+def logit_gap(kind, weights, spec: Dict, sample: List,
               precision: str = "fp32") -> Optional[float]:
     """The widest gap of the sample's served tokens (``precision`` fp32),
     or, for the control (``fp8``), of the token the control's logits put
-    first at each of the same positions."""
+    first at each of the same positions; the logits are the model kind's
+    reference (``kind.logits_at``)."""
     if not sample:
         return None
     seqs, firsts, toks = token_inputs(sample)
-    ref = decoder.logits_at(weights, spec, seqs, firsts)
+    ref = kind.logits_at(weights, spec, seqs, firsts, "fp32")
     if precision != "fp32":
-        low = decoder.logits_at(weights, spec, seqs, firsts, precision)
+        low = kind.logits_at(weights, spec, seqs, firsts, precision)
         toks = [lo.argmax(-1) for lo in low]
         del low
     gaps = torch.cat([decoder.served_gaps(r, torch.as_tensor(

@@ -5,6 +5,13 @@ result line.
 ``serve()`` and ``judge()`` are its parts; the CPU tests drive them at
 reduced sizes (``Options.shrink``) and never reach ``result()``, which
 refuses to report without a card.
+
+The model is the configuration's kind (``models/<kind>.py``, every
+function of ``KIND_FUNCS``).  In a traced run the readers of the cell's
+per-layer metrics may hook the run: each distinct ``prepare(served)``
+runs before the engines are built, ``begin(served)`` after the warm-up
+and ``collect(served, rec)`` when the window has drained, before the
+probes are restored.  An untraced run calls none.
 """
 from __future__ import annotations
 
@@ -27,6 +34,10 @@ from perfbench.trace import SubWindow
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+KIND_FUNCS = ("spec", "model_config", "make_weights", "copy_weights",
+              "engine_params", "weight_bytes", "page_bytes", "logits_at",
+              "flops")
+HOOKS = ("prepare", "begin", "collect")
 # the profiled sub-window: whole steps from this share of the window on,
 # for this many seconds
 TRACE_AT = 0.3
@@ -48,13 +59,41 @@ class Cell:
     end_to_end: List[Dict]
     per_layer: List[Dict]
     root: Path = REPO
+    kind: object = None      # the configuration's model kind, if not given
+
+    def __post_init__(self):
+        if self.kind is None:
+            self.kind = model_kind(self.conf["model"], self.root)
+
+
+def _exec(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def model_kind(name: str, root: Path = REPO):
+    """``perfbench/models/<name>.py``, which has to define every function
+    of ``KIND_FUNCS``."""
+    path = Path(root) / "perfbench" / "models" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"model kind {name!r}: no file {path}")
+    mod = _exec(path, "perfbench_model_" + name.replace(".", "_")
+                .replace("-", "_"))
+    missing = [f for f in KIND_FUNCS if not callable(getattr(mod, f, None))]
+    if missing:
+        raise AttributeError(f"model kind {name!r}: {path} defines no "
+                             f"{', '.join(missing)}")
+    return mod
 
 
 def load_cell(name: str, root: Path = REPO) -> Cell:
     """The cell ``name`` of ``<root>/BENCHMARK.json``: its configuration
-    file, its traffic mix ``perfbench/traffic/<traffic>.json``, its
-    limits ``perfbench/limits/<cell>.json`` (empty when there are none
-    yet) and the metrics it reports."""
+    file with its model kind (checked here), its traffic mix
+    ``perfbench/traffic/<traffic>.json``, its limits
+    ``perfbench/limits/<cell>.json`` (empty when there are none yet) and
+    the metrics it reports."""
     root = Path(root)
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
@@ -63,7 +102,11 @@ def load_cell(name: str, root: Path = REPO) -> Cell:
                        f"{sorted(cells)}")
     w = cells[name]
     confs = {c["name"]: c for c in bench["configs"]}
-    conf = model.load(root / confs[w["config"]]["file"])
+    conf_path = root / confs[w["config"]]["file"]
+    conf = model.load(conf_path)
+    if "model" not in conf:
+        raise KeyError(f"{conf_path}: no \"model\" key naming its kind "
+                       f"in perfbench/models/")
     here = root / "perfbench"
     mix = traffic.load(here / "traffic" / f"{w['traffic']}.json")
     lim_path = here / "limits" / f"{name}.json"
@@ -80,16 +123,31 @@ def load_cell(name: str, root: Path = REPO) -> Cell:
     return Cell(name, int(w["chips"]), conf, mix, limits, e2e, per, root)
 
 
+def _reader(metric: str, root: Path):
+    path = Path(root) / "perfbench" / "readers" / f"{metric}.py"
+    return _exec(path, "perfbench_reader_" + metric.replace(".", "_")
+                 .replace("-", "_"))
+
+
 def reader(metric: str, root: Path = REPO
            ) -> Callable[[Dict], Optional[float]]:
     """``perfbench/readers/<metric>.py``'s ``read``."""
-    path = Path(root) / "perfbench" / "readers" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_reader_" + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _reader(metric, root).read
+
+
+def reader_hooks(cell: Cell) -> Dict[str, List[Callable]]:
+    """The hooks that the readers of the cell's per-layer metrics define
+    (``HOOKS``), each distinct function once, in the order of
+    ``BENCHMARK.json``.  Whatever a hook patches is undone by
+    ``Probes.restore`` (``Probes._patch`` or ``Probes.on_restore``)."""
+    hooks: Dict[str, List[Callable]] = {h: [] for h in HOOKS}
+    for m in cell.per_layer:
+        mod = _reader(m["name"], cell.root)
+        for h in HOOKS:
+            fn = getattr(mod, h, None)
+            if fn is not None and fn not in hooks[h]:
+                hooks[h].append(fn)
+    return hooks
 
 
 # ---------------------------------------------------------------------------
@@ -103,7 +161,7 @@ class Options:
     seconds: float
     trace: bool = False
     device: str = "cuda"
-    shrink: Optional[Dict] = None      # CPU rehearsal: the decoder's sizes
+    shrink: Optional[Dict] = None      # CPU rehearsal: the model's sizes
     num_pages: Optional[int] = None    # the file's unless given
     rate: Optional[float] = None       # the mix's unless given (the sweep)
     sample: Optional[int] = None       # the limits file's unless given
@@ -121,6 +179,8 @@ class Served:
     cluster: object
     probes: Probes
     actor: Dict      # the reference's copy: theta [(w, b)], X
+    hooks: Dict[str, List[Callable]] = dataclasses.field(
+        default_factory=dict)
 
 
 def setup(cell: Cell, opts: Options,
@@ -128,20 +188,22 @@ def setup(cell: Cell, opts: Options,
     """Weights from the seed, the LAD-TS actor from the configuration's
     ``actor_seed`` (one deployed policy for every run), the edge pair's
     engines, the cluster; the probes installed; every shape of the cell
-    warmed.  ``breakage(served)`` (the fault test) runs last."""
+    warmed; in a traced run the readers' ``prepare`` hooks before the
+    engines are built and their ``begin`` hooks after the warm-up.
+    ``breakage(served)`` (the fault test) runs last."""
     from repro_torch.cluster.live import EdgeCluster
     from repro_torch.serving.engine import ServeEngine
 
-    conf, serve_c = cell.conf, cell.conf["serve"]
+    conf, serve_c, kind = cell.conf, cell.conf["serve"], cell.kind
     dev = torch.device(opts.device)
-    spec = model.spec(conf, opts.shrink)
-    cfg = model.model_config(conf, spec)
+    spec = kind.spec(conf, opts.shrink)
+    cfg = kind.model_config(conf, spec)
     num_pages = opts.num_pages or serve_c["num_pages"]
     if not num_pages:
         raise ValueError(f"{conf['name']}: no num_pages (size_pool.py)")
     E = serve_c["engines"]
-    w0 = model.make_weights(spec, opts.seed, dev)
-    weights = [w0] + [model.copy_weights(w0) for _ in range(E - 1)]
+    w0 = kind.make_weights(spec, opts.seed, dev)
+    weights = [w0] + [kind.copy_weights(w0) for _ in range(E - 1)]
     probes = Probes(timing=opts.trace)
     actor = model.make_actor(conf["scheduler"], dev)
     # the reference's copy, taken before the program holds the actor
@@ -152,22 +214,28 @@ def setup(cell: Cell, opts: Options,
     scheduler = policy(conf["scheduler"], actor, dev)
     probes.install_steps()
     probes.install_kernels()
-    engines = [ServeEngine(cfg, model.engine_params(spec, w), paged=True,
-                           max_len=serve_c["max_len"],
-                           max_lanes=serve_c["lanes"],
-                           page_size=serve_c["page_size"],
-                           num_pages=num_pages,
-                           prefill_chunk=serve_c["prefill_chunk"],
-                           prefix_cache=serve_c["prefix_cache"],
-                           arch_id=conf["port_arch"], device=dev,
-                           seed=opts.seed + i)
-               for i, w in enumerate(weights)]
-    cluster = EdgeCluster(engines, scheduler, seed=opts.seed)
+    served = Served(cell, opts, spec, cfg, w0, [], scheduler, None, probes,
+                    ref_actor, reader_hooks(cell) if opts.trace else {})
+    for hook in served.hooks.get("prepare", ()):
+        hook(served)
+    engines = served.engines
+    engines.extend(ServeEngine(cfg, kind.engine_params(spec, w), paged=True,
+                               max_len=serve_c["max_len"],
+                               max_lanes=serve_c["lanes"],
+                               page_size=serve_c["page_size"],
+                               num_pages=num_pages,
+                               prefill_chunk=serve_c["prefill_chunk"],
+                               prefix_cache=serve_c["prefix_cache"],
+                               arch_id=conf["port_arch"], device=dev,
+                               seed=opts.seed + i)
+                   for i, w in enumerate(weights))
+    cluster = served.cluster = EdgeCluster(engines, scheduler,
+                                           seed=opts.seed)
     warm(engines, cluster, spec, serve_c["prefill_chunk"])
     probes.install_engines(engines)
     probes.install_scheduler(cluster.scheduler)
-    served = Served(cell, opts, spec, cfg, w0, engines, scheduler, cluster,
-                    probes, ref_actor)
+    for hook in served.hooks.get("begin", ()):
+        hook(served)
     if breakage is not None:
         breakage(served)
     return served
@@ -306,9 +374,12 @@ def serve(served: Served, reqs: List, t_start: float) -> Dict:
 
 
 def settle(served: Served, reqs: List, rec: Dict) -> Dict:
-    """What the readers and the check need, read off the program; then
-    the program's engines and pools are let go."""
+    """What the readers and the check need, read off the program (first
+    by the readers' ``collect`` hooks in a traced run); then the probes
+    are restored and the program's engines and pools let go."""
     probes = served.probes
+    for hook in served.hooks.get("collect", ()):
+        hook(served, rec)
     rec["requests"] = reqs[:rec["submitted"]]
     rec["prefill_calls"] = probes.prefill
     rec["decode_calls"] = probes.decode
@@ -317,6 +388,7 @@ def settle(served: Served, reqs: List, rec: Dict) -> Dict:
                           for c in probes.paged]
     rec["placements"] = check.placements_to_host(probes.placements)
     rec["spec"] = served.spec
+    rec["kind"] = served.cell.kind
     rec["serve"] = served.cell.conf["serve"]
     probes.restore()
     served.engines.clear()
@@ -339,8 +411,8 @@ def judge(served: Served, rec: Dict) -> Dict:
     cell, opts = served.cell, served.opts
     k = opts.sample or cell.limits.get("sample", 16)
     sample = check.pick_sample(finished(rec), k, opts.seed)
-    numbers = {"logit_gap": check.logit_gap(served.weights, served.spec,
-                                            sample)}
+    numbers = {"logit_gap": check.logit_gap(cell.kind, served.weights,
+                                            served.spec, sample)}
     numbers.update(check.denoise_err(rec["placements"], rec["requests"],
                                      served.actor, cell.conf["scheduler"]))
     numbers["sampled"] = len(sample)

@@ -25,8 +25,9 @@ def delays_s(rec: Dict) -> np.ndarray:
 
 
 def host_ms(calls) -> Optional[float]:
-    """Mean host milliseconds of the calls made outside the profiled
-    sub-window (the profiler slows the host inside it)."""
+    """Mean host milliseconds of the window's calls (``Probes`` keeps no
+    warm-up call) made outside the profiled sub-window (the profiler
+    slows the host inside it)."""
     return _mean(d * 1e3 for _, d, traced in calls if not traced)
 
 
@@ -89,19 +90,17 @@ def paged_decode_roofline(rec: Dict) -> Optional[float]:
 
 
 def model_flops(rec: Dict) -> float:
-    """Model FLOPs of the work the run did: the prompt tokens prefilled
-    (past any cached prefix) and the tokens decoded, each attending every
-    earlier position and itself.  A prompt counts once its last chunk ran
-    (its first token was produced)."""
-    spec, total = rec["spec"], 0.0
+    """Model FLOPs of the work the run did, as the model kind counts them
+    (``rec["kind"].flops``): the prompt tokens prefilled (past any cached
+    prefix) and the tokens decoded, positions ``prefix .. prompt +
+    served - 2``.  A prompt counts once its last chunk ran (its first
+    token was produced)."""
+    spec, flops, total = rec["spec"], rec["kind"].flops, 0.0
     for r in rec["requests"]:
         n = len(r.tokens)
         if not n:
             continue
-        plen = r.prompt.shape[-1]
-        tokens = plen - r.prefix_tokens + n - 1
-        keys = roofline.span_keys(r.prefix_tokens, plen + n - 1)
-        total += roofline.sequence_flops(spec, tokens, keys)
+        total += flops(spec, r.prefix_tokens, r.prompt.shape[-1] + n - 1)
     return total
 
 

@@ -4,12 +4,17 @@ outside: nothing in the port is edited.
 * always: each LAD-TS placement's observation, draws, the kernel's x_0
   and the action, kept by reference for the check;
 * with ``timing``: host time of every call to the paged prefill and
-  decode step callables (the factories in ``serving/compiled.py`` are
-  wrapped before the engines are built), and, inside the profiled
+  decode step callables made in the window (the factories in
+  ``serving/compiled.py`` are wrapped before the engines are built; the
+  warm-up's calls, which capture the CUDA graphs and in a checkout's
+  first run build the kernels, are set-up and not kept), and, inside the profiled
   sub-window, the shapes of every ``flash_attention`` and
   ``paged_flash_decode`` call and a ``pb:<phase>`` range around each
   host phase (placement, admission, prefill enqueue, decode enqueue,
   collect, waiting for an arrival) for the trace to name idle gaps by.
+
+A reader's hooks (``harness.reader_hooks``) add their own instruments
+the same way, and :meth:`restore` undoes them with the rest.
 """
 from __future__ import annotations
 
@@ -44,17 +49,23 @@ class Probes:
         setattr(obj, name, new)
         self._undo.append(lambda: setattr(obj, name, old))
 
+    def on_restore(self, undo: Callable[[], None]) -> None:
+        """Have :meth:`restore` call ``undo`` (a reader's hook that
+        changes the program's state other than by :meth:`_patch`)."""
+        self._undo.append(undo)
+
     def restore(self) -> None:
         while self._undo:
             self._undo.pop()()
 
     def _timed(self, fn, sink: List[tuple], label: str):
         def call(*args, **kw):
-            traced = self.profiling
+            traced, kept = self.profiling, self.recording
             t = time.perf_counter()
             with self.phase(label):
                 out = fn(*args, **kw)
-            sink.append((t, time.perf_counter() - t, traced))
+            if kept:
+                sink.append((t, time.perf_counter() - t, traced))
             return out
         return call
 

@@ -1,17 +1,17 @@
 """The yardstick's arithmetic: the H100's peaks, the bytes and FLOPs of a
-kernel call counted from its shapes, and a model's FLOPs per token.
+kernel call counted from its shapes, and the keys a span of positions
+attends.  A model's own FLOPs are its kind's (``models/<kind>.py``'s
+``flops``).
 
 Frozen copies of the port's own counts (``repro_torch/bench/kernels.py``
 ``bound`` and its per-call counts, ``repro_torch/launch/mesh.py``'s
-peaks, ``repro_torch/configs/base.py``'s ``param_count`` and
-``repro_torch/roofline/analysis.py``'s ``model_flops``), kept here so
-that a later change to the program cannot move the yardstick.
-``test_perfbench_roofline.py`` holds them to the originals at each
-cell's shapes.
+peaks), kept here so that a later change to the program cannot move the
+yardstick.  ``test_perfbench_roofline.py`` holds them to the originals
+at each cell's shapes.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -64,51 +64,6 @@ def paged_decode_cost(B: int, H: int, KV: int, hd: int, page_size: int,
     nbytes = (2 * B * H * hd * elem + 2 * ctx * KV * hd * elem
               + B * W * 4 + B * 4)
     return nbytes, 4 * ctx * H * hd
-
-
-# ---------------------------------------------------------------------------
-# model FLOPs
-# ---------------------------------------------------------------------------
-
-
-def param_count(spec: Dict) -> int:
-    """Parameters of a dense decoder of ``spec`` (``model.spec``'s keys),
-    as the port's ``ModelConfig.param_count`` counts them: the embedding,
-    the head unless tied, per layer the q/k/v/o projections, the MLP (3
-    matrices gated, 2 not) and two norm scales; QKV biases and the final
-    norm are not counted."""
-    d, f, V = spec["d_model"], spec["d_ff"], spec["vocab"]
-    H, KV, hd = spec["heads"], spec["kv_heads"], spec["head_dim"]
-    n = V * d + (0 if spec["tied"] else d * V)
-    per_layer = (d * H * hd + 2 * d * KV * hd + H * hd * d
-                 + (3 if spec["gated"] else 2) * d * f + 2 * d)
-    return n + spec["layers"] * per_layer
-
-
-def model_flops(spec: Dict, kind: str, tokens: int) -> float:
-    """``roofline/analysis.py``'s MODEL_FLOPS: 6 N D to train, 2 N D to
-    infer, N the parameters, D the tokens."""
-    n = param_count(spec)
-    return (6.0 if kind == "train" else 2.0) * n * tokens
-
-
-def matmul_params(spec: Dict) -> int:
-    """The parameters a token multiplies: every projection and MLP
-    matrix, and the head (the embedding matrix itself where tied); not
-    the embedding lookup, the norms or the biases."""
-    d, f, V = spec["d_model"], spec["d_ff"], spec["vocab"]
-    H, KV, hd = spec["heads"], spec["kv_heads"], spec["head_dim"]
-    per_layer = (d * H * hd + 2 * d * KV * hd + H * hd * d
-                 + (3 if spec["gated"] else 2) * d * f)
-    return spec["layers"] * per_layer + d * V
-
-
-def sequence_flops(spec: Dict, tokens: int, keys: int) -> float:
-    """Model FLOPs of ``tokens`` tokens that attend ``keys`` keys in all:
-    2 per matmul parameter per token, and in every layer 4 per head
-    dimension per query head per key (scores and the weighted sum)."""
-    return (2.0 * matmul_params(spec) * tokens
-            + 4.0 * spec["head_dim"] * spec["heads"] * spec["layers"] * keys)
 
 
 def span_keys(first: int, last: int) -> int:

@@ -9,7 +9,9 @@ peak allocated bytes net of the weights and the pools.  The pool then
 holds what ``memory_fraction`` of the card leaves after every engine's
 weights and that workspace, split evenly over the engines (vLLM's
 ``gpu_memory_utilization`` rule).  Prints the reading as JSON;
-``--write`` stores ``num_pages`` in the configuration file.
+``--write`` stores ``num_pages`` in the configuration file.  The bytes
+of the weights and of a page are the configuration's model kind's
+(``weight_bytes``, ``page_bytes``).
 """
 import argparse
 import json
@@ -18,6 +20,23 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(REPO), str(REPO / "src")]
+
+
+def plan(kind, spec, sv, small: int, peak: int, total: int) -> dict:
+    """The pool of ``sv`` (the configuration's ``serve`` block) from the
+    peak allocated bytes of engines sized at ``small`` pages and the
+    card's ``total`` bytes."""
+    E = sv["engines"]
+    weights = E * kind.weight_bytes(spec)
+    pools = E * small * kind.page_bytes(spec, sv["page_size"])
+    workspace = peak - weights - pools
+    budget = sv["memory_fraction"] * total - weights - workspace
+    pages = int(budget // E // kind.page_bytes(spec, sv["page_size"]))
+    return {"total_bytes": total, "weight_bytes": weights,
+            "pool_bytes_at_sizing": pools, "peak_bytes": peak,
+            "workspace_bytes": workspace, "num_pages": pages,
+            "tokens_per_engine": pages * sv["page_size"],
+            "sizing_pages": small}
 
 
 def main() -> None:
@@ -33,26 +52,16 @@ def main() -> None:
     path = harness.HERE / "configs" / f"{args.config}.json"
     conf = model.load(path)
     sv = conf["serve"]
-    spec = model.spec(conf)
     small = 1 + sv["lanes"] * cdiv(sv["max_len"], sv["page_size"])
     cell = harness.Cell(conf["name"], 1, conf, {}, {}, [], [])
     opts = harness.Options(seed=0, seconds=0.0, num_pages=small)
     served = harness.setup(cell, opts)
     torch.cuda.synchronize()
-    E = sv["engines"]
-    weights = E * model.weight_bytes(spec)
-    pools = E * small * model.page_bytes(spec, sv["page_size"])
-    peak = torch.cuda.max_memory_allocated()
-    workspace = peak - weights - pools
-    total = torch.cuda.get_device_properties(0).total_memory
-    budget = sv["memory_fraction"] * total - weights - workspace
-    pages = int(budget // E // model.page_bytes(spec, sv["page_size"]))
     out = {"config": conf["name"], "card": torch.cuda.get_device_name(0),
-           "total_bytes": total, "weight_bytes": weights,
-           "pool_bytes_at_sizing": pools, "peak_bytes": peak,
-           "workspace_bytes": workspace, "num_pages": pages,
-           "tokens_per_engine": pages * sv["page_size"],
-           "sizing_pages": small}
+           **plan(cell.kind, served.spec, sv, small,
+                  torch.cuda.max_memory_allocated(),
+                  torch.cuda.get_device_properties(0).total_memory)}
+    pages = out["num_pages"]
     print(json.dumps(out))
     del served
     if args.write:

@@ -11,6 +11,10 @@ traced run that the profiler's stall has not reached.  The device's idle
 time under the port's ``rt:`` ranges is read from the profiled sub-window
 (``rec["trace"]["idle_rt"]``, made by :func:`idle_by_range`).
 
+The readers' hooks fill the record: :func:`begin` switches the tracer
+on after the warm-up and :func:`collect` drains it once the window has
+drained; ``trace.summarize`` adds ``idle_rt``.
+
 Every reading is None where the run holds nothing to read: a run that
 did not trace, or a program without the tracer."""
 from __future__ import annotations
@@ -22,6 +26,34 @@ from perfbench import trace
 
 RT = "rt:"
 ENQUEUE = ("engine.prefill_chunk", "engine.decode_round")
+
+
+def _tracer():
+    """The port's tracer, or None in a program that has none."""
+    try:
+        from repro_torch import tracing
+    except ImportError:
+        return None
+    return tracing
+
+
+def begin(served) -> None:
+    """The span readers' ``begin`` hook: the tracer on, emptied of what
+    set-up left, and off again when the probes are restored."""
+    tracing = _tracer()
+    if tracing is None:
+        return
+    tracing.drain()
+    tracing.enable()
+    served.probes.on_restore(tracing.disable)
+
+
+def collect(served, rec: Dict) -> None:
+    """The span readers' ``collect`` hook: the spans into
+    ``rec["spans"]``."""
+    tracing = _tracer()
+    if tracing is not None:
+        rec["spans"] = tracing.drain()
 
 
 def early(rec: Dict, name: str) -> List[Dict]:

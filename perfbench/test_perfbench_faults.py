@@ -10,7 +10,7 @@ import time
 import pytest
 import torch
 
-from perfbench import check, harness
+from perfbench import check, harness, traffic
 
 CELL = "starcoder2-7b-edge2.code-unshared"
 
@@ -20,7 +20,9 @@ def _small_cell():
     conf = json.loads(json.dumps(real.conf))
     conf["serve"].update(lanes=8, max_len=160, prefill_chunk=64)
     mix = json.loads(json.dumps(real.mix))
+    # its own arrivals, lengths and blocks: 16 requests the CPU serves
     mix.update(arrival={"kind": "poisson", "rate": 16.0}, drain_s=120.0,
+               block=traffic.BLOCK,
                prompt={**mix["prompt"], "median": 60, "min": 20, "max": 120},
                output={**mix["output"], "median": 8, "min": 3, "max": 24})
     return harness.Cell(CELL, 1, conf, mix, real.limits, real.end_to_end,
@@ -132,7 +134,7 @@ def test_sound_run_is_correct(sound):
 def test_controls_fail_the_limits(sound):
     served, rec, checked = sound
     limits = served.cell.limits["numbers"]
-    low = check.logit_gap(served.weights, served.spec,
+    low = check.logit_gap(served.cell.kind, served.weights, served.spec,
                           harness.finished(rec), "fp8")
     assert low > limits["logit_gap"]["limit"], low
     ctrl = check.control_denoise_err(rec["placements"], rec["requests"],

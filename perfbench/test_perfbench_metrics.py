@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from perfbench import harness, layers, roofline, trace
+from perfbench.models import dense
 
 
 def _req(rid, arrival, finish, prompt=100, tokens=4, prefix=0, engine=0,
@@ -24,7 +25,8 @@ def _rec(reqs, **kw):
            "setup_s": 5.0, "steps": [], "place": [], "trace": None,
            "spec": {"layers": 2, "d_model": 8, "heads": 2, "kv_heads": 1,
                     "head_dim": 4, "d_ff": 16, "vocab": 32, "gated": False,
-                    "tied": True}}
+                    "tied": True},
+           "kind": dense}
     rec.update(kw)
     return rec
 
@@ -45,6 +47,23 @@ def test_host_times_leave_out_the_profiled_steps():
     assert layers.host_ms(calls) == pytest.approx(20.0)
     rec = _rec([], place=[(0.002, False), (0.004, False), (1.0, True)])
     assert layers.place_ms(rec) == pytest.approx(3.0)
+
+
+def test_step_calls_are_timed_in_the_window_only():
+    """A call before the window (the warm-up's, which captures the
+    graphs) or after it is set-up or drain, not a step call's host time;
+    a call inside the profiled sub-window is kept, marked traced."""
+    from perfbench.probes import Probes
+    probes = Probes(timing=True)
+    step = probes._timed(lambda x: x + 1, probes.prefill, "prefill enqueue")
+    assert step(1) == 2 and probes.prefill == []
+    probes.recording = True
+    step(2)
+    probes.profiling = True
+    step(3)
+    probes.profiling = probes.recording = False
+    step(4)
+    assert [traced for _, _, traced in probes.prefill] == [False, True]
 
 
 def test_skew_and_prefix_share():
@@ -72,8 +91,8 @@ def test_model_flops_count_window_work_once():
     r = _req(0, 100.0, 101.0, prompt=10, tokens=3, prefix=4)
     rec = _rec([r])
     # prefill of positions 4..9, decode inputs at positions 10, 11
-    want = roofline.sequence_flops(spec, 6 + 2,
-                                   sum(p + 1 for p in range(4, 12)))
+    want = dense.sequence_flops(spec, 6 + 2,
+                                sum(p + 1 for p in range(4, 12)))
     assert layers.model_flops(rec) == pytest.approx(want)
     rec["steps"] = [(0.0, 2.0, False)]
     assert layers.mfu(rec) == pytest.approx(

@@ -1,5 +1,6 @@
-"""The references match the port at a reduced size: the decoder's logits
-equal the port's forward pass on the same weights, the LAD-TS chain the
+"""The references match the port at a reduced size: the dense kind's
+logits (its plain decoder) equal the port's forward pass on the same
+weights and params, both made through the kind, the LAD-TS chain the
 port's ``ops.ladn_denoise``, and the check's walk over its own latent
 store the port's scheduler placement by placement; and the
 lower-precision controls do not."""
@@ -10,26 +11,29 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import model
+from perfbench import harness, model
 from perfbench.reference import decoder, ladn
 
 CONFIGS = sorted((Path(__file__).resolve().parent / "configs").glob("*.json"))
+# the shrink below is the dense decoder's; another kind tests its own
+DENSE = [p for p in CONFIGS if model.load(p)["model"] == "dense"]
 SHRINK = {"layers": 2, "d_model": 64, "heads": 4, "kv_heads": 2,
           "d_ff": 96, "vocab": 97, "dtype": "float32"}
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", DENSE, ids=lambda p: p.stem)
 def test_decoder_matches_the_port(path):
     from repro_torch.models.transformer import apply_head, forward
     conf = model.load(path)
-    s = model.spec(conf, SHRINK)
-    w = model.make_weights(s, 2**31 + 7, torch.device("cpu"))
-    cfg = model.model_config(conf, s)
-    params = model.engine_params(s, w)
+    kind = harness.model_kind(conf["model"])
+    s = kind.spec(conf, SHRINK)
+    w = kind.make_weights(s, 2**31 + 7, torch.device("cpu"))
+    cfg = kind.model_config(conf, s)
+    params = kind.engine_params(s, w)
     rng = np.random.default_rng(0)
     seqs = [rng.integers(0, s["vocab"], n) for n in (9, 23)]
     firsts = [3, 0]
-    ref = decoder.logits_at(w, s, seqs, firsts)
+    ref = kind.logits_at(w, s, seqs, firsts, "fp32")
     for seq, first, r in zip(seqs, firsts, ref):
         toks = torch.as_tensor(seq[None], dtype=torch.int32)
         with torch.no_grad():
@@ -38,7 +42,7 @@ def test_decoder_matches_the_port(path):
             port = apply_head(params, cfg, hidden)[0, first:].float()
         assert r.shape == port.shape
         assert torch.allclose(r, port, atol=2e-5, rtol=1e-4)
-    low = decoder.logits_at(w, s, seqs, firsts, precision="fp8")
+    low = kind.logits_at(w, s, seqs, firsts, precision="fp8")
     assert all((a - b).abs().max() > 1e-3 for a, b in zip(ref, low))
 
 

@@ -1,35 +1,46 @@
 """The yardstick's frozen copies count what the port's own counts give
-today, at each configuration's and cell's shapes."""
+today, at each configuration's and cell's shapes; the dense kind's
+counts through the kind its configurations name."""
 import json
 from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
 
-from perfbench import model, roofline
+from perfbench import harness, model, roofline
 
 CONFIGS = sorted((Path(__file__).resolve().parent / "configs").glob("*.json"))
+DENSE = [p for p in CONFIGS if model.load(p)["model"] == "dense"]
 
 
-@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
+def _kind_spec(path, shrink=None):
+    conf = model.load(path)
+    kind = harness.model_kind(conf["model"])
+    return conf, kind, kind.spec(conf, shrink)
+
+
+@pytest.mark.parametrize("path", DENSE, ids=lambda p: p.stem)
 def test_param_and_model_flops_match_the_port(path):
     from repro_torch.roofline import analysis
-    conf = model.load(path)
-    s = model.spec(conf)
-    cfg = model.model_config(conf, s)
-    assert roofline.param_count(s) == cfg.param_count()
+    conf, dense, s = _kind_spec(path)
+    cfg = dense.model_config(conf, s)
+    assert dense.param_count(s) == cfg.param_count()
     for kind, batch, seq in (("prefill", 1, 2048), ("decode", 32, 1),
                              ("train", 2, 512)):
         shape = SimpleNamespace(kind=kind, global_batch=batch, seq_len=seq)
         tokens = batch * (seq if kind != "decode" else 1)
-        assert roofline.model_flops(s, kind, tokens) == \
+        assert dense.model_flops(s, kind, tokens) == \
             pytest.approx(analysis.model_flops(cfg, shape))
     # matmul parameters: everything but the embedding lookup, the norms
     # and the biases, the head counted once
     d, V, L = s["d_model"], s["vocab"], s["layers"]
     head = 0 if s["tied"] else d * V
-    assert roofline.matmul_params(s) == \
+    assert dense.matmul_params(s) == \
         cfg.param_count() - V * d - head - 2 * d * L + d * V
+    # a span of positions: 2 N D over the matmul parameters, and the
+    # causal keys once
+    assert dense.flops(s, 100, 2148) == dense.sequence_flops(
+        s, 2048, roofline.span_keys(100, 2148))
 
 
 def test_peaks_match_the_port():
@@ -42,8 +53,8 @@ def _cell_shapes(path):
     """The flash_attention and paged decode calls of a configuration's
     paged engine: a 2048-token chunk at offsets 0, 1024 and 2048 against
     the full table, and a round of every lane."""
-    conf = model.load(path)
-    s, sv = model.spec(conf), conf["serve"]
+    conf, _, s = _kind_spec(path)
+    sv = conf["serve"]
     ps, C = sv["page_size"], sv["prefill_chunk"]
     W = -(-sv["max_len"] // ps) + -(-C // ps) + 1
     attn = [(1, s["heads"], s["kv_heads"], C, W * ps, s["head_dim"], None,

@@ -1,10 +1,14 @@
 """The readers of the port's own spans on synthetic records: they read
 only spans that began before the profiled sub-window, give None where
 there is nothing to read, and put the device's idle gaps down to the
-innermost ``rt:`` range."""
+innermost ``rt:`` range; their shared hooks switch the port's tracer on
+and drain it."""
+from types import SimpleNamespace
+
 import pytest
 
-from perfbench import harness, spans
+from perfbench import harness, spans, trace
+from perfbench.probes import Probes
 
 READERS = ("step_ms.open", "select_ms.open", "chunk_fill.open",
            "lanes_held.open", "collect_wait_ms.open", "idle_in_enqueue.open")
@@ -109,6 +113,36 @@ def test_idle_gaps_go_to_the_innermost_rt_range():
     assert spans.idle_by_range(bare) == pytest.approx(
         {"other host work": 700e-6})
     assert spans.idle_by_range(events[1:]) == {}     # no sub-window
+
+
+def test_summarize_reads_rt_ranges_only_where_the_tracer_opened_them():
+    ua = "user_annotation"
+    events = [_x("pb:window", 0, 1000, ua), _x("k0", 0, 100, "kernel"),
+              _x("rt:engine.prefill_chunk", 120, 150, ua)]
+    s = trace.summarize(events)
+    assert s["idle_rt"] == spans.idle_by_range(events)
+    assert "idle_rt" not in trace.summarize(events[:2])
+
+
+def test_hooks_switch_the_tracer_on_and_drain_it():
+    from repro_torch import tracing
+    for m in READERS:
+        mod = harness._reader(m, harness.REPO)
+        assert (mod.begin, mod.collect) == (spans.begin, spans.collect)
+    probes = Probes(timing=False)
+    served = SimpleNamespace(probes=probes)
+    spans.begin(served)
+    with tracing.span("cluster.step"):
+        with tracing.span("engine.dispatch", engine=0):
+            pass
+    rec = {}
+    spans.collect(served, rec)
+    probes.restore()
+    assert [s["name"] for s in rec["spans"]] == ["engine.dispatch",
+                                                 "cluster.step"]
+    with tracing.span("after") as sp:
+        assert sp is None
+    assert tracing.drain() == []
 
 
 def test_child_cover_counts_direct_children_only():

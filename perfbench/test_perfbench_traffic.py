@@ -30,16 +30,43 @@ def test_same_seed_same_requests(name):
 @pytest.mark.parametrize("name", MIX_NAMES)
 def test_every_seed_same_work_in_another_order(name):
     """Each block of requests holds the same lengths whatever the seed."""
-    n = 2 * traffic.BLOCK
+    size = traffic.block(_mix(name))
+    n = 2 * size
     a = traffic.generate(_mix(name), 20.0, 1, 1000, 2, n=n)
     b = traffic.generate(_mix(name), 20.0, 2**32 + 5, 1000, 2, n=n)
-    for lo in (0, traffic.BLOCK):
+    for lo in (0, size):
         for key in ("max_new_tokens", "origin"):
-            assert sorted(r[key] for r in a[lo:lo + traffic.BLOCK]) == \
-                sorted(r[key] for r in b[lo:lo + traffic.BLOCK])
-        assert sorted(len(r["prompt"]) for r in a[lo:lo + traffic.BLOCK]) \
-            == sorted(len(r["prompt"]) for r in b[lo:lo + traffic.BLOCK])
+            assert sorted(r[key] for r in a[lo:lo + size]) == \
+                sorted(r[key] for r in b[lo:lo + size])
+        assert sorted(len(r["prompt"]) for r in a[lo:lo + size]) \
+            == sorted(len(r["prompt"]) for r in b[lo:lo + size])
     assert [len(r["prompt"]) for r in a] != [len(r["prompt"]) for r in b]
+
+
+@pytest.mark.parametrize("size", [8, 16, traffic.BLOCK])
+def test_the_mix_names_its_block(size):
+    """A mix's ``block`` sets how many arrivals hold the same work: each
+    run of that many, from its start, has the same lengths, gaps and
+    edges as any other, on any seed; a mix that names none has blocks
+    of ``BLOCK``."""
+    mix = {k: v for k, v in _mix(MIX_NAMES[0]).items() if k != "block"}
+    if size != traffic.BLOCK:
+        mix["block"] = size
+    assert traffic.block(mix) == size
+    reqs = traffic.generate(mix, 20.0, 2**31 + 3, 1000, 2, n=4 * size)
+    other = traffic.generate(mix, 20.0, 9, 1000, 2, n=4 * size)
+    t = np.array([r["arrival_s"] for r in reqs] + [20.0])
+    t2 = np.array([r["arrival_s"] for r in other] + [20.0])
+    for lo in range(0, 4 * size, size):
+        blk = slice(lo, lo + size)
+        for key in ("max_new_tokens", "origin"):
+            assert sorted(r[key] for r in reqs[blk]) == \
+                sorted(r[key] for r in other[blk])
+        assert sorted(len(r["prompt"]) for r in reqs[blk]) == \
+            sorted(len(r["prompt"]) for r in other[blk])
+        assert np.allclose(np.sort(np.diff(t)[blk]), np.sort(np.diff(t2)[blk]))
+        assert [len(r["prompt"]) for r in reqs[blk]] != \
+            [len(r["prompt"]) for r in other[blk]]
 
 
 @pytest.mark.parametrize("name", MIX_NAMES)

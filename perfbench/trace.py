@@ -64,8 +64,10 @@ def summarize(events: List[Dict]) -> Dict:
     ``busy_s`` (the union of device operations inside the window),
     ``kernels`` (seconds by device-operation name), ``idle`` (idle
     seconds by the innermost ``pb:`` host phase open at each gap's
-    middle) and ``device_ops`` / ``idle_gaps`` (the ten largest of
-    each)."""
+    middle), ``device_ops`` / ``idle_gaps`` (the ten largest of each)
+    and, where the port's tracer opened ``rt:`` ranges, ``idle_rt``
+    (``spans.idle_by_range``)."""
+    from perfbench.spans import RT, idle_by_range   # they read this module
     win = [e for e in events if e.get("name") == WINDOW
            and e.get("ph") == "X"]
     if not win:
@@ -102,7 +104,11 @@ def summarize(events: List[Dict]) -> Dict:
         idle[name] += (b - a) * 1e-6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     gaps = sorted(idle.items(), key=lambda kv: -kv[1])[:10]
-    return {"window_s": (w1 - w0) * 1e-6, "busy_s": busy_s,
-            "kernels": dict(kernels), "idle": dict(idle),
-            "device_ops": [[n[:160], s] for n, s in top],
-            "idle_gaps": [[n, s] for n, s in gaps]}
+    out = {"window_s": (w1 - w0) * 1e-6, "busy_s": busy_s,
+           "kernels": dict(kernels), "idle": dict(idle),
+           "device_ops": [[n[:160], s] for n, s in top],
+           "idle_gaps": [[n, s] for n, s in gaps]}
+    if any(e.get("cat") == "user_annotation"
+           and e.get("name", "").startswith(RT) for e in events):
+        out["idle_rt"] = idle_by_range(events)
+    return out

@@ -4,9 +4,11 @@ A mix is a JSON file under ``traffic/``: the arrival process
 (``poisson`` at a rate), lognormal or fixed prompt and output lengths
 (median, sigma, clips) and the drain after the window.  Every seed gets
 the same work in another order: lengths, gaps between arrivals and home
-edges are stratified in blocks of ``BLOCK`` requests (each block holds
-the same quantiles of each distribution), and the seed shuffles each
-block and draws the tokens.
+edges are stratified in blocks of the mix's ``block`` requests
+(``BLOCK`` where it names none; each block holds the same quantiles of
+each distribution), and the seed shuffles each block and draws the
+tokens.  A smaller block spreads the same work more evenly over time, so
+the seed's order moves the queue less.
 So any leading part of a run's requests, and so any window, carries
 about the same work whatever the seed.
 """
@@ -41,10 +43,15 @@ def _quantiles(dist: Dict, n: int) -> np.ndarray:
     return np.clip(np.rint(v), dist["min"], dist["max"]).astype(np.int64)
 
 
+def block(mix: Dict) -> int:
+    """Requests a block of the mix holds."""
+    return int(mix.get("block", BLOCK))
+
+
 def _block_plan(mix: Dict, edges: int) -> Dict[str, np.ndarray]:
     """One block's multiset of prompt and output lengths, arrival gaps
     (in units of the mean gap) and home edges."""
-    n = BLOCK
+    n = block(mix)
     u = (np.arange(n) + 0.5) / n
     return {"prompt": _quantiles(mix["prompt"], n),
             "output": _quantiles(mix["output"], n),
@@ -69,8 +76,9 @@ def generate(mix: Dict, seconds: float, seed: int, vocab: int,
     n = count(mix, seconds) if n is None else n
     rng = np.random.default_rng(int(seed))
     plan = _block_plan(mix, edges)
-    cols = {k: np.concatenate([v[rng.permutation(BLOCK)]
-                               for _ in range(math.ceil(n / BLOCK))])[:n]
+    size = block(mix)
+    cols = {k: np.concatenate([v[rng.permutation(size)]
+                               for _ in range(math.ceil(n / size))])[:n]
             for k, v in plan.items()}
     gaps = cols["gap"]
     t = np.concatenate([[0.0], np.cumsum(gaps[:-1])])
