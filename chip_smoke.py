@@ -237,6 +237,20 @@ Phases, in order; the script exits non-zero at the first that fails:
    published width and depth with 1024 pages holds 64 of them, bytes =
    the dry run's count, 1/16 of the whole pool (23b and 20c now run the
    split pass and the merge over the 1 x 1 mesh's one page block);
+26. Mellum2's sliding layers on the paged pool: 26a
+   ``paged_flash_decode_window`` against its plain version at the
+   mellum2-12b-edge2 cell's decode round (32 lanes of 256-3583 tokens, H
+   32 over KV 4, hd 128, page 16, a 228-page table, window 1024; lanes
+   under the window, at it, one past it mid-page), bf16 and f32, the key
+   at each window edge made to decide the output, so that a window one
+   shorter or longer, or none, fails the tolerance; its two kernels
+   traced against the split plan, its time, bound, the plain version's
+   and SDPA's over the gathered windows; 26b ``serve.main`` at full
+   mellum2-12b width and depth in bf16 (2 paged engines, 8 requests of
+   1100-token prompts, JSQ): every request completed, no KV held,
+   ``paged_flash_decode_window`` launched 21 times a decode round (the
+   sliding layers), ``paged_flash_decode`` 7 (the full ones) and
+   ``flash_attention`` 28 a prefill chunk;
 then the kernels line (one JSON object listing every ported kernel) and
 the last line, ``{"ok": true, "device": {...}}``.
 
@@ -1613,7 +1627,7 @@ def _closed_loop_launches(rec: dict) -> dict:
             "ladn_denoise": (CL_REQUESTS + 1 if rec["scheduler"] == "lad-ts"
                              else 0),
             "flash_decode": 0, "flash_decode_partials": 0, "decode_merge": 0,
-            "paged_flash_decode_partials": 0}
+            "paged_flash_decode_partials": 0, "paged_flash_decode_window": 0}
 
 
 def phase_closed_loop() -> dict:
@@ -2085,7 +2099,7 @@ def _paged_launches(engines: list) -> dict:
                                    for e in paged),
             "ladn_denoise": 0, "flash_decode": 0,
             "flash_decode_partials": 0, "decode_merge": 0,
-            "paged_flash_decode_partials": 0}
+            "paged_flash_decode_partials": 0, "paged_flash_decode_window": 0}
 
 
 def phase_chaos_serve() -> dict:
@@ -3144,7 +3158,8 @@ def phase_tooling_tablev(card: str) -> dict:
                                        for e in r["engines"]),
                 "ladn_denoise": 0, "flash_decode": 0,
                 "flash_decode_partials": 0, "decode_merge": 0,
-                "paged_flash_decode_partials": 0}
+                "paged_flash_decode_partials": 0,
+                "paged_flash_decode_window": 0}
         if r["launches"] != want:
             fail(f"22c: {r['mode']} N={r['requests']}: launches "
                  f"{r['launches']}, the run implies {want}")
@@ -3908,6 +3923,205 @@ def phase_paged_cut_rank(card: str) -> dict:
             "placed_bytes": placed, "dry_run_bytes": dry}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: Mellum2's sliding layers on the paged pool
+# ---------------------------------------------------------------------------
+
+MELLUM = "mellum2-12b"
+MELLUM_WINDOW = 1024
+# the decode round of the benchmark's mellum2-12b-edge2 cell: 32 lanes, H
+# 32 over KV 4, hd 128, page 16, max_len 3648 -> a 228-page table; lanes
+# of 256-3583 tokens (the mix's prompt clip), with the window's edges: a
+# lane under it, at it, one past it (its first key at position 1, mid
+# page), nine past it, one a page past it
+MELLUM_LENS = (256, 1017, 1024, 1025, 1033, 1040, 2048, 3583,
+               *(300 + 139 * i for i in range(24)))
+MELLUM_ROUND = (32, 32, 4, 128, 16, 1 + 32 * 228, 228, MELLUM_LENS)
+# serve.main at full scale: 1100-token prompts, so decode crosses the
+# window, two engines of the published size
+MELLUM_SERVE_ARGS = ["--arch", MELLUM, "--full-scale", "--edges", "2",
+                     "--scheduler", "jsq", "--requests", "8", "--prompt-len",
+                     "1100", "--tokens", "32", "--rate", "8", "--device",
+                     "cuda"]
+
+
+def _spike_window_edges(q, kp, vp, tables, lens, window: int) -> None:
+    """Make the key on each side of a lane's window edge decide its
+    output: in lanes past the window, the first key inside it (even
+    lanes) or the last key before it (odd lanes) gets a K along its query
+    group's mean query, scaled to take most of the softmax, so a window
+    off by one moves the output by O(1), not by one key in 1024."""
+    import torch
+    Bs, Hs, _ = q.shape
+    KVs, ps = kp.shape[1], kp.shape[2]
+    G = Hs // KVs
+    tbl = tables.cpu()
+    for b, n in enumerate(int(x) for x in lens.cpu()):
+        if n <= window:
+            continue
+        j = n - window - (b % 2)
+        page, off = int(tbl[b, j // ps]), j % ps
+        u = q[b].float().reshape(KVs, G, -1).mean(1)
+        k = 24.0 * u / u.norm(dim=-1, keepdim=True)
+        kp[page, :, off] = k.to(kp.dtype)
+        vp[page, :, off] = torch.full_like(vp[page, :, off], 4.0)
+
+
+def _window_library_inputs(q, kp, vp, tables, lens, window: int):
+    """Each lane's window gathered dense, (B, KV, window, hd), and its
+    mask, for SDPA."""
+    import torch
+    Ps, KVs, ps, hd = kp.shape
+    n = lens.long()[:, None]
+    pos = (n - window).clamp(min=0) + torch.arange(window, device=q.device)
+    valid = pos < n
+    pos = torch.where(valid, pos, 0)
+    page = torch.gather(tables.long(), 1, pos // ps).clamp(0, Ps - 1)
+    k = kp[page, :, pos % ps].permute(0, 2, 1, 3).contiguous()
+    v = vp[page, :, pos % ps].permute(0, 2, 1, 3).contiguous()
+    return q[:, :, None, :], k, v, valid[:, None, None, :]
+
+
+def phase_window_decode() -> dict:
+    """26a. ``ops.paged_flash_decode_window`` at the mellum2 cell's decode
+    round in bf16 and f32, against ``ref.paged_decode_window_ref`` within
+    ``TOL`` on live lanes (zero on idle ones), the keys at each window edge
+    made to decide the output: the window one shorter, one longer, and no
+    window (``paged_flash_decode``) must each miss the plain version by
+    more than ``TOL``; its two kernels traced against the split plan over
+    min(window, W x ps) positions; its time, the plain version's, SDPA's
+    over each lane's window gathered dense beforehand, and its bound (the
+    K/V of the positions in each lane's window)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    Bs, Hs, KVs, hd, ps, Ps, Ws, lens_t = MELLUM_ROUND
+    W = MELLUM_WINDOW
+    rows = {}
+    for dt in ("bfloat16", "float32"):
+        q, kp, vp, tables, lens = paged_decode_case(MELLUM_ROUND,
+                                                    getattr(torch, dt))
+        _spike_window_edges(q, kp, vp, tables, lens, W)
+        before = ops.launches["paged_flash_decode_window"]
+
+        def kernel(w=W):
+            return ops.paged_flash_decode_window(q, kp, vp, tables, lens, w)
+        got = kernel()
+        torch.cuda.synchronize()
+        if ops.launches["paged_flash_decode_window"] - before != 1:
+            fail(f"26a {dt}: one call counted "
+                 f"{ops.launches['paged_flash_decode_window'] - before} "
+                 f"launches")
+        want = ref.paged_decode_window_ref(q, kp, vp, tables, lens,
+                                           W).float()
+        live = lens > 0
+        err = (got.float() - want)[live].abs().max().item()
+        if not err <= TOL[dt]:
+            fail(f"26a {dt}: max abs err {err:.3e} > {TOL[dt]:.0e}")
+        past = lens > W
+        faults = {
+            "window_less_one": kernel(W - 1),
+            "window_plus_one": kernel(W + 1),
+            "no_window": ops.paged_flash_decode(q, kp, vp, tables, lens)}
+        fault_err = {k: (v.float() - want)[past].abs().max().item()
+                     for k, v in faults.items()}
+        if not min(fault_err.values()) > TOL[dt]:
+            fail(f"26a {dt}: a wrong window passes the tolerance "
+                 f"{TOL[dt]:.0e}: {fault_err}")
+        launched = check_split_launches(f"26a {dt}", kernel, Bs, Hs, KVs,
+                                        min(W, Ws * ps), ps)
+        sq, sk, sv, mask = _window_library_inputs(q, kp, vp, tables, lens, W)
+        lib = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=mask,
+                                             enable_gqa=True)[:, :, 0]
+        lib_err = (lib.float() - want)[live].abs().max().item()
+        times = {
+            "ms": time_ms(kernel), "eager_ms": eager_ms(kernel),
+            "plain_ms": time_ms(lambda: ref.paged_decode_window_ref(
+                q, kp, vp, tables, lens, W), iters=10, reps=3),
+            "full_length_ms": time_ms(lambda: ops.paged_flash_decode(
+                q, kp, vp, tables, lens)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                sq, sk, sv, attn_mask=mask, enable_gqa=True))}
+        size = q.element_size()
+        ctx = [min(int(n), W, Ws * ps) for n in lens_t]
+        pages = sum(-(-c // ps) + 1 for c in ctx if c)
+        nbytes = (2 * q.numel() * size + 2 * sum(ctx) * KVs * hd * size
+                  + 4 * pages + 4 * Bs)
+        bound_ms, bound_by = bound(nbytes, 4 * sum(ctx) * Hs * hd, dt)
+        rows[dt] = {"shape": {"B": Bs, "H": Hs, "KV": KVs, "hd": hd,
+                              "ps": ps, "P": Ps, "W": Ws, "window": W,
+                              "lens": list(lens_t), "dtype": dt},
+                    "max_abs_err": err, "fault_err": fault_err,
+                    "library_err": lib_err, **times, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "launched": launched,
+                    "kernel_launches_per_call": (None if launched is None
+                                                 else len(launched))}
+        misses = ", ".join(f"{k} {v:.3e}" for k, v in fault_err.items())
+        log(f"  26a {dt}: err={err:.3e} (tol {TOL[dt]:.0e}); a wrong window "
+            f"misses by {misses}; "
+            f"kernel={times['ms']:.4f} ms (eager call "
+            f"{times['eager_ms']:.4f}) plain={times['plain_ms']:.4f} "
+            f"full length={times['full_length_ms']:.4f} "
+            f"sdpa={times['library_ms']:.4f} (err {lib_err:.2e}) "
+            f"bound={bound_ms:.6f} ms ({bound_by})")
+        del q, kp, vp, tables, lens, got, want, faults, sk, sv, lib
+        torch.cuda.empty_cache()
+    log("phase 26a ok: paged_flash_decode_window matches "
+        "paged_decode_window_ref at the mellum2 cell's round")
+    return rows
+
+
+def phase_window_serve() -> dict:
+    """26b. ``serve.main`` at full mellum2-12b width and depth in bf16 (2
+    paged engines, 8 requests of 1100-token prompts, JSQ), the launch
+    counts set to 0 just before: every request completed, no KV held,
+    and after the warm-up ``paged_flash_decode_window`` launched once per
+    sliding layer (21) and ``paged_flash_decode`` once per full layer (7)
+    a decode round, ``flash_attention`` once per layer (28) a prefill
+    chunk; the counts with the warm-up too."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config(MELLUM)
+    slide = sum(b.window is not None for b in cfg.layer_pattern())
+    full = cfg.num_layers - slide
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    st = serve.main(MELLUM_SERVE_ARGS)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    if st["completed"] != N_REQUESTS or st["count"] != N_REQUESTS:
+        fail(f"26b: {st['completed']} of {N_REQUESTS} requests completed")
+    leaks = [e["kv_leak"] for e in st["engines"]]
+    if any(leaks) or not all(e["paged"] for e in st["engines"]):
+        fail(f"26b: engines {st['engines']}")
+    rounds = sum(e["decode_rounds"] for e in st["engines"])
+    chunks = sum(e["prefills"] for e in st["engines"])
+    want = {"paged_flash_decode_window": slide * rounds,
+            "paged_flash_decode": full * rounds,
+            "flash_attention": cfg.num_layers * chunks}
+    got = {k: st["launches"][k] for k in want}
+    if (slide, full) != (21, 7) or not rounds or not chunks or got != want:
+        fail(f"26b: launches after warm-up {got}, {slide} sliding and "
+             f"{full} full layers over {rounds} rounds and {chunks} chunks "
+             f"give {want}")
+    others = {k: v for k, v in st["launches"].items()
+              if k not in want and v}
+    if others:
+        fail(f"26b: other kernels launched: {others}")
+    with_warmup = {k: ops.launches[k] for k in want}
+    log(f"phase 26b ok: {MELLUM} served {N_REQUESTS}/{N_REQUESTS}, "
+        f"kv_leak={leaks}; after warm-up {got} = {slide} / {full} / "
+        f"{cfg.num_layers} x {rounds} rounds / {chunks} chunks (with "
+        f"warm-up {with_warmup}); service mean={st['mean_s'] * 1e3:.1f} ms "
+        f"p95={st['p95_s'] * 1e3:.1f} ms over {st['wall_s']:.2f} s "
+        f"({total:.1f} s with build and warm-up); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return {"launches": got, "launches_with_warmup": with_warmup,
+            "rounds": rounds, "chunks": chunks}
+
+
 def main() -> None:
     import torch
     t0 = time.perf_counter()
@@ -3999,6 +4213,13 @@ def main() -> None:
     cut["25b"] = phase_paged_cut_rank(card)
     cut["seconds"] = time.perf_counter() - t25
     log(f"phase 25 ok in {cut['seconds']:.1f} s ({card})")
+    t26 = time.perf_counter()
+    win = {"26a": phase_window_decode()}
+    _free_card()
+    win["26b"] = phase_window_serve()
+    _free_card()
+    win["seconds"] = time.perf_counter() - t26
+    log(f"phase 26 ok in {win['seconds']:.1f} s ({card})")
 
     def tooling(name):
         """Phase 22's launches of one kernel, and its 22b rows."""
@@ -4162,6 +4383,29 @@ def main() -> None:
         "bound_by": pcut["partials_bound_by"], "library_ms": None,
         "merge_ms": pcut["merge_ms"], "one_call_ms": pcut["one_call_ms"],
         "shapes": cut["25a"], "check": "ok"})
+    wbf = win["26a"]["bfloat16"]
+    kernels.append({
+        "name": "paged_flash_decode_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
+        # the port's own (a sliding layer's paged decode): no Pallas kernel
+        "replaces": None,
+        # phase 26b's mellum2-12b serve run, with and after the warm-up
+        "launches": win["26b"]["launches_with_warmup"][
+            "paged_flash_decode_window"],
+        "launches_after_warmup": win["26b"]["launches"][
+            "paged_flash_decode_window"],
+        "kernel_launches_per_call": wbf["kernel_launches_per_call"],
+        "max_abs_err": wbf["max_abs_err"],
+        "max_abs_err_f32": win["26a"]["float32"]["max_abs_err"],
+        # the smallest miss of a wrong window (one shorter, one longer,
+        # none) against the tolerance
+        "fault_err": min(min(r["fault_err"].values())
+                         for r in win["26a"].values()),
+        "ms": wbf["ms"], "eager_ms": wbf["eager_ms"],
+        "plain_ms": wbf["plain_ms"], "bound_ms": wbf["bound_ms"],
+        "bound_by": wbf["bound_by"], "library_ms": wbf["library_ms"],
+        "full_length_ms": wbf["full_length_ms"], "shapes": win["26a"],
+        "check": "ok"})
     log("phase 20: " + json.dumps({"moe_layer": moe_layer, "moe_serve": {
         a: {k: v[k] for k in ("launches", "wall_s", "round", "prefill_rel",
                               "prefill_flips", "prefill_rel_f32")}
@@ -4175,6 +4419,8 @@ def main() -> None:
                                    if k != "24b"}))
     log("phase 25: " + json.dumps({k: v for k, v in cut.items()
                                    if k != "25a"}))
+    log("phase 26: " + json.dumps({k: v for k, v in win.items()
+                                   if k != "26a"}))
     log(f"kernels line ({time.perf_counter() - t0:.1f} s total)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,18 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Every arch of ``repro.configs`` is copied here.
+Every arch of ``repro.configs`` is copied here; ``mellum2-12b`` is the
+port's own (a :class:`LayerTypesConfig`: sliding and full attention
+layers with their own RoPE, dropless experts), with no counterpart in
+the reference.
 """
 from __future__ import annotations
 
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig, reduced
+from repro_torch.configs.base import (AttentionKind, BlockSpec,
+                                      LayerTypesConfig, ModelConfig,
+                                      MoEConfig, RopeSpec, reduced)
 from repro_torch.configs.shapes import (SHAPES, SHAPES_BY_NAME, InputShape,
                                         get_shape, smoke_shape)
 
@@ -22,6 +27,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "llava-next-mistral-7b": "repro_torch.configs.llava_next_mistral_7b",
+    "mellum2-12b": "repro_torch.configs.mellum2_12b",
 }
 
 ARCH_IDS: List[str] = list(_ARCH_MODULES)
@@ -39,7 +45,8 @@ def all_configs() -> Dict[str, ModelConfig]:
 
 
 __all__ = [
-    "ARCH_IDS", "BlockSpec", "InputShape", "ModelConfig", "MoEConfig",
-    "SHAPES", "SHAPES_BY_NAME", "all_configs", "get_config", "get_shape",
-    "reduced", "smoke_shape",
+    "ARCH_IDS", "AttentionKind", "BlockSpec", "InputShape",
+    "LayerTypesConfig", "ModelConfig", "MoEConfig", "RopeSpec", "SHAPES",
+    "SHAPES_BY_NAME", "all_configs", "get_config", "get_shape", "reduced",
+    "smoke_shape",
 ]

@@ -23,7 +23,9 @@ The unified decoder is a stack of blocks.  Each block has
                  (xLSTM blocks carry their own projections).
 
 ``layer_pattern()`` expands the per-arch pattern into ``num_layers`` block
-specs.
+specs.  A :class:`LayerTypesConfig` (the port's own; the reference has no
+such config) names each attention layer's kind, as Hugging Face's
+``layer_types`` does, and gives every kind its own window and RoPE.
 """
 from __future__ import annotations
 
@@ -36,6 +38,26 @@ from typing import Optional, Sequence, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
+class RopeSpec:
+    """One attention kind's rotary embedding (``models/layers.py``).
+
+    ``default``: inverse frequencies ``theta ** (-2i / hd)``.  ``yarn``
+    (Hugging Face's ``_compute_yarn_parameters``): the same frequencies
+    blended with their interpolation by ``factor`` along a linear ramp
+    between the dims that ``beta_fast`` and ``beta_slow`` rotations span
+    over ``original_max_position`` positions, and cos / sin scaled by
+    ``attention_factor``."""
+
+    theta: float = 10_000.0
+    kind: str = "default"        # default | yarn
+    factor: float = 1.0
+    original_max_position: int = 0
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockSpec:
     """One decoder block: a sequence mixer plus a feed-forward."""
 
@@ -43,6 +65,7 @@ class BlockSpec:
     ffn: str = "dense"           # dense | moe | none
     window: Optional[int] = None  # sliding/local attention window (tokens)
     use_rope: bool = True        # rotary embeddings (attn only)
+    rope: Optional[RopeSpec] = None  # None: default RoPE at cfg.rope_theta
 
     def is_recurrent(self) -> bool:
         return self.mixer in ("mlstm", "slstm", "rglru")
@@ -52,7 +75,8 @@ class BlockSpec:
 class MoEConfig:
     num_experts: int = 8
     top_k: int = 2
-    capacity_factor: float = 1.25
+    # None: dropless, every routed row is computed (models/moe.py)
+    capacity_factor: Optional[float] = 1.25
     router_aux_weight: float = 0.01  # load-balance auxiliary loss weight
 
 
@@ -228,13 +252,55 @@ class ModelConfig:
         return dense_like - inactive
 
 
+@dataclasses.dataclass(frozen=True)
+class AttentionKind:
+    """What one named kind of attention layer attends: its window (None:
+    full causal) and its RoPE."""
+
+    window: Optional[int] = None
+    rope: RopeSpec = RopeSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerTypesConfig(ModelConfig):
+    """A config whose attention layers come in named kinds: one period of
+    ``layer_types`` tiled to ``num_layers`` (Hugging Face's
+    ``layer_types``), each name a kind of ``attention_kinds`` with its own
+    window and RoPE.  A subclass, so that every other config keeps its
+    fields as the reference's."""
+
+    layer_types: Tuple[str, ...] = ("full_attention",)
+    attention_kinds: Tuple[Tuple[str, AttentionKind], ...] = (
+        ("full_attention", AttentionKind()),)
+
+    def layer_pattern(self) -> Tuple[BlockSpec, ...]:
+        kinds = dict(self.attention_kinds)
+        blocks = []
+        for i, blk in enumerate(super().layer_pattern()):
+            kind = kinds[self.layer_types[i % len(self.layer_types)]]
+            blocks.append(dataclasses.replace(blk, window=kind.window,
+                                              rope=kind.rope)
+                          if blk.mixer == "attn" else blk)
+        return tuple(blocks)
+
+
 def reduced(cfg: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
             max_experts: int = 4) -> ModelConfig:
-    """Shrink a config to a CPU-smoke-test variant of the same family."""
+    """Shrink a config to a CPU-smoke-test variant of the same family.
+    A :class:`LayerTypesConfig` keeps at least one period of its layer
+    kinds, each window cut to at most 64."""
     heads = max(2, min(cfg.num_heads, 4))
     kv = max(1, min(cfg.num_kv_heads, heads))
     while heads % kv:
         kv -= 1
+    extra = {}
+    if isinstance(cfg, LayerTypesConfig):
+        num_layers = max(num_layers, len(cfg.layer_types))
+        extra["attention_kinds"] = tuple(
+            (name, dataclasses.replace(
+                kind, window=None if kind.window is None
+                else min(kind.window, 64)))
+            for name, kind in cfg.attention_kinds)
     moe = None
     if cfg.moe is not None:
         moe = MoEConfig(num_experts=min(cfg.moe.num_experts, max_experts),
@@ -261,4 +327,5 @@ def reduced(cfg: ModelConfig, *, num_layers: int = 2, d_model: int = 256,
         scan_layers=False,
         microbatches=1,
         dtype="float32",
+        **extra,
     )

@@ -16,6 +16,11 @@
 //       out = sum_s exp(m_s - M) * acc_s / sum_s exp(m_s - M) * l_s,
 //     M = max_s m_s, and never reads the partial of a split that returned
 //     early (its memory is uninitialised).  A lane of length 0 writes zeros.
+// A windowed call (kWindow, paged_decode.cu's window entry) attends only
+// the last `window` positions of each lane, [first, len) with first =
+// max(0, len - window): split s covers [first + s * per_split, ...), so
+// the split plan spans at most `window` positions and no position before
+// first is loaded; the merge counts the splits below len - first.
 // Each pass also launches alone, for a cache cut over several ranks (a
 // ring along its positions in flash_decode.cu, a page pool by page blocks
 // in paged_decode.cu): the split kernel with kEmpty, which leaves an empty
@@ -80,6 +85,7 @@ struct Params {
   int S;                    // dense ring depth
   int P, ps, W;             // paged pool pages, page size, table width
   float scale;
+  int window;               // kWindow: positions attended (the last ones)
 };
 
 // Element offset of the K (or V) row of cached position pos of (b, h).
@@ -98,6 +104,23 @@ __device__ __forceinline__ size_t row_offset(const Params& p, int b, int h,
 __device__ __forceinline__ int lane_length(const Params& p, int b) {
   const int len = p.lengths[b];
   return len < 0 ? 0 : (len > p.n_positions ? p.n_positions : len);
+}
+
+// the first position a lane of length len attends: with kWindow the
+// window's first, else 0
+template <bool kWindow>
+__device__ __forceinline__ int lane_first(const Params& p, int len) {
+  if constexpr (kWindow) {
+    return len > p.window ? len - p.window : 0;
+  } else {
+    return 0;
+  }
+}
+
+// the positions the splits of a call have to cover
+__host__ __device__ inline int covered(const Params& p) {
+  return p.window > 0 && p.window < p.n_positions ? p.window
+                                                  : p.n_positions;
 }
 
 // ---------------------------------------------------------------------------
@@ -177,7 +200,8 @@ __device__ __forceinline__ void load_tile(const Params& p, int b, int h,
 // kEmpty (the split-only entry): a split that starts at or past the lane's
 // length writes a defined empty partial, m = -inf, l = 0 and acc = 0, so
 // that a merge over every split (kAll below) may read it.
-template <typename T, bool kPaged, bool kEmpty = false>
+template <typename T, bool kPaged, bool kEmpty = false,
+          bool kWindow = false>
 __device__ __forceinline__ void split_body(const Params& p) {
   constexpr bool kMma = sizeof(T) == 2;      // bf16 on the tensor cores
   constexpr int VEC = 16 / sizeof(T);
@@ -193,7 +217,7 @@ __device__ __forceinline__ void split_body(const Params& p) {
   const int h = bh % p.KV;
   const int split = blockIdx.y;
   const int len = lane_length(p, b);
-  const int start = split * p.per_split;
+  const int start = lane_first<kWindow>(p, len) + split * p.per_split;
   if (start >= len) {                       // the merge never reads it,
     if constexpr (kEmpty) {                 // unless it reads every split
       const int rows = min(kRows, p.G - g0);
@@ -492,7 +516,7 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 // length (p.lengths unused), where an empty partial has m = -inf and
 // weight exp(-inf - M) = 0; a row whose partials are all empty gives
 // zeros (its denominator is 0).
-template <typename T, bool kAll = false>
+template <typename T, bool kAll = false, bool kWindow = false>
 __device__ __forceinline__ void merge_body(const Params& p) {
   __shared__ float4 part[kMergeThreads];
   __shared__ float red[kMergeThreads / 32];
@@ -502,7 +526,8 @@ __device__ __forceinline__ void merge_body(const Params& p) {
   int live = p.n_splits;
   if constexpr (!kAll) {
     const int len = lane_length(p, bh / p.KV);
-    live = (len + p.per_split - 1) / p.per_split;     // splits below len
+    const int span = len - lane_first<kWindow>(p, len);
+    live = (span + p.per_split - 1) / p.per_split;    // splits below len
     live = live < p.n_splits ? live : p.n_splits;
   }
   const size_t first = (size_t)bh * p.n_splits * p.G + g;
@@ -575,7 +600,7 @@ int launch_split(SplitKernel split_kernel, size_t* configured,
   if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
       p.hd > kMaxHeadDim || p.per_split <= 0 || p.n_splits <= 0 ||
       p.n_splits > 65535 ||
-      (long long)p.per_split * p.n_splits < p.n_positions) {
+      (long long)p.per_split * p.n_splits < covered(p)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = layout(p.hd, elem, stages_for(p.per_split)).total;
@@ -603,7 +628,7 @@ int launch_pair(SplitKernel split_kernel, MergeKernel merge_kernel,
   if (B <= 0 || p.KV <= 0 || p.G <= 0 || p.hd % 16 || p.hd <= 0 ||
       p.hd > kMaxHeadDim || p.per_split <= 0 || p.n_splits <= 0 ||
       p.n_splits > 65535 ||
-      (long long)p.per_split * p.n_splits < p.n_positions) {
+      (long long)p.per_split * p.n_splits < covered(p)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = layout(p.hd, elem, stages_for(p.per_split)).total;

@@ -47,6 +47,15 @@
 // an upper bound).  What is left is latency: two dependent launches, and
 // three or four dependent trips to memory a block.
 //
+// A windowed layer (models/attention.py paged_decode_attend) takes its own
+// entry, repro_paged_decode_window, and its own pair of kernels,
+// paged_window_split_kernel and paged_window_merge_kernel: the same body
+// (kWindow) over the last `window` positions of each lane, first =
+// max(0, len - window) to len.  The pages wholly before first are never
+// read, and the first page's positions before first are never loaded; the
+// split plan covers min(window, W * ps) positions, so a 1024-token window
+// over a 3648-token table takes the splits of 1024 positions, not 3648.
+//
 // A pool cut over the data ranks of a mesh (models/attention.py
 // paged_decode) takes the two passes apart: each rank runs the split pass
 // alone over its block of pages (repro_paged_decode_partials, through a
@@ -86,11 +95,33 @@ paged_decode_partials_kernel(const Params p) {
   decode_split::split_body<T, /*kPaged=*/true, /*kEmpty=*/true>(p);
 }
 
+// the windowed pair: each lane's last p.window positions
+template <typename T>
+__global__ void __launch_bounds__(decode_split::kThreads)
+paged_window_split_kernel(const Params p) {
+  decode_split::split_body<T, /*kPaged=*/true, /*kEmpty=*/false,
+                           /*kWindow=*/true>(p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(decode_split::kMergeThreads)
+paged_window_merge_kernel(const Params p) {
+  decode_split::merge_body<T, /*kAll=*/false, /*kWindow=*/true>(p);
+}
+
 template <typename T>
 int launch(const Params& p, int B, cudaStream_t stream) {
   static size_t configured = 48 * 1024;
   return decode_split::launch_pair(paged_decode_split_kernel<T>,
                                    paged_decode_merge_kernel<T>, &configured,
+                                   p, B, sizeof(T), stream);
+}
+
+template <typename T>
+int launch_window(const Params& p, int B, cudaStream_t stream) {
+  static size_t configured = 48 * 1024;
+  return decode_split::launch_pair(paged_window_split_kernel<T>,
+                                   paged_window_merge_kernel<T>, &configured,
                                    p, B, sizeof(T), stream);
 }
 
@@ -140,6 +171,47 @@ int repro_paged_decode(int dtype, const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// repro_paged_decode over the last `window` (> 0) positions of each lane:
+// the splits (per_split x n_splits) cover min(window, W * ps) positions
+// from each lane's first, max(0, len - window).  Returns the launches'
+// cudaError_t.
+int repro_paged_decode_window(int dtype, const void* q, const void* k_pages,
+                              const void* v_pages, const int* tables,
+                              const int* lengths, void* out, float* ws,
+                              int B, int H, int KV, int P, int ps, int hd,
+                              int W, int window, int per_split, int n_splits,
+                              float scale, void* stream) {
+  if (KV <= 0 || H % KV || P <= 0 || ps <= 0 || W <= 0 || window <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p{};
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.lengths = lengths;
+  p.tables = tables;
+  p.out = out;
+  p.KV = KV;
+  p.G = H / KV;
+  p.hd = hd;
+  p.n_positions = W * ps;
+  p.per_split = per_split;
+  p.n_splits = n_splits;
+  p.P = P;
+  p.ps = ps;
+  p.W = W;
+  p.scale = scale;
+  p.window = window;
+  const size_t rows = (size_t)B * H * n_splits;
+  p.acc = ws;
+  p.m = ws + rows * hd;
+  p.l = p.m + rows;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_window<float>(p, B, s);
+  if (dtype == 1) return launch_window<__nv_bfloat16>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

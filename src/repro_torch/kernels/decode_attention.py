@@ -23,6 +23,9 @@ lane's length).
 passes of :func:`flash_decode` apart, for a ring cut along its positions
 over several ranks: each rank's partials (an empty one for every split it
 skips) are all-gathered and merged all together.
+:func:`paged_flash_decode_window` is :func:`paged_flash_decode` over the
+last ``window`` positions of each lane only (a sliding-window layer's
+decode on the page pool), its own C entry and kernels.
 :func:`paged_flash_decode_partials` is the split pass of
 :func:`paged_flash_decode` alone, for a page pool cut into page blocks
 over the data ranks, merged the same way.
@@ -95,6 +98,10 @@ def _library() -> ctypes.CDLL:
                                            ci, ci, ci, ci, ci, ci, ci, ci,
                                            ci, ctypes.c_float, vp]
         lib.repro_paged_decode.restype = ci
+        lib.repro_paged_decode_window.argtypes = [
+            ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
+            ci, ci, ctypes.c_float, vp]
+        lib.repro_paged_decode_window.restype = ci
         lib.repro_paged_decode_partials.argtypes = [
             ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
             ci, ci, ctypes.c_float, vp]
@@ -210,6 +217,47 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"paged_flash_decode launch failed: CUDA error "
                            f"{err} ({msg})")
+    return out
+
+
+def paged_flash_decode_window(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor, lengths,
+                              window: int) -> torch.Tensor:
+    """:func:`paged_flash_decode` over the last ``window`` positions of
+    each lane: lane b of length n attends positions [max(0, n - window),
+    n).  The split plan covers min(window, W x ps) positions from each
+    lane's first, so pages wholly before it are never read.  Two kernel
+    launches on the current stream (``paged_window_split_kernel``, then
+    ``paged_window_merge_kernel``), without synchronising."""
+    _paged_checks(q, k_pages, v_pages, block_tables,
+                  "paged_flash_decode_window")
+    window = int(window)
+    if window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    B, H, hd = q.shape
+    P, KV, ps, _ = k_pages.shape
+    lengths = _lengths(lengths, B, q.device, "lengths")
+    out = torch.empty_like(q)
+    W = block_tables.shape[1]
+    if B == 0 or W == 0:
+        return out.zero_()
+    lib = _library()
+    per_split, n_splits, ws = _split_setup(
+        q, k_pages, v_pages, KV, min(window, W * ps), ps,
+        lib.repro_paged_decode_smem_bytes)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_paged_decode_window(
+            _DTYPES[q.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, KV, P,
+            ps, hd, W, window, per_split, n_splits, 1.0 / math.sqrt(hd),
+            stream)
+    if err != 0:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"paged_flash_decode_window launch failed: CUDA "
+                           f"error {err} ({msg})")
     return out
 
 

@@ -27,7 +27,8 @@ from repro_torch.roofline.hooks import kernel_call
 launches = {"paged_flash_decode": 0, "ladn_denoise": 0,
             "flash_attention": 0, "flash_decode": 0,
             "flash_decode_partials": 0, "decode_merge": 0,
-            "paged_flash_decode_partials": 0}
+            "paged_flash_decode_partials": 0,
+            "paged_flash_decode_window": 0}
 
 
 def reset_launches() -> None:
@@ -48,6 +49,24 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out = decode_attention.paged_flash_decode(q, k_pages, v_pages,
                                               block_tables, lengths)
     launches["paged_flash_decode"] += 1
+    return out
+
+
+def paged_flash_decode_window(q: torch.Tensor, k_pages: torch.Tensor,
+                              v_pages: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              lengths: torch.Tensor,
+                              window: int) -> torch.Tensor:
+    """:func:`paged_flash_decode` over the last ``window`` positions of
+    each lane (a sliding-window layer): lane b of length n reads
+    positions [max(0, n - window), n).  Returns (B,H,hd)."""
+    if q.device.type == "cpu":
+        return kernel_call("paged_flash_decode_window",
+                           ref.paged_decode_window_ref, q, k_pages, v_pages,
+                           block_tables, lengths, window)
+    out = decode_attention.paged_flash_decode_window(
+        q, k_pages, v_pages, block_tables, lengths, window)
+    launches["paged_flash_decode_window"] += 1
     return out
 
 

@@ -135,6 +135,27 @@ def paged_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
                       lengths)
 
 
+def paged_decode_window_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                            v_pages: torch.Tensor, block_tables: torch.Tensor,
+                            lengths, window: int) -> torch.Tensor:
+    """:func:`paged_decode_ref` over the last ``window`` positions of each
+    lane: position j of a lane of length n is read iff
+    max(0, n - window) <= j < n.  f32 scores and softmax; a lane of
+    length 0 returns the mean of V (no caller asks for one)."""
+    k, v = _dense_pages(k_pages, v_pages, block_tables)
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    qh = q.reshape(B, KV, H // KV, hd).float()
+    s = torch.einsum("bkgd,bksd->bkgs", qh, k.float()) / math.sqrt(hd)
+    n = torch.as_tensor(lengths, device=q.device).reshape(-1).expand(B)
+    pos = torch.arange(S, device=q.device)[None, :]
+    valid = (pos < n[:, None]) & (pos >= n[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    out = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
 def paged_decode_partials_ref(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor,
                               block_tables: torch.Tensor, lengths, *,

@@ -8,7 +8,9 @@ request, and prints the same per-request and summary lines:
       --edges 2 --scheduler jsq --requests 8 --tokens 16 --rate 4
 
 All-attention archs (``qwen2-1.5b``, ``starcoder2-3b``, ``starcoder2-7b``,
-``minitron-8b``, the MoE ``dbrx-132b``) serve from the paged KV pool;
+``minitron-8b``, the MoE ``dbrx-132b``, and ``mellum2-12b``, whose
+sliding-window layers read their window of the pool beside its full
+layers) serve from the paged KV pool;
 the windowed MoE ``mixtral-8x22b``, ``recurrentgemma-9b``
 (RG-LRU and local-attention layers), ``xlstm-350m``, the vision
 ``llava-next-mistral-7b`` (each request's patch embeddings in front of

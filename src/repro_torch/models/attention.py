@@ -14,8 +14,11 @@ set of weights:
   * ``decode`` -- one token per slot against a dense cache (full-length
     or ring-buffer windowed), through ``ops.flash_decode``.
   * ``paged_prefill_chunk`` / ``paged_decode`` -- the shared page pool,
-    through ``ops.flash_attention`` with a query offset and
-    ``ops.paged_flash_decode``.
+    through ``ops.flash_attention`` with a query offset and the layer's
+    window, and ``ops.paged_flash_decode`` (full layers) or
+    ``ops.paged_flash_decode_window`` (windowed layers).  The pool keeps
+    every position of every layer; a windowed layer reads only the last
+    ``window`` of them.
 
 Dense cache layout: {"k": (B, KV, W, hd), "v": (B, KV, W, hd),
 "pos": (B,) int32}, one row per slot; ``pos`` is the number of tokens
@@ -185,20 +188,22 @@ def _out(p, cfg, o: torch.Tensor) -> torch.Tensor:
     return sharding.reduce(y, mesh, ("model",))
 
 
-def _project_qkv(p, cfg, x, positions, use_rope, own=None,
+def _project_qkv(p, cfg, blk, x, positions, own=None,
                  kv_whole: bool = True):
-    """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,KVk,hd), with RoPE applied:
-    every head (``own`` None), or this rank's query heads and their K/V
-    heads (every K/V head with ``kv_whole``); see ``_project``."""
+    """x (B,S,d) -> q (B,S,Hq,hd), k/v (B,S,KVk,hd), with the block's
+    RoPE applied (its ``rope``, else the config's ``rope_theta``): every
+    head (``own`` None), or this rank's query heads and their K/V heads
+    (every K/V head with ``kv_whole``); see ``_project``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v = _project(p, cfg, x, own, kv_whole)
     q = q.reshape(B, S, -1, hd)
     k = k.reshape(B, S, -1, hd)
     v = v.reshape(B, S, -1, hd)
-    if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+    if blk.use_rope:
+        rope = getattr(blk, "rope", None)
+        q = apply_rope(q, positions, cfg.rope_theta, rope)
+        k = apply_rope(k, positions, cfg.rope_theta, rope)
     return q, k, v
 
 
@@ -306,8 +311,7 @@ def attend_train(p, cfg, blk, x, positions) -> torch.Tensor:
     mesh each rank attends its own query heads where they divide
     "model" (``_own_heads``)."""
     own = _attn_heads(cfg)
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own,
-                           kv_whole=False)
+    q, k, v = _project_qkv(p, cfg, blk, x, positions, own, kv_whole=False)
     return _out(p, cfg, _attend(q, k, v, blk.window))
 
 
@@ -360,7 +364,7 @@ def prefill(p, cfg, blk, x, positions, max_len: Optional[int] = None
     reads the unquantised K/V; an int8 cache quantises the ring after."""
     B, S, _ = x.shape
     own = _attn_heads(cfg)
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own)
+    q, k, v = _project_qkv(p, cfg, blk, x, positions, own)
     out = _out(p, cfg, _attend(q, *_kv_of(own, k, v), blk.window))
     kT = k.transpose(1, 2)   # (B,KV,S,hd)
     vT = v.transpose(1, 2)
@@ -436,7 +440,7 @@ def decode(p, cfg, blk, x, cache, max_len: Optional[int] = None
     B = x.shape[0]
     hd = cfg.head_dim
     pos = cache["pos"]
-    q, k, v = _project_qkv(p, cfg, x, pos[:, None], blk.use_rope)
+    q, k, v = _project_qkv(p, cfg, blk, x, pos[:, None])
     W, first, cut = _ring(cfg, blk, cache, max_len)
     Wl = cache["k"].shape[2]
     rows = torch.arange(B, device=x.device)
@@ -503,12 +507,12 @@ def _cut_ring_decode(q, k_read, v_read, pos, W: int, first: int):
 
 def init_paged_kv_cache(cfg, blk, num_pages: int, page_size: int,
                         device: torch.device) -> dict:
-    """Empty per-layer page pool."""
-    if blk.window is not None or cfg.kv_cache_dtype == "int8":
+    """Empty per-layer page pool, full or windowed attention alike: a
+    windowed layer keeps every position too and reads its window."""
+    if cfg.kv_cache_dtype == "int8":
         raise ValueError(
-            "paged KV serving supports full-attention model-dtype caches "
-            f"only (window={blk.window}, kv_cache_dtype="
-            f"{cfg.kv_cache_dtype})")
+            "paged KV serving keeps the model dtype; an int8 KV cache "
+            f"(kv_cache_dtype={cfg.kv_cache_dtype}) takes the dense slots")
     dtype = getattr(torch, cfg.dtype)
     shape = (num_pages, cfg.num_kv_heads, page_size, cfg.head_dim)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=device),
@@ -620,7 +624,7 @@ def paged_chunk_inputs(p, cfg, blk, x, cache, block_table, start,
     C = x.shape[1]
     positions = start + torch.arange(C, device=x.device)[None]   # (1, C)
     own = _attn_heads(cfg)
-    q, k, v = _project_qkv(p, cfg, x, positions, blk.use_rope, own)
+    q, k, v = _project_qkv(p, cfg, blk, x, positions, own)
     block = _pages(cache, num_pages)
     ps = cache["k_pages"].shape[2]
     max_ctx = block_table.shape[-1] * ps
@@ -645,10 +649,12 @@ def paged_chunk_inputs(p, cfg, blk, x, cache, block_table, start,
     return q, kd, vd
 
 
-def paged_chunk_attend(q, kd, vd, start: int) -> torch.Tensor:
+def paged_chunk_attend(q, kd, vd, start: int,
+                       window: Optional[int] = None) -> torch.Tensor:
     """The chunk's causal attention through ``ops.flash_attention`` with
-    ``q_offset=start``: (1, C, Hq, hd)."""
-    return _attend_heads(q, kd, vd, None, q_offset=start)
+    ``q_offset=start`` under the layer's ``window`` (query p reads keys
+    in (p - window, p]): (1, C, Hq, hd)."""
+    return _attend_heads(q, kd, vd, window, q_offset=start)
 
 
 def paged_chunk_out(p, cfg, o: torch.Tensor) -> torch.Tensor:
@@ -662,11 +668,13 @@ def paged_prefill_chunk(p, cfg, blk, x, cache, block_table, start: int,
                         ) -> Tuple[torch.Tensor, dict]:
     """One prompt chunk through paged attention: :func:`paged_chunk_inputs`
     writes the chunk's KV into the pool and gathers the full context, and
-    the chunk's queries attend it with absolute causal masking through
-    ``ops.flash_attention`` with ``q_offset=start``."""
+    the chunk's queries attend it with absolute causal masking (and the
+    layer's window) through ``ops.flash_attention`` with
+    ``q_offset=start``."""
     q, kd, vd = paged_chunk_inputs(p, cfg, blk, x, cache, block_table, start,
                                    num_pages)
-    return paged_chunk_out(p, cfg, paged_chunk_attend(q, kd, vd, start)), cache
+    o = paged_chunk_attend(q, kd, vd, start, blk.window)
+    return paged_chunk_out(p, cfg, o), cache
 
 
 def _owned_table(block_tables: torch.Tensor, n: torch.Tensor, ps: int,
@@ -708,7 +716,7 @@ def paged_decode_query(p, cfg, blk, x, cache, block_tables, lengths,
     """A decode round's attention up to its kernel: each lane's new K/V
     written at position lengths[b], and (q (B, H, hd), the rank's page
     block or None; see :func:`paged_decode`)."""
-    q, k, v = _project_qkv(p, cfg, x, lengths[:, None], blk.use_rope)
+    q, k, v = _project_qkv(p, cfg, blk, x, lengths[:, None])
     ps = cache["k_pages"].shape[2]
     page = _page_of(block_tables, lengths[:, None], ps)[:, 0]   # (B,)
     slot = lengths.long() % ps
@@ -724,11 +732,18 @@ def paged_decode_query(p, cfg, blk, x, cache, block_tables, lengths,
     return q, block
 
 
-def paged_decode_attend(q, cache, block_tables, n) -> torch.Tensor:
+def paged_decode_attend(q, cache, block_tables, n,
+                        window: Optional[int] = None) -> torch.Tensor:
     """The round's attention of each lane over its first ``n`` (B,)
-    positions through ``ops.paged_flash_decode``: (B, H, hd)."""
-    return kernel_ops.paged_flash_decode(q, cache["k_pages"],
-                                         cache["v_pages"], block_tables, n)
+    positions through ``ops.paged_flash_decode``, or over the last
+    ``window`` of them through ``ops.paged_flash_decode_window``:
+    (B, H, hd)."""
+    if window is None:
+        return kernel_ops.paged_flash_decode(q, cache["k_pages"],
+                                             cache["v_pages"], block_tables,
+                                             n)
+    return kernel_ops.paged_flash_decode_window(
+        q, cache["k_pages"], cache["v_pages"], block_tables, n, window)
 
 
 def paged_decode_out(p, cfg, o: torch.Tensor, dtype) -> torch.Tensor:
@@ -755,11 +770,18 @@ def paged_decode(p, cfg, blk, x, cache, block_tables, lengths,
     rank runs the split pass alone (``ops.paged_flash_decode_partials``)
     over the lane's pages in its block, the f32 partials are all-gathered
     over the data axes, and the merge pass alone (``ops.decode_merge``)
-    combines them.  Rank 0 holds the null page."""
+    combines them.  Rank 0 holds the null page.  A windowed layer reads
+    the last ``window`` positions of each lane, outside a mesh only."""
     q, block = paged_decode_query(p, cfg, blk, x, cache, block_tables,
                                   lengths, num_pages)
     if block is None:
-        out = paged_decode_attend(q, cache, block_tables, lengths + 1)
+        out = paged_decode_attend(q, cache, block_tables, lengths + 1,
+                                  blk.window)
+    elif blk.window is not None:
+        raise ValueError(
+            f"a windowed layer (window {blk.window}) decodes from a whole "
+            "page pool only: a pool cut over a mesh's data ranks merges "
+            "full-length partials")
     else:
         ps = cache["k_pages"].shape[2]
         n = torch.clamp(lengths + 1, max=block_tables.shape[1] * ps)

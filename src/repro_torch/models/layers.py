@@ -45,18 +45,62 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def yarn_freqs(head_dim: int, rope, device: torch.device) -> torch.Tensor:
+    """Yarn's inverse frequencies (Hugging Face's
+    ``_compute_yarn_parameters``, ``truncate`` on), shape (head_dim // 2,),
+    for ``rope`` (a ``configs.base.RopeSpec``: theta, factor s, original
+    positions L, beta_fast, beta_slow):
+
+        f_i     = theta ** (-2i / hd)                  (extrapolated)
+        dim(r)  = hd * ln(L / (2 pi r)) / (2 ln theta)
+        lo, hi  = max(floor(dim(beta_fast)), 0),
+                  min(ceil(dim(beta_slow)), hd - 1)    (hi += 0.001 if equal)
+        ramp_i  = clamp((i - lo) / (hi - lo), 0, 1)
+        inv_i   = f_i / s * ramp_i + f_i * (1 - ramp_i)
+
+    Low dims (fast rotations) keep their frequency, high dims are
+    interpolated by s."""
+    def dim(rotations):
+        return (head_dim * math.log(rope.original_max_position
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(rope.theta)))
+
+    lo = max(math.floor(dim(rope.beta_fast)), 0)
+    hi = min(math.ceil(dim(rope.beta_slow)), head_dim - 1)
+    if lo == hi:
+        hi += 0.001
+    extra = rope_freqs(head_dim, rope.theta, device)
+    ramp = torch.clamp((torch.arange(head_dim // 2, dtype=torch.float32,
+                                     device=device) - lo) / (hi - lo), 0, 1)
+    return extra / rope.factor * ramp + extra * (1 - ramp)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10_000.0) -> torch.Tensor:
+               theta: float = 10_000.0, rope=None) -> torch.Tensor:
     """Rotary embedding in the half-split layout of the reference:
     ``concat([x1*cos - x2*sin, x2*cos + x1*sin])``.
 
     x: (..., seq, heads, head_dim); positions: (..., seq) or (seq,).
+    ``rope`` (a ``configs.base.RopeSpec``) replaces ``theta``: its own
+    theta for ``default``, or :func:`yarn_freqs` with cos and sin times
+    its ``attention_factor`` (each score then scaled by its square).
     """
     head_dim = x.shape[-1]
-    freqs = rope_freqs(head_dim, theta, x.device)
+    scale = 1.0
+    if rope is None:
+        freqs = rope_freqs(head_dim, theta, x.device)
+    elif rope.kind == "default":
+        freqs = rope_freqs(head_dim, rope.theta, x.device)
+    elif rope.kind == "yarn":
+        freqs = yarn_freqs(head_dim, rope, x.device)
+        scale = rope.attention_factor
+    else:
+        raise ValueError(f"unknown RoPE kind {rope.kind!r}")
     angles = positions[..., None].float() * freqs          # (..., S, hd/2)
     angles = angles[..., :, None, :]                       # (..., S, 1, hd/2)
     sin, cos = torch.sin(angles), torch.cos(angles)
+    if scale != 1.0:
+        sin, cos = sin * scale, cos * scale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

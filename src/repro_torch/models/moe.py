@@ -1,4 +1,5 @@
-"""Mixture-of-Experts FFN with capacity-bounded dispatch.
+"""Mixture-of-Experts FFN with capacity-bounded dispatch, and a dropless
+grouped path.
 
 Port of ``repro/models/moe.py``.  Three execution paths share the weights
 and the capacity semantics:
@@ -25,6 +26,22 @@ and the capacity semantics:
   contraction dim ("data"), the partial pre-activations are summed over
   "data" before the nonlinearity, and the outputs (accumulated in f32)
   over "data" and "model".
+
+A config whose ``moe.capacity_factor`` is None is dropless (the port's
+own; the reference has none): ``_apply_moe_grouped`` computes every
+routed row, outside a mesh.  It routes as the others do, sorts the T x K
+assignments by expert on the device, runs one grouped matrix product
+(``torch._grouped_mm``, group offsets on the device) for the gate and up
+projections together (the ``we_gate_up`` (E, d, 2f) stack such a config
+holds; a dropless config is gated), the SiLU gate, one for ``we_down``,
+and sums each token's K rows weighted by their gates.  It has no expert
+loop and no host sync, so a CUDA graph captures it; its launches are the
+same for every routing.  On the card it runs in bf16 only: there torch's
+grouped product is one fused sm90 kernel, where in other dtypes it is a
+loop that reads the offsets on the host.
+Where the layer's params hold ``expert_rows`` (E,) int64 (a view of the
+serving engine's counter, :func:`with_row_counter`), every call adds its
+rows per expert there.
 
 ``apply_moe`` picks among them as the reference does: the local path
 outside a mesh, the stationary one when the config asks for it and the
@@ -85,6 +102,10 @@ def init_moe(generator: torch.Generator, cfg, dtype: torch.dtype,
          "we_up": stack(d, f), "we_down": stack(f, d)}
     if cfg.gated_ffn:
         p["we_gate"] = stack(d, f)
+        if m.capacity_factor is None:
+            # the dropless path's one product of gate and up: [gate | up]
+            p["we_gate_up"] = torch.cat([p.pop("we_gate"),
+                                         p.pop("we_up")], dim=-1)
     return p
 
 
@@ -100,19 +121,32 @@ def _route(router_w: torch.Tensor, cfg, xf: torch.Tensor,
     Softmax over the experts, top-k, renormalised gates; the aux term is
     the Switch load-balance loss over the top-1 one-hot's density, the
     mean of each group's."""
-    m = cfg.moe
-    E, K = m.num_experts, m.top_k
-    probs = torch.softmax(xf.float() @ router_w, dim=-1)
-    gate, idx = torch.topk(probs, K, dim=-1)
-    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    probs, gate, idx = _top_k(router_w, cfg, xf)
     w_dense = torch.zeros_like(probs).scatter_(1, idx, gate)
+    return w_dense, _aux(cfg, probs, idx, groups)
+
+
+def _top_k(router_w: torch.Tensor, cfg, xf: torch.Tensor):
+    """(probs (T, E), gates (T, K), expert ids (T, K)): the f32 softmax
+    over every expert, its top-k and the renormalised gates."""
+    probs = torch.softmax(xf.float() @ router_w, dim=-1)
+    gate, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gate, idx
+
+
+def _aux(cfg, probs: torch.Tensor, idx: torch.Tensor,
+         groups: int) -> torch.Tensor:
+    """The Switch load-balance term over the top-1 one-hot's density,
+    the mean of each group's."""
+    m = cfg.moe
+    E = m.num_experts
     # the top-1 one-hot, compared in place (no host check of the ids)
     top1 = (idx[:, :1] == torch.arange(E, device=idx.device)).to(
         probs.dtype)
     density = top1.view(groups, -1, E).mean(1)
     proxy = probs.view(groups, -1, E).mean(1)
-    aux = ((density * proxy).sum(-1) * E * m.router_aux_weight).mean()
-    return w_dense, aux
+    return ((density * proxy).sum(-1) * E * m.router_aux_weight).mean()
 
 
 def _expert_ffn(xb, wu, wd, wg):
@@ -179,6 +213,71 @@ def _apply_moe_local(p, cfg, xf, groups: int = 1
         out = out + _one_expert(xf, w_dense[:, e], wus[e], wds[e],
                                 None if wgs is None else wgs[e], C, groups)
     return out, aux
+
+
+# ---------------------------------------------------------------------------
+# dropless path: grouped products over the rows sorted by expert
+# ---------------------------------------------------------------------------
+
+
+def dropless(cfg) -> bool:
+    return cfg.moe is not None and cfg.moe.capacity_factor is None
+
+
+def _apply_moe_grouped(p, cfg, xf, groups: int = 1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every routed row of xf (T, d): the T x K (token, expert)
+    assignments sorted by expert (a stable sort, so each expert's rows
+    keep token order), the group offsets of the sorted rows, one grouped
+    product for [gate | up], SiLU(gate) * up, one for down; then each
+    token's K rows put back in token order and summed with their gates as
+    weights, in one batched product (deterministic, where an
+    ``index_add_`` of the rows would sum in the atomics' order).
+    ``groups`` only groups the aux term."""
+    if xf.is_cuda and xf.dtype != torch.bfloat16:
+        raise ValueError(
+            f"{cfg.name}: the dropless MoE runs on the card in bfloat16 "
+            f"only (torch's grouped product in {xf.dtype} reads its group "
+            f"offsets on the host, so no CUDA graph can hold it)")
+    probs, gate, idx = _top_k(p["router"], cfg, xf)
+    aux = _aux(cfg, probs, idx, groups)
+    T, K = idx.shape
+    flat = idx.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.zeros(cfg.moe.num_experts, dtype=torch.int64,
+                         device=xf.device).scatter_add_(
+                             0, flat, torch.ones_like(flat))
+    if "expert_rows" in p:
+        p["expert_rows"].add_(counts)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    xs = xf[order // K]                                   # (T K, d)
+    f = cfg.d_ff
+    h = torch._grouped_mm(xs, p["we_gate_up"], offs=offs)
+    a = F.silu(h[:, :f]) * h[:, f:]
+    y = torch._grouped_mm(a, p["we_down"], offs=offs)     # (T K, d)
+    y = torch.empty_like(y).index_copy_(0, order, y).view(T, K, -1)
+    out = torch.bmm(gate.to(y.dtype).unsqueeze(1), y).squeeze(1)
+    return out, aux
+
+
+def with_row_counter(params: dict, cfg, device: torch.device):
+    """(params, counter): for a dropless config, params whose MoE layers
+    each hold ``expert_rows``, a view of row i of one (layers, experts)
+    int64 counter on ``device`` that every call of the grouped path adds
+    its routed rows per expert to; the caller's params are not changed.
+    Other configs: (params, None)."""
+    if not dropless(cfg):
+        return params, None
+    layers = [i for i, blk in enumerate(cfg.layer_pattern())
+              if blk.ffn == "moe"]
+    counter = torch.zeros((len(cfg.layer_pattern()), cfg.moe.num_experts),
+                          dtype=torch.int64, device=device)
+    new = dict(params, layers=list(params["layers"]))
+    for i in layers:
+        layer = new["layers"][i]
+        new["layers"][i] = dict(layer, ffn=dict(layer["ffn"],
+                                                expert_rows=counter[i]))
+    return new, counter
 
 
 # ---------------------------------------------------------------------------
@@ -525,6 +624,7 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, groups: int = 1
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux scalar).
 
+    A dropless config takes the grouped path (outside a mesh only).
     Inside a ShardingContext whose mesh has a "model" axis, the
     stationary path serves when ``cfg.moe_stationary_serve`` is set, the
     mesh has a "data" axis and a routing group holds at most
@@ -540,6 +640,12 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, groups: int = 1
     B, S, d = x.shape
     xf = x.reshape(B * S, d)
     ctx: Optional[sharding.ShardingContext] = sharding.current()
+    if dropless(cfg):
+        if ctx is not None:
+            raise ValueError(f"{cfg.name}: the dropless MoE runs outside a "
+                             "mesh only")
+        out, aux = _apply_moe_grouped(p, cfg, xf, groups)
+        return out.reshape(B, S, d), aux
     if ctx is None or "model" not in ctx.mesh.axis_names:
         out, aux = _apply_moe_local(p, cfg, xf, groups)
         return out.reshape(B, S, d), aux

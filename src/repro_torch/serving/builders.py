@@ -23,9 +23,17 @@ from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import ServeEngine
 
 
-def default_depths(n_edge: int) -> List[int]:
-    """Heterogeneous layer depths — the cluster's speed diversity."""
-    return [2 + 2 * (i % 2) for i in range(n_edge)]
+def default_depths(n_edge: int, period: int = 1) -> List[int]:
+    """Heterogeneous layer depths — the cluster's speed diversity: 2 and
+    4 layers in turn, or one and two whole periods of a config's layer
+    kinds where a period is longer than 2 (every kind of layer kept)."""
+    unit = max(2, period)
+    return [unit * (1 + i % 2) for i in range(n_edge)]
+
+
+def _period(cfg) -> int:
+    """The length of ``cfg``'s period of named layer kinds (1 without)."""
+    return len(getattr(cfg, "layer_types", ())) or 1
 
 
 def _engine(arch: str, cfg, i: int, seed0: int, device: torch.device,
@@ -50,11 +58,12 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
     """n_edge replicas of ``arch`` on ``device`` (``cuda`` by default).
 
     ``full_scale=False`` serves ``reduced()`` configs at ``depths``
-    (default: the reference's alternating 2/4 layers), as the reference
-    does.  ``full_scale=True`` keeps the published widths and dtype, with
-    the depth from ``depths`` or, when that is not given, the config's
-    own.  ``paged=None`` picks the shared page pool for all-attention
-    configs and the dense slot pool otherwise; dense engines ignore the
+    (default: the reference's alternating 2/4 layers, or 1/2 periods of
+    a config's layer kinds, ``default_depths``), as the reference does.
+    ``full_scale=True`` keeps the published widths and dtype, with the
+    depth from ``depths`` or, when that is not given, the config's own.
+    ``paged=None`` picks the shared page pool where ``paged_supported``
+    does and the dense slot pool otherwise; dense engines ignore the
     paged knobs.  Weights are random, drawn on the device from a
     generator seeded ``seed0 + i`` for engine i."""
     device = resolve_device(device)
@@ -62,7 +71,7 @@ def build_engines(arch: str, n_edge: int, max_len: int, *,
     if not full_scale:
         base = reduced(base)
         depths = (list(depths) if depths is not None
-                  else default_depths(n_edge))
+                  else default_depths(n_edge, _period(base)))
     elif depths is None:
         depths = [base.num_layers] * n_edge
     return [_engine(arch, dataclasses.replace(base, num_layers=depths[i]), i,
@@ -98,7 +107,8 @@ def build_fleet(archs: Sequence[str], max_len: int, *,
     if not full_scale:
         bases = [reduced(b) for b in bases]
         depths = (list(depths) if depths is not None
-                  else default_depths(len(archs)))
+                  else [default_depths(len(archs), _period(b))[i]
+                        for i, b in enumerate(bases)])
     elif depths is None:
         depths = [b.num_layers for b in bases]
     return [_engine(arch, dataclasses.replace(base, num_layers=depths[i]),

@@ -4,9 +4,10 @@ page pool.
 Port of ``repro/serving/engine.py``.  One engine wraps one model replica
 on one device and serves admitted requests with one of two memory models:
 
-**Dense slot pool** (recurrent, windowed, int8-cache and vision
-configs).  A fixed pool of ``kv_slots`` per-request states (K/V rings
-``max_len`` deep, or at most the window, and RG-LRU or xLSTM states).
+**Dense slot pool** (recurrent, int8-cache and vision configs, and
+configs whose every attention layer is windowed).  A fixed pool of
+``kv_slots`` per-request states (K/V rings ``max_len`` deep, or at most
+the window, and RG-LRU or xLSTM states).
 Each step runs one batch-1 prefill per joining request (a vision
 request's patches go in front of its prompt), then one batched decode
 round over every slot, each slot at its own position; free slots ride
@@ -15,10 +16,14 @@ along and their outputs are dropped.
 Audio configs (``num_codebooks`` K) take (1, K, S) prompts and emit one
 (1, K) token row per step.
 
-**Paged page pool** (all-attention configs; picked by
-``paged_supported``).  KV memory is a shared pool of fixed-size pages per
-layer; each request holds only the pages its prompt plus generation
-need, named by a per-request block table.  Admission is gated on free
+**Paged page pool** (all-attention configs with at least one full
+attention layer; picked by ``paged_supported``).  KV memory is a shared
+pool of fixed-size pages per layer; each request holds only the pages
+its prompt plus generation need, named by a per-request block table.  A
+sliding-window layer keeps every position in its pool too and attends
+only its window of them (the prefill chunk's mask, the windowed decode
+kernel); its pages are freed with the request's, not as they leave the
+window.  Admission is gated on free
 pages and a free lane (up to ``max_lanes``); prefill is chunked, one
 ``prefill_chunk``-token chunk per prefilling lane per step, followed by
 one decode round across the lanes that finished prefilling.  Completed
@@ -80,6 +85,7 @@ from repro_torch import DeviceLike, resolve_device, tracing
 from repro_torch.cluster.request import Request
 from repro_torch.faults.policy import AVAILABILITY, Health
 from repro_torch.launch import sharding
+from repro_torch.models import moe
 from repro_torch.serving import compiled
 from repro_torch.serving.paged_kv import (BlockTable, PagePool, PrefixCache,
                                           cdiv, paged_supported)
@@ -167,6 +173,13 @@ class ServeEngine:
         self.kv_slots = kv_slots
         self.sample = sample
         self.arch_id = arch_id or cfg.name
+        # a dropless MoE's routed rows per (layer, expert), added to on the
+        # device by every step (``models/moe.py``); never zeroed, so a
+        # reader takes the difference of two copies
+        self.expert_rows = None
+        if mesh is None:
+            self.params, self.expert_rows = moe.with_row_counter(
+                self.params, cfg, self.device)
         self._clock = clock
         self._queue = EDFQueue()
         self._gen = torch.Generator(device=self.device).manual_seed(seed)

@@ -9,7 +9,8 @@ called eagerly between two replays:
 
 * ``ops.flash_attention`` takes the chunk's start as a launch argument
   and plans its tiles from it, so a graph holding it would freeze one
-  start;
+  start; each layer's kernel is called with that layer's window (a
+  windowed layer's decode through ``ops.paged_flash_decode_window``);
 * the kernels stay Python calls of ``ops``, so ``ops.launches`` counts
   them, and a wrapper installed on ``ops`` sees every call, as in an
   eager step.
@@ -60,7 +61,8 @@ class PagedPieces:
 
     def __init__(self, cfg, mode: str, batch: dict):
         self.cfg, self.mode = cfg, mode
-        self.L = len(cfg.layer_pattern())
+        self.windows = [blk.window for blk in cfg.layer_pattern()]
+        self.L = len(self.windows)
         self.inputs = {n: torch.empty_like(batch[n]) for n in _INPUTS[mode]}
         if mode == "paged_prefill":
             self.inputs["start"] = torch.zeros(
@@ -106,10 +108,12 @@ class PagedPieces:
         for i in range(self.L):
             segment(i)
             if self.mode == "paged_prefill":
-                o = attention.paged_chunk_attend(*self.args, start)
+                o = attention.paged_chunk_attend(*self.args, start,
+                                                 self.windows[i])
             else:
                 o = attention.paged_decode_attend(
-                    *self.args, states[i], self.inputs["block_tables"], n)
+                    *self.args, states[i], self.inputs["block_tables"], n,
+                    self.windows[i])
             if self.o is None:
                 self.o = torch.empty_like(o)
             self.o.copy_(o)

@@ -381,13 +381,17 @@ class PrefixCache:
 def paged_supported(cfg) -> bool:
     """Whether a config can be served from a shared page pool.
 
-    Requires every block to be full (unwindowed) attention with a
-    model-dtype cache; recurrent mixers, ring-buffer windows and int8
-    caches keep the dense per-slot path.
+    Requires every block to be attention with a model-dtype cache, and
+    at least one of them full (unwindowed): the pool keeps every position
+    for those anyway, and windowed layers beside them read their window
+    of it.  Recurrent mixers, int8 caches and configs whose every layer
+    is windowed (a ring of the window per slot is smaller) keep the dense
+    per-slot path.
     """
     if cfg.kv_cache_dtype == "int8":
         return False
     if getattr(cfg, "vision_patches", 0):
         return False
-    return all(b.mixer == "attn" and b.window is None
-               for b in cfg.layer_pattern())
+    blocks = cfg.layer_pattern()
+    return (all(b.mixer == "attn" for b in blocks)
+            and any(b.window is None for b in blocks))

@@ -138,7 +138,8 @@ def test_serve_main_on_cpu_completes_every_request(capsys):
                               "ladn_denoise": 0, "flash_attention": 0,
                               "flash_decode": 0, "flash_decode_partials": 0,
                               "decode_merge": 0,
-                              "paged_flash_decode_partials": 0}
+                              "paged_flash_decode_partials": 0,
+                              "paged_flash_decode_window": 0}
     out = capsys.readouterr().out
     assert out.count("[serve] req ") == 5 and "[serve] jsq: n=5" in out
 

@@ -234,7 +234,8 @@ def test_serve_main_with_lad_ts_on_cpu(capsys):
     assert st["launches"] == {"paged_flash_decode": 0, "ladn_denoise": 0,
                               "flash_attention": 0, "flash_decode": 0,
                               "flash_decode_partials": 0, "decode_merge": 0,
-                              "paged_flash_decode_partials": 0}
+                              "paged_flash_decode_partials": 0,
+                              "paged_flash_decode_window": 0}
     assert st["train_s"] > 0
     out = capsys.readouterr().out
     assert "training lad-ts in-sim" in out and "[serve] lad-ts: n=4" in out
